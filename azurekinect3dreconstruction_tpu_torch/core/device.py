@@ -8,6 +8,8 @@ choice and no fallback: asking for CUDA without a card raises.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,17 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run float32 matrix products in full float32 inside the block, whatever
+    the caller set: on CUDA, ``torch.set_float32_matmul_precision("high")``
+    (or ``allow_tf32``) would otherwise round their inputs to TF32, about
+    three decimal digits, which would move a pose by millimetres."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -1,8 +1,10 @@
-"""Frame container and the raw-sensor decode shared by every entry point."""
+"""Frame container, the raw-sensor decode shared by every entry point, and
+the mesh and point-cloud containers of extraction and saving."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,3 +62,77 @@ class RGBDFrame:
             color = torch.clamp(color.to(torch.float32), 0.0, 1.0)
         return RGBDFrame(*decode_raw_frame(depth_raw, color, 1.0 / depth_scale,
                                            depth_min, depth_trunc))
+
+
+def _host(a) -> Optional[np.ndarray]:
+    """A tensor or array as a host numpy array (``None`` stays ``None``)."""
+    if a is None or isinstance(a, np.ndarray):
+        return a
+    return a.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class PointCloudHost:
+    """Plain-numpy compacted cloud for IO/viz."""
+
+    points: np.ndarray
+    colors: Optional[np.ndarray] = None
+    normals: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return int(self.points.shape[0])
+
+
+@dataclasses.dataclass
+class TriangleMesh:
+    """Triangle soup from marching cubes, possibly padded past its live
+    counts (the JAX package's is padded to its budget).
+
+    vertices: (V, 3) f32; vertex_colors: (V, 3) f32; triangles: (T, 3) i32;
+    num_vertices / num_triangles: live counts; overflow: the budget was too
+    small and the soup is truncated. The arrays may be numpy arrays or
+    tensors; :meth:`compact` copies the live prefix to the host."""
+
+    vertices: object
+    triangles: object
+    num_vertices: object
+    num_triangles: object
+    vertex_colors: object = None
+    vertex_normals: object = None
+    overflow: bool = False
+
+    def compact(self) -> "TriangleMeshHost":
+        nv = int(self.num_vertices)
+        nt = int(self.num_triangles)
+        cut = lambda a, n: None if a is None else _host(a[:n])
+        return TriangleMeshHost(
+            vertices=cut(self.vertices, nv),
+            triangles=cut(self.triangles, nt),
+            vertex_colors=cut(self.vertex_colors, nv),
+            vertex_normals=cut(self.vertex_normals, nv),
+        )
+
+
+@dataclasses.dataclass
+class TriangleMeshHost:
+    """Plain-numpy indexed mesh (or compacted soup) for IO/viz."""
+
+    vertices: np.ndarray
+    triangles: np.ndarray
+    vertex_colors: Optional[np.ndarray] = None
+    vertex_normals: Optional[np.ndarray] = None
+
+    def compact(self) -> "TriangleMeshHost":
+        """Already compact: callers treat device and host meshes alike."""
+        return self
+
+    def compute_vertex_normals(self) -> "TriangleMeshHost":
+        """Area-weighted vertex normals from the face cross products."""
+        v, t = self.vertices, self.triangles
+        fn = np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+        vn = np.zeros_like(v)
+        for k in range(3):
+            np.add.at(vn, t[:, k], fn)
+        norm = np.linalg.norm(vn, axis=1, keepdims=True)
+        self.vertex_normals = vn / np.maximum(norm, 1e-12)
+        return self

@@ -2,7 +2,8 @@
 
 There are no weights to convert; what crosses is state: a TSDF volume (so
 both packages can continue from the same pool, slot by slot), intrinsics,
-pipeline configs and poses. Nothing here imports jax: the JAX side hands
+pipeline configs, poses, an extracted mesh and a frame-to-model tracking
+model (its points and mask). Nothing here imports jax: the JAX side hands
 over ``numpy`` arrays and plain dataclasses.
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.core.types import TriangleMesh
 from azurekinect3dreconstruction_tpu_torch.tsdf.volume import TSDFVolume
 
 _LANES = 128  # the JAX pool's trailing (R^3/128, 128) layout
@@ -66,8 +68,25 @@ def pipeline_config_from(obj) -> PipelineConfig:
 
 def pose_to_torch(T, device) -> torch.Tensor:
     """A 4x4 pose (numpy or array-like) -> float32 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(T, np.float32)).to(device)
+    return torch.from_numpy(np.array(T, np.float32)).to(device)
 
 
 def pose_to_numpy(T: torch.Tensor) -> np.ndarray:
     return T.detach().cpu().numpy().astype(np.float32)
+
+
+def mesh_from(obj) -> TriangleMesh:
+    """Any ``TriangleMesh``-shaped object (e.g. the JAX one) -> the port's,
+    with host numpy arrays."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    return TriangleMesh(vertices=arr(obj.vertices), triangles=arr(obj.triangles),
+                        num_vertices=np.int32(obj.num_vertices),
+                        num_triangles=np.int32(obj.num_triangles),
+                        vertex_colors=arr(obj.vertex_colors),
+                        vertex_normals=arr(getattr(obj, "vertex_normals", None)))
+
+
+def model_to_torch(points, mask, device):
+    """A tracking model ``(points (M, 3), mask (M,))`` -> tensors on ``device``."""
+    return (torch.from_numpy(np.array(points, np.float32)).to(device),
+            torch.from_numpy(np.array(mask, np.bool_)).to(device))

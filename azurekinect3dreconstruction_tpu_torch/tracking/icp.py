@@ -1,0 +1,245 @@
+"""Projective ICP: point-to-plane and colored variants (the counterparts of
+the JAX package's ``tracking/icp.py``).
+
+Correspondences are projective: the source cloud, moved by the current
+estimate, projects into the target camera's organized maps (points,
+normals, intensity), which is a fixed-shape nearest/bilinear sample. Colored
+ICP adds Park et al.'s photometric term, weighted ``1 - lambda_geometric``,
+with its gradient from the target intensity image. Fitness is inliers over
+valid source points; the RMSE is over the inliers.
+
+Every iteration stays on the device. The normal equations are summed as
+elementwise products (no matrix product), solved by
+:func:`core.linalg.solve_spd6`, and the 4x4 pose products run under
+``core.device.full_fp32_matmul``, so no TF32 enters on any card. The early
+exit of the JAX while-loop becomes a device-side ``done`` flag that freezes
+the pose and the stats.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig
+from azurekinect3dreconstruction_tpu_torch.core import linalg, se3
+from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.core.device import full_fp32_matmul
+from azurekinect3dreconstruction_tpu_torch.core.fmath import fma
+from azurekinect3dreconstruction_tpu_torch.ops.backproject import (
+    backproject_depth,
+    bilinear_sample,
+    nearest_sample,
+)
+from azurekinect3dreconstruction_tpu_torch.ops.image import sobel_gradients
+from azurekinect3dreconstruction_tpu_torch.ops.normals import organized_normals
+
+
+class ICPResult(NamedTuple):
+    T: torch.Tensor  # (4, 4) transform source -> target frame
+    fitness: torch.Tensor
+    inlier_rmse: torch.Tensor
+    inliers: torch.Tensor  # int32
+
+
+class TargetMaps(NamedTuple):
+    """Organized target-frame geometry for projective association."""
+
+    points: torch.Tensor  # (H, W, 3) camera-space points (z = 0 invalid)
+    normals: torch.Tensor  # (H, W, 3) unit normals (0 invalid)
+    intensity: Optional[torch.Tensor] = None  # (H, W)
+    grad_u: Optional[torch.Tensor] = None
+    grad_v: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def from_depth(depth, rays, intensity=None) -> "TargetMaps":
+        """Maps of one depth frame; ``rays`` from ``core.camera.pixel_rays``."""
+        pts = backproject_depth(depth, rays)
+        gu = gv = None
+        if intensity is not None:
+            gu, gv = sobel_gradients(intensity)
+        return TargetMaps(points=pts, normals=organized_normals(pts), intensity=intensity,
+                          grad_u=gu, grad_v=gv)
+
+
+def _project(p, intr: Intrinsics):
+    """Camera points (N, 3) -> (uv (N, 2), z clamped to 1e-6)."""
+    zs = torch.clamp_min(p[..., 2], 1e-6)
+    return torch.stack([fma(p[..., 0] / zs, intr.fx, intr.cx),
+                        fma(p[..., 1] / zs, intr.fy, intr.cy)], dim=-1), zs
+
+
+def _normal_equations(J, r):
+    """(J^T J, J^T r) of rows J (N, 6) and residuals r (N,) in float32,
+    from elementwise products and sums."""
+    return (J[:, :, None] * J[:, None, :]).sum(dim=0), (J * r[:, None]).sum(dim=0)
+
+
+def _gn_step(T, src_pts, src_int, src_mask, tgt: TargetMaps, intr: Intrinsics,
+             dist_thr: float, lambda_geometric: float, colored: bool):
+    """One Gauss-Newton step: (T_new, (fitness, rmse, inliers), |delta|)."""
+    p = se3.transform_points(T, src_pts)
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+    uv, zs = _project(p, intr)
+    q, inb = nearest_sample(tgt.points, uv)
+    n, _ = nearest_sample(tgt.normals, uv)
+    has_n = (n * n).sum(dim=-1) > 0.5
+    diff = p - q
+    dist = torch.linalg.vector_norm(diff, dim=-1)
+    r_g = (diff * n).sum(dim=-1)
+    valid = src_mask & inb & (pz > 1e-4) & (q[..., 2] > 0) & has_n & (dist < dist_thr)
+
+    w = valid.to(torch.float32)
+    J_g = torch.cat([n, torch.linalg.cross(p, n)], dim=-1)  # (N, 6): [n, p x n]
+    sg = lambda_geometric ** 0.5 if colored else 1.0
+    rows_J = [J_g * (w[..., None] * sg)]
+    rows_r = [r_g * w * sg]
+    if colored:
+        it, _ = bilinear_sample(tgt.intensity, uv)
+        gu, _ = bilinear_sample(tgt.grad_u, uv)
+        gv, _ = bilinear_sample(tgt.grad_v, uv)
+        r_c = it - src_int
+        inv_z = 1.0 / zs
+        zero = torch.zeros_like(pz)
+        ju = torch.stack([intr.fx * inv_z, zero, -intr.fx * px * inv_z * inv_z], -1)
+        jv = torch.stack([zero, intr.fy * inv_z, -intr.fy * py * inv_z * inv_z], -1)
+        jp = gu[..., None] * ju + gv[..., None] * jv  # (N, 3) dI/dp'
+        jw = torch.stack([jp[..., 0], jp[..., 1], jp[..., 2],
+                          -jp[..., 1] * pz + jp[..., 2] * py,
+                          jp[..., 0] * pz - jp[..., 2] * px,
+                          -jp[..., 0] * py + jp[..., 1] * px], dim=-1)
+        sc = (1.0 - lambda_geometric) ** 0.5
+        rows_J.append(jw * (w[..., None] * sc))
+        rows_r.append(r_c * w * sc)
+    JtJ, Jtr = _normal_equations(torch.cat(rows_J), torch.cat(rows_r))
+    eye6 = torch.eye(6, dtype=torch.float32, device=JtJ.device)
+    delta = linalg.solve_spd6(JtJ + 1e-6 * eye6, -Jtr)
+    delta = torch.where(torch.isfinite(delta).all(), delta, 0.0)
+    T_new = se3.se3_exp(delta) @ T
+
+    n_in = valid.to(torch.int32).sum()
+    n_src = src_mask.to(torch.int32).sum()
+    fitness = n_in / torch.clamp_min(n_src, 1)
+    rmse = torch.sqrt(torch.where(valid, dist * dist, 0.0).sum() / torch.clamp_min(n_in, 1))
+    return T_new, (fitness, rmse, n_in), torch.linalg.vector_norm(delta)
+
+
+def icp_projective(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, init=None,
+                   max_iters: int = 30, dist_thr: float = 0.05,
+                   lambda_geometric: float = 0.968, colored: bool = False,
+                   src_intensity=None, rel_tol: float = 1e-6) -> ICPResult:
+    """Register a flat (N, 3) masked source cloud onto organized target maps.
+    Returns ``T`` with ``T @ src ~= target-frame geometry``.
+
+    Iteration stops once a step's tangent-space norm falls below
+    ``rel_tol`` (0 runs all ``max_iters``). The stop is a device flag: all
+    ``max_iters`` steps are computed, and from the one after the flag is set
+    on, the pose and the stats stay frozen — the JAX while-loop's result,
+    with no host synchronization."""
+    src_points = src_points.to(torch.float32)
+    src_mask = src_mask.to(torch.bool)
+    dev = src_points.device
+    if src_intensity is None:
+        src_intensity = torch.zeros(src_points.shape[:-1], dtype=torch.float32, device=dev)
+    T = torch.eye(4, dtype=torch.float32, device=dev) if init is None else init.to(torch.float32)
+    fitness = torch.zeros((), dtype=torch.float32, device=dev)
+    rmse = torch.zeros((), dtype=torch.float32, device=dev)
+    n_in = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    with full_fp32_matmul():
+        for _ in range(max_iters):
+            T2, (f2, r2, n2), dnorm = _gn_step(T, src_points, src_intensity, src_mask, tgt,
+                                               intr, dist_thr, lambda_geometric, colored)
+            T = torch.where(done, T, T2)
+            fitness = torch.where(done, fitness, f2.to(torch.float32))
+            rmse = torch.where(done, rmse, r2)
+            n_in = torch.where(done, n_in, n2)
+            done = done | (dnorm < rel_tol)
+    return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, inliers=n_in)
+
+
+class GraphedICP:
+    """Point-to-plane :func:`icp_projective` with fixed parameters, replayed
+    as one CUDA graph on CUDA tensors.
+
+    An ICP of ``max_iters`` steps is ~600 small PyTorch operations a step,
+    so on the card it is bound by the host issuing them, not by the device.
+    Every shape is static and nothing waits on the host, so the whole loop
+    is captured once per input shape and replayed: the host then enqueues six
+    copies and one graph launch. On CPU tensors it calls
+    :func:`icp_projective`. A replay computes what the eager loop computes,
+    launch for launch, so the two agree to the bit."""
+
+    def __init__(self, intr: Intrinsics, max_iters: int, dist_thr: float,
+                 rel_tol: float = 1e-6):
+        self.intr = intr
+        self.kw = dict(max_iters=max_iters, dist_thr=dist_thr, rel_tol=rel_tol)
+        self._graphs = {}  # (device, shapes) -> (static inputs, graph, static outputs)
+
+    def _run(self, src_points, src_mask, points, normals, init) -> ICPResult:
+        return icp_projective(src_points, src_mask, TargetMaps(points, normals), self.intr,
+                              init=init, **self.kw)
+
+    def _capture(self, inputs):
+        static = tuple(t.clone() for t in inputs)
+        dev = static[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run(*static)  # warm-up: lazy initialisation stays out of the graph
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._run(*static)
+        return static, graph, tuple(out)
+
+    def __call__(self, src_points, src_mask, tgt: TargetMaps, init) -> ICPResult:
+        inputs = (src_points.to(torch.float32), src_mask.to(torch.bool),
+                  tgt.points, tgt.normals, init.to(torch.float32))
+        if not src_points.is_cuda:
+            return self._run(*inputs)
+        key = (src_points.device, *(tuple(t.shape) for t in inputs))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(inputs)
+        static, graph, out = self._graphs[key]
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        return ICPResult(*(t.clone() for t in out))
+
+
+def icp_point_to_plane(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, init=None,
+                       cfg: RegistrationConfig = RegistrationConfig()) -> ICPResult:
+    """Point-to-plane ICP with the registration config's budget and gate."""
+    return icp_projective(src_points, src_mask, tgt, intr, init=init,
+                          max_iters=cfg.icp_max_iters, dist_thr=cfg.icp_distance_threshold)
+
+
+def colored_icp(src_points, src_intensity, src_mask, tgt: TargetMaps, intr: Intrinsics,
+                init=None, cfg: RegistrationConfig = RegistrationConfig()) -> ICPResult:
+    """Colored ICP (geometric + photometric) with the config's budget."""
+    return icp_projective(src_points, src_mask, tgt, intr, init=init,
+                          max_iters=cfg.colored_icp_max_iters,
+                          dist_thr=cfg.icp_distance_threshold,
+                          lambda_geometric=cfg.colored_icp_lambda_geometric,
+                          colored=True, src_intensity=src_intensity)
+
+
+def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,
+                       dist_thr: float = 0.05):
+    """(matched, visible, rmse) of ``src`` under ``T`` against organized
+    target maps: ``visible`` source points project in bounds onto valid
+    target depth and normals with positive depth on both sides; ``matched``
+    are the visible ones within ``dist_thr`` of their target point."""
+    p = se3.transform_points(T.to(torch.float32), src_points.to(torch.float32))
+    uv, _ = _project(p, intr)
+    q, inb = nearest_sample(tgt.points, uv)
+    n, _ = nearest_sample(tgt.normals, uv)
+    has_n = (n * n).sum(dim=-1) > 0.5
+    visible = src_mask & inb & (p[..., 2] > 1e-4) & (q[..., 2] > 0) & has_n
+    dist = torch.linalg.vector_norm(p - q, dim=-1)
+    matched = visible & (dist < dist_thr)
+    n_m = matched.to(torch.int32).sum()
+    rmse = torch.sqrt(torch.where(matched, dist * dist, 0.0).sum() / torch.clamp_min(n_m, 1))
+    return n_m, visible.to(torch.int32).sum(), rmse

@@ -225,6 +225,23 @@ def integrate_frame(vol: TSDFVolume, depth, color, rays, T_world_cam,
 # ---------------------------------------------------------------------------
 
 
+def sample_tsdf(vol: TSDFVolume, points, cfg: TSDFConfig):
+    """Nearest-voxel (tsdf, weight) at world points (N, 3); (1, 0) where the
+    voxel's block is not allocated. ``points / voxel`` multiplies by the
+    float32 reciprocal, as the JAX package's compiled lookup does."""
+    R = cfg.block_resolution
+    vox = torch.floor(points.to(torch.float32) * rcp32(cfg.voxel_size)).to(torch.int32)
+    bc = torch.div(vox, R, rounding_mode="floor")
+    local = vox - bc * R
+    slot = vhash.lookup(vol.table, vhash.pack_key(bc))
+    lin = (local[..., 0] * R * R + local[..., 1] * R + local[..., 2]).long()
+    ok = slot >= 0
+    slot_c = torch.where(ok, slot, 0).long()
+    t = vol.tsdf[slot_c, lin]
+    w = vol.weight[slot_c, lin]
+    return torch.where(ok, t, 1.0), torch.where(ok, w, 0.0)
+
+
 def extract_point_cloud(vol: TSDFVolume, cfg: TSDFConfig, max_points: Optional[int] = None):
     """Surface points by zero-crossing interpolation along +x/+y/+z within
     each block. Returns a host-side compacted (points, colors) numpy pair."""
@@ -281,3 +298,60 @@ def memory_bytes(cfg: TSDFConfig) -> int:
     """Device footprint of a volume with this config."""
     n, r3 = cfg.block_capacity, cfg.block_resolution ** 3
     return n * r3 * 4 * (1 + 1 + 3) + cfg.hash_capacity * 8 + n * 12
+
+
+def extract_point_cloud_device(vol: TSDFVolume, cfg: TSDFConfig, max_points: int = 65536,
+                               extract_blocks: Optional[int] = None):
+    """Device-side surface points by zero crossing along +x/+y/+z inside each
+    block: (points (max_points, 3), colors (max_points, 3), mask), fixed
+    capacity, in the JAX package's order (axis, then block, then voxel);
+    points past the capacity are dropped. Nothing waits on the host."""
+    R = cfg.block_resolution
+    N = vol.tsdf.shape[0]
+    E = min(extract_blocks or N, N)
+    dev = vol.tsdf.device
+    t4 = vol.tsdf[:E].reshape(E, R, R, R)
+    w4 = vol.weight[:E].reshape(E, R, R, R)
+    c4 = vol.color[:E].reshape(E, 3, R, R, R)
+    base = vol.block_coords[:E].to(torch.float32) * R  # (E, 3)
+    alive = torch.arange(E, device=dev) < vol.n_blocks
+    grid = torch.arange(R, dtype=torch.float32, device=dev) + 0.5
+    pts_parts, col_parts, m_parts = [], [], []
+    for axis in range(3):
+        sl_a, sl_b = [slice(None)] * 4, [slice(None)] * 4
+        sl_a[axis + 1] = slice(0, R - 1)
+        sl_b[axis + 1] = slice(1, R)
+        t0, t1 = t4[tuple(sl_a)], t4[tuple(sl_b)]
+        w0, w1 = w4[tuple(sl_a)], w4[tuple(sl_b)]
+        cross = ((w0 > 0) & (w1 > 0) & (torch.sign(t0) != torch.sign(t1)) & (t0 != 0)
+                 & alive[:, None, None, None])
+        d = t0 - t1
+        fr = torch.clamp(t0 / torch.where(d.abs() > 1e-12, d, 1e-12), 0.0, 1.0)
+        sh = t0.shape
+        p = []
+        for k in range(3):
+            loc = grid[: sh[k + 1]].view([-1 if i == k else 1 for i in range(3)])
+            loc = loc.expand(sh[1:])[None]
+            if k == axis:
+                loc = loc + fr
+            p.append(((base[:, k, None, None, None] + loc) * cfg.voxel_size).reshape(-1))
+        c0 = c4[(slice(None), slice(None)) + tuple(sl_a[1:])]
+        c1 = c4[(slice(None), slice(None)) + tuple(sl_b[1:])]
+        cmix = fma(fr[:, None], c1 - c0, c0)  # (E, 3, ...)
+        pts_parts.append(p)
+        col_parts.append([cmix[:, k].reshape(-1) for k in range(3)])
+        m_parts.append(cross.reshape(-1))
+    m = torch.cat(m_parts)
+    order = torch.cumsum(m.to(torch.int64), 0) - 1
+    dst = torch.where(m & (order < max_points), order, max_points)
+    outs = []
+    for parts in (pts_parts, col_parts):
+        chans = []
+        for k in range(3):
+            flat = torch.cat([a[k] for a in parts])
+            chans.append(torch.zeros((max_points + 1,), dtype=torch.float32, device=dev)
+                         .scatter_(0, dst, flat)[:max_points])
+        outs.append(torch.stack(chans, dim=-1))
+    n = torch.clamp_max(order[-1] + 1, max_points)
+    mask = torch.arange(max_points, device=dev) < n
+    return outs[0], outs[1], mask

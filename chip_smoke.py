@@ -14,13 +14,23 @@ worklist, odometry pyramid [20, 10, 5]):
    angle_span=1.3)``), rendered on the card and quantized to u16 mm / u8 RGB,
    with every launch counter zeroed just before and read just after;
 3. checks the result: every frame through the fitness gate, no overflow,
-   ATE RMSE against the ground-truth poses <= 2 cm, finite surface points.
+   ATE RMSE against the ground-truth poses <= 2 cm, finite surface points;
+4. saves the mesh as the live entry point does: ``pipe.extract_mesh()`` on
+   the card, ``weld_vertices``, ``write_ply_mesh`` to a temporary directory
+   and ``read_ply`` back, and extracts again from a CPU copy of the same
+   volume: same triangle count, vertices <= 1e-5 after a canonical sort;
+5. drives ``MonoOdometryTSDF(..., tracking="frame_to_model")`` over the
+   first 32 poses of the sweep, with frame-to-frame tracking over the same
+   poses beside it, the launch counters zeroed just before and read just
+   after: ATE <= 2 cm and <= the frame-to-frame ATE + 0.5 mm, refinements
+   accepted, no gate rejection, no overflow, both kernels launched; then
+   times the phases of one frame-to-model frame.
 
 Prints the card's name and power limit, the build time, the launch counts,
-per-frame fitness, ATE/RPE, ms/frame, one JSON line of per-kernel results,
-and, as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, on any failure or when no CUDA device is available.
-Needs no jax.
+per-frame fitness, ATE/RPE, ms/frame, mesh and frame-to-model results, one
+JSON line of per-kernel results, and, as the last line, ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, on any failure or
+when no CUDA device is available. Needs no jax.
 """
 
 from __future__ import annotations
@@ -29,12 +39,16 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "azurekinect3dreconstruction_tpu_torch"
 N_FRAMES = 16
+N_F2M_FRAMES = 32
 ATE_LIMIT_M = 0.02
+F2M_ATE_SLACK_M = 0.0005  # frame-to-model may not drift more than frame-to-frame + this
+MESH_VERTEX_TOL = 1e-5  # card vs CPU copy, canonical sort (test_marching_cubes.py's bound)
 # kernel vs plain, on the card (see PERF.md): B1 differs only where a voxel
 # sits on a half-pixel edge; B2 sums ~370k pixels in another order
 B1_WEIGHT_EQUAL_MIN = 0.9999
@@ -75,6 +89,225 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _median_ms(fn, dev, reps: int = 5) -> float:
+    """Median time of ``fn`` over ``reps`` calls, each closed by a device
+    synchronization: CUDA events on a card, the host clock on the CPU."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_phase(pipe, tcfg, dev, gpu: str) -> list:
+    """The save path on the card, checked against a CPU copy of the same
+    volume. Returns the failures."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.tsdf.marching_cubes import (
+        extract_mesh,
+        weld_vertices,
+    )
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_ply, write_ply_mesh
+
+    failures = []
+    mesh = pipe.extract_mesh()
+    soup = mesh.compact()
+    nt = soup.triangles.shape[0]
+    welded = weld_vertices(soup)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.ply")
+        write_ply_mesh(path, welded)
+        size = os.path.getsize(path)
+        v, _, f = read_ply(path)
+    round_trip = (v.shape == welded.vertices.shape and np.array_equal(v, welded.vertices)
+                  and np.array_equal(f, welded.triangles))
+    host = pipe.volume._replace(**{k: t.cpu() for k, t in pipe.volume._asdict().items()})
+    ref = extract_mesh(host, tcfg).compact()
+
+    def canon(a):
+        return a[np.lexsort(a.T)]
+
+    same_count = ref.triangles.shape[0] == nt
+    err = (float(np.abs(canon(soup.vertices) - canon(ref.vertices)).max())
+           if same_count and nt else float("inf"))
+    same_order = same_count and np.array_equal(soup.vertices, ref.vertices)
+    ms = _median_ms(pipe.extract_mesh, dev)
+    # its phases: survey (case codes, padded corner cubes), emission at the
+    # exact budgets, the soup's copy to the host; then the host-side save
+    vol = pipe.volume
+    E = mc.snap_extract_blocks(int(vol.n_blocks), vol.tsdf.shape[0])
+    sv = mc._survey(vol, tcfg, extract_blocks=E)
+    cells = max(65536, int(mc._active_groups(sv.case).sum()) * mc.GROUP)  # as extract_mesh
+    out = mc._emit(sv, tcfg, cells, nt)
+    with tempfile.TemporaryDirectory() as tmp:
+        phases = {
+            "survey": lambda: mc._survey(vol, tcfg, extract_blocks=E),
+            "emit": lambda: mc._emit(sv, tcfg, cells, nt),
+            "copy_to_host": lambda: [a.permute(2, 0, 1).reshape(-1, 3).cpu() for a in out[:2]],
+            "weld (host)": lambda: weld_vertices(soup),
+            "write_ply (host)": lambda: write_ply_mesh(os.path.join(tmp, "m.ply"), welded),
+        }
+        times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
+    _log(f"mesh: {nt} triangles, {welded.vertices.shape[0]} welded vertices, PLY {size} bytes "
+         f"read back {'equal' if round_trip else 'DIFFERENT'}; CPU copy {ref.triangles.shape[0]} "
+         f"triangles, max |dvertex| {err:.3g} after canonical sort, same order {same_order}, "
+         f"overflow {mesh.overflow}  [{gpu}]")
+    _log(f"extract_mesh ms (CUDA events, median of 5, host copy included): {ms:.3f}; phase ms "
+         f"(synchronized after each, median of 5): {json.dumps(times)}  [{gpu}]")
+    if nt == 0 or not (np.isfinite(soup.vertices).all() and np.isfinite(soup.vertex_colors).all()):
+        failures.append("the mesh is empty or not finite")
+    if not round_trip:
+        failures.append("the PLY file does not read back as written")
+    if not (same_count and err <= MESH_VERTEX_TOL):
+        failures.append("the card's mesh differs from the CPU copy's")
+    if mesh.overflow:
+        failures.append("mesh extraction overflowed")
+    return failures
+
+
+def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
+    """Frame-to-model tracking over ``raw`` beside frame-to-frame, checked
+    against the ground truth ``gt``, then a phase breakdown of one frame.
+    Returns (failures, launch counts of the frame-to-model pass)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+        apply_odometry_gate,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+        GraphedICP,
+        TargetMaps,
+        icp_projective,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+
+    n = len(raw)
+    gt_np = [g.cpu().numpy().astype(np.float64) for g in gt]
+    kw = dict(device=dev, worklist_size=2048)
+    pf = MonoOdometryTSDF(intr, cfg, **kw)
+    for d, c in raw:
+        pf.process_frame(d, c)
+    a_f = ate(pf.trajectory[1:], gt_np)
+
+    warm = MonoOdometryTSDF(intr, cfg, tracking="frame_to_model", **kw)
+    for d, c in raw[:7]:  # a refresh at frame 5, then refinements
+        warm.process_frame(d, c)
+    _sync(dev)
+    del warm
+    pm = MonoOdometryTSDF(intr, cfg, tracking="frame_to_model", model_refine_interval=5, **kw)
+    _sync(dev)
+    build.launches.clear()
+    frame_ms = []
+    for d, c in raw:
+        t0 = time.perf_counter()
+        pm.process_frame(d, c)
+        _sync(dev)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {"tsdf_integrate": build.launches[tk.KERNEL],
+              "odometry_level": build.launches[odo.KERNEL]}
+    a_m = ate(pm.trajectory[1:], gt_np)
+    ev = pm.counts
+    rejected = pm.odometry_failures
+    overflow = bool(pm.volume.overflow)
+    _log(f"frame_to_model launches: {json.dumps(counts)}  [{gpu}]")
+    _log(f"frame_to_model over {n} frames: ATE rmse {a_m['rmse'] * 1e3:.3f} mm (max "
+         f"{a_m['max'] * 1e3:.3f} mm, final drift {a_m['final_drift'] * 1e3:.3f} mm); "
+         f"frame_to_frame ATE rmse {a_f['rmse'] * 1e3:.3f} mm (max {a_f['max'] * 1e3:.3f} mm); "
+         f"refinements {json.dumps(ev)}, gate rejections {rejected}, overflow {overflow}, "
+         f"n_blocks {int(pm.volume.n_blocks)}  [{gpu}]")
+    steady = sorted(frame_ms[1:])
+    _log(f"frame_to_model ms/frame (host clock, synchronized per frame): frame 0 "
+         f"{frame_ms[0]:.3f}, tracked median {steady[len(steady) // 2]:.3f}, min "
+         f"{steady[0]:.3f}, max {steady[-1]:.3f}  [{gpu}]")
+    pm.reset()
+    t0 = time.perf_counter()
+    for d, c in raw:
+        pm.process_frame(d, c)
+    _sync(dev)
+    _log(f"frame_to_model ms/frame (host clock, one sync after {n} frames): "
+         f"{(time.perf_counter() - t0) * 1e3 / n:.3f}  [{gpu}]")
+
+    failures = []
+    if not (a_m["rmse"] <= ATE_LIMIT_M and a_m["rmse"] <= a_f["rmse"] + F2M_ATE_SLACK_M):
+        failures.append(f"frame_to_model ATE {a_m['rmse']:.5f} m over the limit "
+                        f"(frame_to_frame {a_f['rmse']:.5f} m)")
+    if ev.get("model_icp_ok", 0) == 0:
+        failures.append("frame_to_model never accepted a refinement")
+    if rejected or pf.odometry_failures:
+        failures.append("a frame was rejected by the fitness gate")
+    if overflow or bool(pf.volume.overflow):
+        failures.append("volume overflow on the frame_to_model pass")
+    if counts["tsdf_integrate"] < n or \
+            counts["odometry_level"] != 2 * sum(cfg.odometry.pyramid_iters) * (n - 1):
+        failures.append("a kernel was not launched as expected on the frame_to_model pass")
+
+    # phases of one frame (the last pair) against the pipeline's final model
+    cam = cfg.camera
+    up = lambda a: torch.from_numpy(a).to(dev)
+    scal = (1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc)
+    prev = decode_raw_frame(up(raw[-2][0]), up(raw[-2][1]), *scal)
+    d, c, inten = decode_raw_frame(up(raw[-1][0]), up(raw[-1][1]), *scal)
+    mp, mm = pm._model
+    T_prev = pm._traj[-2]
+    vol = pm.volume._replace(**{k: t.clone() for k, t in pm.volume._asdict().items()})
+    res = odo.compute_odometry_fast(prev[2], prev[0], inten, d, intr, cfg.odometry)
+    T_odo, _ = apply_odometry_gate(T_prev, res, pm.MIN_FITNESS)
+    dist_thr = cfg.registration.icp_distance_threshold
+    refine = GraphedICP(intr, 10, dist_thr)
+    maps = TargetMaps.from_depth(d, pm.rays)
+    refine(mp, mm, maps, se3.inverse(T_odo))  # capture outside the timing
+    phases = {
+        "decode": lambda: decode_raw_frame(up(raw[-1][0]), up(raw[-1][1]), *scal),
+        "odometry": lambda: odo.compute_odometry_fast(prev[2], prev[0], inten, d, intr,
+                                                      cfg.odometry),
+        "gate": lambda: apply_odometry_gate(T_prev, res, pm.MIN_FITNESS),
+        "icp_refine": lambda: refine(mp, mm, TargetMaps.from_depth(d, pm.rays),
+                                     se3.inverse(T_odo)),
+        "icp_refine_eager": lambda: icp_projective(
+            mp, mm, TargetMaps.from_depth(d, pm.rays), intr, init=se3.inverse(T_odo),
+            max_iters=10, dist_thr=dist_thr),
+        "fuse": lambda: tk.integrate_step(vol, d, c, T_odo, pm.rays, intr, cfg.tsdf, 2048),
+        "model_refresh": lambda: mc.extract_sampled_surface_model(
+            pm.volume, cfg.tsdf, pm.model_points, pm._T, pm._model_reach(),
+            sample_blocks=pm.model_sample_blocks),
+    }
+    times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
+    _log(f"frame_to_model phase ms (synchronized after each, median of 5; icp_refine = the "
+         f"CUDA-graph replay the step runs, icp_refine_eager = the same loop launched op by op; "
+         f"fuse = allocate + worklist + B1): {json.dumps(times)}  [{gpu}]")
+    return failures, counts
 
 
 def main() -> int:
@@ -252,6 +485,22 @@ def main() -> int:
         failures.append(f"ATE rmse {a['rmse']:.4f} m over {ATE_LIMIT_M} m")
     if not (pts.shape[0] > 10000 and np.isfinite(pts).all() and np.isfinite(cols).all()):
         failures.append("surface extraction is empty or not finite")
+
+    # -- the save path and frame-to-model tracking -----------------------------
+    failures += mesh_phase(pipe, tcfg, dev, gpu)
+    del pipe
+    poses32 = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_F2M_FRAMES]
+    raw32 = raw + []
+    for T in poses32[N_FRAMES:]:
+        z, c = cam.render(T)
+        raw32.append((torch.round(z * 1000.0).cpu().numpy().astype(np.uint16),
+                      torch.round(c * 255.0).cpu().numpy().astype(np.uint8)))
+    gt32 = [torch.as_tensor(np.linalg.inv(poses32[0]) @ T, dtype=torch.float32, device=dev)
+            for T in poses32]
+    f2m_failures, f2m_counts = f2m_phase(intr, cfg, raw32, gt32, dev, gpu)
+    failures += f2m_failures
+    for k in kernels:
+        k["launches_frame_to_model"] = f2m_counts[k["name"]]
     if failures:
         return _fail("; ".join(failures))
 
