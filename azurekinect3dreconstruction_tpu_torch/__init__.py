@@ -7,9 +7,12 @@ takes its device explicitly (see :mod:`.core.device`): on a CPU tensor the
 plain PyTorch version of each kernel runs; on a CUDA tensor the hand-written
 Hopper kernel under ``csrc/`` runs, or the call raises.
 
-Ported so far: the single-camera frame-to-frame SLAM loop
-(:class:`.pipelines.mono_odometry_tsdf.MonoOdometryTSDF`) with its two
-kernels, TSDF worklist integration and per-level Gauss-Newton odometry.
+Ported so far: the single-camera SLAM loop
+(:class:`.pipelines.mono_odometry_tsdf.MonoOdometryTSDF`, frame to frame or
+frame to model) with its two kernels, TSDF worklist integration and
+per-level Gauss-Newton odometry; mesh extraction and saving; two-camera
+fusion with its FPFH + RANSAC + ICP calibration
+(:class:`.pipelines.dual_fusion.DualCameraFusion`).
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -38,3 +39,15 @@ def full_fp32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array (or tensor) -> a tensor on ``device`` without waiting
+    on the device: to a card through a pinned staging copy and an
+    asynchronous transfer. A tensor already on ``device`` is returned as is."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    if t.device == device:
+        return t
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -14,6 +14,7 @@ the CUDA integrate kernel computes (see :mod:`.fmath`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from azurekinect3dreconstruction_tpu_torch.core.fmath import fma
@@ -116,6 +117,48 @@ def compose_renormalized(T_a, T_b):
 
 def transform_points(T, pts):
     """Apply a 4x4 to (..., 3) float32 points: fma(z, R2, fma(y, R1, x R0)) + t."""
-    R, t = T[:3, :3], T[:3, 3]
-    acc = fma(pts[..., 1:2], R[:, 1], pts[..., 0:1] * R[:, 0])
-    return fma(pts[..., 2:3], R[:, 2], acc) + t
+    return rotate_vectors(T, pts) + T[:3, 3]
+
+
+def rotate_vectors(T, vecs):
+    """Apply only the rotation of a 4x4 to (..., 3) vectors (normals,
+    directions), in the same fused chain as :func:`transform_points`."""
+    R = T[:3, :3]
+    acc = fma(vecs[..., 1:2], R[:, 1], vecs[..., 0:1] * R[:, 0])
+    return fma(vecs[..., 2:3], R[:, 2], acc)
+
+
+# -- host-side (numpy float64) helpers ----------------------------------------
+
+
+def rpy_from_matrix(R):
+    """Roll/pitch/yaw (XYZ intrinsic, radians) of a 3x3 rotation, as Python
+    floats; the calibration printout's convention."""
+    R = np.asarray(R)
+    sy = float(np.hypot(R[0, 0], R[1, 0]))
+    if sy > 1e-6:
+        return (float(np.arctan2(R[2, 1], R[2, 2])), float(np.arctan2(-R[2, 0], sy)),
+                float(np.arctan2(R[1, 0], R[0, 0])))
+    return float(np.arctan2(-R[1, 2], R[1, 1])), float(np.arctan2(-R[2, 0], sy)), 0.0
+
+
+def matrix_from_rpy(roll, pitch, yaw, dtype=np.float64):
+    """Inverse of :func:`rpy_from_matrix`: ``Rz(yaw) @ Ry(pitch) @ Rx(roll)``."""
+    cr, sr = np.cos(roll), np.sin(roll)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, syaw = np.cos(yaw), np.sin(yaw)
+    Rz = np.array([[cy, -syaw, 0], [syaw, cy, 0], [0, 0, 1]], dtype=dtype)
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]], dtype=dtype)
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]], dtype=dtype)
+    return Rz @ Ry @ Rx
+
+
+def is_valid_transform(T, tol: float = 1e-3) -> bool:
+    """Host-side sanity gate of a registration result: finite, with a
+    rotation block orthonormal and of determinant 1 within ``10 * tol``."""
+    T = np.asarray(T)
+    if not np.all(np.isfinite(T)):
+        return False
+    R = T[:3, :3]
+    return bool(np.allclose(R @ R.T, np.eye(3), atol=10 * tol)
+                and abs(np.linalg.det(R) - 1.0) < 10 * tol)

@@ -1,10 +1,13 @@
 """Carry state between the JAX package and the port, through numpy.
 
 There are no weights to convert; what crosses is state: a TSDF volume (so
-both packages can continue from the same pool, slot by slot), intrinsics,
-pipeline configs, poses, an extracted mesh and a frame-to-model tracking
-model (its points and mask). Nothing here imports jax: the JAX side hands
-over ``numpy`` arrays and plain dataclasses.
+both packages can continue from the same pool, slot by slot), intrinsics, a
+device calibration, pipeline configs, poses and rig extrinsics, an
+extracted mesh, a frame-to-model tracking model (its points and mask), and
+an unorganized cloud with its neighbor and feature outputs (points, mask,
+normals, FPFH), so that each registration stage can be compared from the
+same inputs. Nothing here imports jax: the JAX side hands over ``numpy``
+arrays and plain dataclasses.
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ import numpy as np
 import torch
 
 from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig
-from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.core.camera import (
+    CameraCalibration,
+    Distortion,
+    Intrinsics,
+)
 from azurekinect3dreconstruction_tpu_torch.core.types import TriangleMesh
 from azurekinect3dreconstruction_tpu_torch.tsdf.volume import TSDFVolume
 
@@ -61,6 +68,15 @@ def intrinsics_from(obj) -> Intrinsics:
     return Intrinsics(**dataclasses.asdict(obj))
 
 
+def calibration_from(obj) -> CameraCalibration:
+    """Any ``CameraCalibration``-shaped dataclass (e.g. the JAX one)."""
+    return CameraCalibration(
+        depth=intrinsics_from(obj.depth), color=intrinsics_from(obj.color),
+        depth_distortion=Distortion(**dataclasses.asdict(obj.depth_distortion)),
+        color_distortion=Distortion(**dataclasses.asdict(obj.color_distortion)),
+        T_color_depth=obj.T_color_depth, serial=obj.serial)
+
+
 def pipeline_config_from(obj) -> PipelineConfig:
     """Any ``PipelineConfig``-shaped dataclass, through its JSON form."""
     return PipelineConfig.from_json(json.dumps(dataclasses.asdict(obj)))
@@ -90,3 +106,24 @@ def model_to_torch(points, mask, device):
     """A tracking model ``(points (M, 3), mask (M,))`` -> tensors on ``device``."""
     return (torch.from_numpy(np.array(points, np.float32)).to(device),
             torch.from_numpy(np.array(mask, np.bool_)).to(device))
+
+
+def extrinsics_to_numpy(extrinsics) -> list:
+    """Rig extrinsics (4x4 numpy, JAX or torch arrays; ``None`` where
+    unknown) -> float64 numpy copies, as both packages' pipelines hold them."""
+    host = lambda T: T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else T
+    return [None if T is None else np.array(host(T), np.float64) for T in extrinsics]
+
+
+def extrinsics_to_torch(extrinsics, device) -> list:
+    """Rig extrinsics -> float32 tensors on ``device`` (``None`` stays)."""
+    return [None if T is None else pose_to_torch(T, device) for T in extrinsics]
+
+
+def cloud_to_torch(points, mask, normals=None, features=None, device="cpu") -> tuple:
+    """An unorganized cloud and its per-point outputs (numpy or array-like)
+    -> tensors on ``device``: (points f32 (N, 3), mask bool (N,), normals
+    f32 (N, 3) or None, FPFH f32 (N, 33) or None)."""
+    f32 = lambda a: None if a is None else torch.from_numpy(np.array(a, np.float32)).to(device)
+    return (f32(points), torch.from_numpy(np.array(mask, np.bool_)).to(device), f32(normals),
+            f32(features))

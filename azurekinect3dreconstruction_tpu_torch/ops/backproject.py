@@ -7,9 +7,11 @@ rely on it. Out-of-bounds samples are invalid (masked), not clamped.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.core.camera import Distortion, Intrinsics, pixel_rays
 from azurekinect3dreconstruction_tpu_torch.core.fmath import fma
 
 
@@ -17,6 +19,11 @@ def backproject_depth(depth, rays):
     """(H, W) depth [m] x (H, W, 2) ray table -> (H, W, 3) camera-space
     points; invalid pixels (depth == 0) give (0, 0, 0)."""
     return torch.cat([rays * depth[..., None], depth[..., None]], dim=-1)
+
+
+def backproject_intrinsics(depth, intr: Intrinsics, distortion: Optional[Distortion] = None):
+    """:func:`backproject_depth` with the ray table built on the fly."""
+    return backproject_depth(depth, pixel_rays(intr, depth.device, distortion))
 
 
 def project_points(points, intr: Intrinsics):

@@ -1,4 +1,5 @@
-"""Image-space ops for odometry: intensity, pyramids, Sobel gradients.
+"""Image-space ops: intensity, pyramids and Sobel gradients for odometry,
+and the depth-gradient display colors of two-camera fusion.
 
 Edge-clamped shift-add stencils in float32, with the JAX package's operation
 order, so results agree exactly (or to the last ulp where a compiler fuses a
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from azurekinect3dreconstruction_tpu_torch.core.fmath import div
 
 
 def rgb_to_intensity(rgb):
@@ -52,6 +55,19 @@ def build_pyramid(intensity, depth, levels: int) -> List[Tuple[torch.Tensor, tor
         depth = downsample2_depth(depth)
         out.append((intensity, depth))
     return out
+
+
+def depth_gradient_colors(depth, near: float = 0.5, far: float = 3.0, mode: str = "turbo"):
+    """Depth (H, W) -> RGB (H, W, 3) for display: a gray ramp, or a compact
+    turbo-like ramp (blue -> cyan -> green -> yellow -> red); invalid depth
+    is black in the turbo mode."""
+    t = torch.clamp(div(depth - near, far - near), 0.0, 1.0)
+    if mode == "gray":
+        return torch.stack([1.0 - t] * 3, dim=-1)
+    r = torch.clamp(1.5 - torch.abs(4.0 * t - 3.0), 0.0, 1.0)
+    g = torch.clamp(1.5 - torch.abs(4.0 * t - 2.0), 0.0, 1.0)
+    b = torch.clamp(1.5 - torch.abs(4.0 * t - 1.0), 0.0, 1.0)
+    return torch.where((depth > 0)[..., None], torch.stack([r, g, b], dim=-1), 0.0)
 
 
 def sobel_gradients(img):

@@ -1,0 +1,319 @@
+"""Two-camera fusion with one-shot extrinsic auto-calibration (the
+counterpart of the JAX package's ``pipelines/dual_fusion.py``).
+
+The first good frame pair calibrates camera 1's extrinsic: voxel downsample
+and outlier removal of both clouds, PCA normals, FPFH, mutual feature
+matching, RANSAC, then projective ICP (point-to-plane, or colored ICP)
+against camera 0's maps and an overlap gate. Calibration runs once per
+session and may wait on the device. After it, the hot loop per pair is two
+raw uploads, one pose upload and the enqueue of :func:`make_raw_dual_step`
+(decode both frames, then allocate, worklist and integrate (kernel B1) for
+each camera), with no host synchronization: the extrinsics and the
+camera-1 gate are tensor data, so a recalibration or a moving rig changes
+the data, not the step. Display and recalibration decode the last pair on
+demand; ``save_current_state`` writes the merged cloud and the TSDF mesh.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+from azurekinect3dreconstruction_tpu_torch.core import se3
+from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
+from azurekinect3dreconstruction_tpu_torch.core.device import (
+    full_fp32_matmul,
+    resolve_device,
+    upload,
+)
+from azurekinect3dreconstruction_tpu_torch.core.types import (
+    PointCloudHost,
+    RGBDFrame,
+    decode_raw_frame,
+)
+from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
+from azurekinect3dreconstruction_tpu_torch.ops.image import depth_gradient_colors
+from azurekinect3dreconstruction_tpu_torch.ops.kernels.tsdf_kernels import integrate_step
+from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
+    estimate_normals_knn,
+    remove_statistical_outliers,
+    voxel_downsample_arrays,
+)
+from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
+from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+    TargetMaps,
+    colored_icp,
+    evaluate_registration,
+    icp_point_to_plane,
+)
+from azurekinect3dreconstruction_tpu_torch.tracking.ransac import (
+    match_features,
+    ransac_registration,
+)
+from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
+
+log = logging.getLogger(__name__)
+
+_UNIFORM_COLORS = ((0.9, 0.4, 0.2), (0.2, 0.5, 0.9))
+
+
+class DualCameraFusion:
+    """Feed synchronized raw (depth_u16, color_u8) pairs from two cameras.
+
+    ``device`` is ``"cuda"`` (kernel B1 on the card) or ``"cpu"`` (its
+    plain version); ``"cuda"`` without a card raises. Camera 0 defines the
+    world frame: ``extrinsics[i]`` is camera i's camera-to-world pose (host
+    float64), camera 1's ``None`` until calibrated. ``colored_calibration``
+    refines with colored ICP instead of point-to-plane. RANSAC draws from
+    ``generator``, a ``torch.Generator`` on the device seeded with 7.
+    ``calib_stage_ms`` holds the last calibration's stage times, each
+    closed by a device synchronization."""
+
+    COLOR_MODES = ("rgb", "depth_gradient", "uniform")
+
+    def __init__(self, intrinsics: Tuple[Intrinsics, Intrinsics],
+                 config: Optional[PipelineConfig] = None, *, device,
+                 output_dir: str = "results", colored_calibration: bool = False):
+        self.device = resolve_device(device)
+        self.intr = list(intrinsics)
+        self.cfg = config or PipelineConfig()
+        self.colored_calibration = colored_calibration
+        self.rays = [pixel_rays(i, self.device) for i in self.intr]
+        self.extrinsics: List[Optional[np.ndarray]] = [np.eye(4), None]
+        self.calibrated = False
+        self.color_mode = "rgb"
+        self.saver = ResultSaver(output_dir)
+        self.generator = torch.Generator(device=self.device).manual_seed(7)
+        self.frame_index = 0
+        self.calib_stage_ms = {}
+        self._counts = collections.Counter()
+        self._last_frames: List[Optional[RGBDFrame]] = [None, None]
+        self._last_raw = [None, None]  # device (depth_raw, color_raw) of the last pair
+        self._frames_stale = False  # _last_frames behind _last_raw
+        self._step = make_raw_dual_step(self.intr[0], self.intr[1], self.cfg.tsdf)
+        self.volume = tsdf.create(self.cfg.tsdf, self.device)
+
+    @property
+    def counts(self) -> dict:
+        """Calibration event counts: ``calib_ok`` and ``calib_reject``."""
+        return {k: v for k, v in self._counts.items() if v}
+
+    # -- calibration ------------------------------------------------------------
+
+    def _stage_done(self, name: str, t0: float) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.calib_stage_ms[name] = (t - t0) * 1e3
+        return t
+
+    def calibrate(self, frames: Tuple[RGBDFrame, RGBDFrame], refine_only: bool = False,
+                  colored: bool = False) -> bool:
+        """Estimate camera 1's extrinsic from one decoded frame pair.
+
+        ``refine_only`` (the 'R' key) refines from the current extrinsic by
+        ICP alone; otherwise FPFH + RANSAC find it and ICP refines it.
+        ``colored`` refines with colored ICP on camera 1's stride-2 cloud
+        and intensity: on a flat textured wall point-to-plane leaves two
+        in-plane translations and the in-plane rotation free, and the
+        photometric term pins them to the texture. The result is accepted
+        when its overlap clears ``min_overlap_extrinsic`` and it is a
+        proper rigid transform other than the identity."""
+        reg = self.cfg.registration
+        self.calib_stage_ms = {}
+        t = time.perf_counter()
+        clouds = []
+        for i, f in enumerate(frames):
+            pts = backproject_depth(f.depth, self.rays[i])[::4, ::4].reshape(-1, 3)
+            ds, dm, _, _ = voxel_downsample_arrays(pts, pts[:, 2] > 0, 0.02, 8192)
+            clouds.append((ds, remove_statistical_outliers(ds, dm, k=12, radius=0.06)))
+        t = self._stage_done("downsample", t)
+        (p0, m0), (p1, m1) = clouds
+        tgt = TargetMaps.from_depth(frames[0].depth, self.rays[0],
+                                    intensity=frames[0].intensity if colored else None)
+
+        def refine(init):
+            if colored:
+                sp = backproject_depth(frames[1].depth, self.rays[1])[::2, ::2].reshape(-1, 3)
+                si = frames[1].intensity[::2, ::2].reshape(-1)
+                return colored_icp(sp, si, sp[:, 2] > 0, tgt, self.intr[0], init=init, cfg=reg)
+            return icp_point_to_plane(p1, m1, tgt, self.intr[0], init=init, cfg=reg)
+
+        if refine_only and self.extrinsics[1] is not None:
+            init = np.linalg.inv(self.extrinsics[0]) @ self.extrinsics[1]
+            res = refine(torch.as_tensor(init, dtype=torch.float32).to(self.device))
+            T01 = res.T.cpu().numpy().astype(np.float64)
+            fit = float(res.fitness)
+            t = self._stage_done("icp_refine", t)
+        else:
+            cam = np.zeros(3)  # normals face each camera's center
+            n0 = estimate_normals_knn(p0, m0, radius=0.04, k=12, orient_to=cam)
+            n1 = estimate_normals_knn(p1, m1, radius=0.04, k=12, orient_to=cam)
+            t = self._stage_done("normals", t)
+            f0 = compute_fpfh(p0, n0, m0, radius=0.06, k=16)
+            f1 = compute_fpfh(p1, n1, m1, radius=0.06, k=16)
+            t = self._stage_done("fpfh", t)
+            # global_registration, split so that its two stages are timed
+            corr = match_features(f1, f0, m1 & (f1.abs().sum(dim=1) > 0),
+                                  m0 & (f0.abs().sum(dim=1) > 0))
+            t = self._stage_done("match", t)
+            g = ransac_registration(p1, p0, corr, reg, generator=self.generator)
+            t = self._stage_done("ransac", t)
+            # FPFH of flat or round surfaces is ambiguous, and RANSAC then
+            # returns a pose that depends on its draw, from which the
+            # refinement may not recover; so the identity (both cameras view
+            # the scene) is refined as well, and the better overlap wins
+            refined = [refine(init) for init in (g.T, torch.eye(4, device=self.device))]
+            t = self._stage_done("icp_refine", t)
+            fits = [float(evaluate_registration(p1, m1, p0, m0, r.T, dist_thr=0.03)[0])
+                    for r in refined]
+            fit = max(fits)
+            T01 = refined[fits.index(fit)].T.cpu().numpy().astype(np.float64)
+            t = self._stage_done("evaluate", t)
+
+        if fit < reg.min_overlap_extrinsic or not se3.is_valid_transform(T01):
+            log.warning("calibration rejected (overlap %.2f)", fit)
+            self._counts["calib_reject"] += 1
+            return False
+        if abs(np.trace(T01) - 4.0) < 1e-6:  # the identity: a degenerate registration
+            log.warning("calibration returned identity; rejected")
+            return False
+        self.extrinsics[1] = self.extrinsics[0] @ T01
+        self.calibrated = True
+        r, p, y = np.degrees(se3.rpy_from_matrix(T01[:3, :3]))
+        log.info("calibrated: overlap %.2f, t = %s, rpy = (%.1f, %.1f, %.1f) deg", fit,
+                 T01[:3, 3], r, p, y)
+        self._counts["calib_ok"] += 1
+        return True
+
+    def recalibrate(self) -> bool:
+        """'R' key: ICP refinement of the current extrinsic on the last pair."""
+        frames = self._decoded_frames()
+        if None in frames:
+            return False
+        return self.calibrate(tuple(frames), refine_only=True, colored=self.colored_calibration)
+
+    def _decoded_frames(self) -> List[Optional[RGBDFrame]]:
+        """Decoded frames of the last pair, made on demand: the hot loop
+        decodes inside its step, so display and recalibration decode here,
+        at their own cadence."""
+        if self._frames_stale:
+            cam = self.cfg.camera
+            self._last_frames = [
+                None if r is None else RGBDFrame.from_raw(r[0], r[1], cam.depth_scale,
+                                                          cam.depth_trunc, cam.depth_min)
+                for r in self._last_raw]
+            self._frames_stale = False
+        return self._last_frames
+
+    # -- streaming ----------------------------------------------------------------
+
+    def process_frames(self, pair) -> None:
+        """pair: ((depth0, color0), (depth1, color1)) raw u16/u8 arrays or tensors.
+
+        Until calibration succeeds, the pair is also decoded and calibrated
+        on (which waits on the device), and camera 1's depth is zeroed
+        inside the step (``cam1_on = 0``), so it adds nothing. Once
+        calibrated, nothing here waits on the device."""
+        cam = self.cfg.camera
+        self._last_raw = [(upload(d, self.device), upload(c, self.device)) for d, c in pair]
+        self._frames_stale = True
+        if not self.calibrated:
+            self.calibrate(tuple(self._decoded_frames()), colored=self.colored_calibration)
+        T1 = self.extrinsics[1] if self.calibrated else np.eye(4)
+        host = np.concatenate([np.asarray(self.extrinsics[0]).reshape(-1),
+                               np.asarray(T1).reshape(-1), [float(self.calibrated)]])
+        dev = upload(host.astype(np.float32), self.device)  # T0, T1, cam1_on in one transfer
+        (d0r, c0r), (d1r, c1r) = self._last_raw
+        self.volume = self._step(self.volume, d0r, c0r, d1r, c1r, self.rays[0], self.rays[1],
+                                 dev[:16].view(4, 4), dev[16:32].view(4, 4),
+                                 1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc, dev[32])
+        self.frame_index += 1
+
+    def merged_cloud(self, max_points: int = 200000) -> PointCloudHost:
+        """Both cameras' points in the world frame, voxel-downsampled to
+        ``cfg.voxel_downsample``, colored by the active color mode."""
+        pts_all, col_all, msk_all = [], [], []
+        for i, f in enumerate(self._decoded_frames()):
+            pose = self.extrinsics[i]
+            if f is None or pose is None:
+                continue
+            flat = backproject_depth(f.depth, self.rays[i]).reshape(-1, 3)
+            if self.color_mode == "depth_gradient":
+                cols = depth_gradient_colors(f.depth, far=self.cfg.camera.depth_trunc)
+            elif self.color_mode == "uniform":
+                cols = torch.tensor(_UNIFORM_COLORS[i % 2], dtype=torch.float32,
+                                    device=self.device).expand(flat.shape)
+            else:
+                cols = f.color
+            T = torch.as_tensor(pose, dtype=torch.float32).to(self.device)
+            pts_all.append(se3.transform_points(T, flat))
+            col_all.append(cols.reshape(-1, 3))
+            # validity from the camera-frame depth: an invalid pixel lands on
+            # the camera center in the world frame, far from the origin for camera 1
+            msk_all.append(flat[:, 2] > 0)
+        if not pts_all:
+            return PointCloudHost(points=np.zeros((0, 3), np.float32))
+        dp, dm, dc, _ = voxel_downsample_arrays(torch.cat(pts_all), torch.cat(msk_all),
+                                                self.cfg.voxel_downsample, max_points,
+                                                colors=torch.cat(col_all))
+        m = dm.cpu().numpy()
+        return PointCloudHost(points=dp.cpu().numpy()[m], colors=dc.cpu().numpy()[m])
+
+    def cycle_color_mode(self) -> str:
+        i = self.COLOR_MODES.index(self.color_mode)
+        self.color_mode = self.COLOR_MODES[(i + 1) % len(self.COLOR_MODES)]
+        return self.color_mode
+
+    def extraction_volume(self):
+        """The volume meshing runs on."""
+        return self.volume
+
+    def save_current_state(self) -> dict:
+        """'S' key: the merged cloud as PLY and the welded TSDF mesh as OBJ
+        (timestamped and ``latest_*``). Returns {"pointcloud", "mesh"} paths."""
+        paths = {}
+        cloud = self.merged_cloud()
+        if len(cloud):
+            paths["pointcloud"] = self.saver.save_point_cloud(cloud, kind="merged")
+        mesh = mc.weld_vertices(mc.extract_mesh(self.extraction_volume(), self.cfg.tsdf).compact())
+        mesh.compute_vertex_normals()
+        paths["mesh"] = self.saver.save_mesh(mesh, kind="mesh", obj=True)
+        log.info("saved: %s", paths)
+        return paths
+
+
+def make_raw_dual_step(intr0: Intrinsics, intr1: Intrinsics, tcfg: TSDFConfig,
+                       worklist_size: int = 2048, stride: int = 2):
+    """The two-camera hot path, fed raw sensor tensors on the device:
+
+    step(vol, depth_raw0, color_raw0, depth_raw1, color_raw1, rays0, rays1,
+         T0 (4, 4), T1 (4, 4), inv_scale, depth_min, depth_trunc, cam1_on)
+        -> vol
+
+    decode both frames, then allocate + worklist + integrate (B1) camera 0
+    and camera 1 at their camera-to-world poses. ``cam1_on = 0`` zeroes
+    camera 1's decoded depth, so it neither allocates nor integrates. The
+    poses and the gate are tensors; nothing waits on the host, and the
+    volume's pools update in place."""
+
+    def step(vol, depth_raw0, color_raw0, depth_raw1, color_raw1, rays0, rays1, T0, T1,
+             inv_scale, depth_min, depth_trunc, cam1_on):
+        with full_fp32_matmul():
+            d0, c0, _ = decode_raw_frame(depth_raw0, color_raw0, inv_scale, depth_min,
+                                         depth_trunc)
+            d1, c1, _ = decode_raw_frame(depth_raw1, color_raw1, inv_scale, depth_min,
+                                         depth_trunc)
+            d1 = d1 * cam1_on
+            vol = integrate_step(vol, d0, c0, T0, rays0, intr0, tcfg, worklist_size, stride)
+            return integrate_step(vol, d1, c1, T1, rays1, intr1, tcfg, worklist_size, stride)
+
+    return step

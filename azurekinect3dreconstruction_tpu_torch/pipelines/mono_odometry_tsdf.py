@@ -25,7 +25,11 @@ import torch
 from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig
 from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
-from azurekinect3dreconstruction_tpu_torch.core.device import full_fp32_matmul, resolve_device
+from azurekinect3dreconstruction_tpu_torch.core.device import (
+    full_fp32_matmul,
+    resolve_device,
+    upload,
+)
 from azurekinect3dreconstruction_tpu_torch.core.types import RGBDFrame, decode_raw_frame
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.odometry_kernels import (
     compute_odometry_fast,
@@ -153,16 +157,6 @@ class MonoOdometryTSDF:
 
     # -- per frame --------------------------------------------------------------
 
-    def _upload(self, a) -> torch.Tensor:
-        """Host array -> device tensor without waiting on the device (a
-        pinned staging copy, then an asynchronous transfer)."""
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _host_flag(self, flag):
         """Start a copy of a device bool to the host; (host tensor, event
         that completes with the copy, None on the CPU)."""
@@ -178,7 +172,7 @@ class MonoOdometryTSDF:
         """Track + fuse one frame; returns the device-resident camera-to-world
         pose used. Nothing here waits on the device."""
         cam = self.cfg.camera
-        depth_raw, color_raw = self._upload(depth_raw), self._upload(color_raw)
+        depth_raw, color_raw = upload(depth_raw, self.device), upload(color_raw, self.device)
         scal = (1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc)
         if self._prev_int is None:
             # first frame: integrate at the identity / world origin

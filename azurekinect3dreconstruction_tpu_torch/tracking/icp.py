@@ -1,5 +1,8 @@
-"""Projective ICP: point-to-plane and colored variants (the counterparts of
-the JAX package's ``tracking/icp.py``).
+"""ICP (the counterparts of the JAX package's ``tracking/icp.py``):
+projective point-to-plane and colored ICP against a camera's organized
+maps, and, for two unorganized clouds, point-to-plane (``icp_grid``) and
+point-to-point ICP and ``evaluate_registration`` with nearest neighbors
+from the grid hash of ``ops.neighbors``.
 
 Correspondences are projective: the source cloud, moved by the current
 estimate, projects into the target camera's organized maps (points,
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig
@@ -224,6 +228,119 @@ def colored_icp(src_points, src_intensity, src_mask, tgt: TargetMaps, intr: Intr
                           dist_thr=cfg.icp_distance_threshold,
                           lambda_geometric=cfg.colored_icp_lambda_geometric,
                           colored=True, src_intensity=src_intensity)
+
+
+# -- cloud-to-cloud registration through the grid hash (no camera) ------------
+
+
+def _stats(ok, dist, src_mask):
+    """(fitness, rmse, inliers) of nearest-neighbor correspondences."""
+    n_in = ok.to(torch.int32).sum()
+    fit = n_in / torch.clamp_min(src_mask.to(torch.int32).sum(), 1)
+    rmse = torch.sqrt(torch.where(ok, dist * dist, 0.0).sum() / torch.clamp_min(n_in, 1))
+    return fit, rmse, n_in
+
+
+def _identity_or(init, device):
+    return (torch.eye(4, dtype=torch.float32, device=device) if init is None
+            else init.to(device=device, dtype=torch.float32))
+
+
+def icp_grid(src_points, src_mask, tgt_points, tgt_normals, tgt_mask, init=None,
+             max_iters: int = 30, dist_thr: float = 0.05, capacity: int = 16384,
+             max_per_cell: int = 8) -> ICPResult:
+    """Point-to-plane ICP between two unorganized clouds, ``max_iters``
+    Gauss-Newton steps. Correspondences are the 1-NN through the grid hash
+    (cell size ``dist_thr``, so the 27-cell search covers the gate)."""
+    from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
+        build_cell_lists,
+        knn_gather,
+    )
+
+    src = src_points.to(torch.float32)
+    tgt = tgt_points.to(torch.float32)
+    nrm = tgt_normals.to(torch.float32)
+    cells = build_cell_lists(tgt, tgt_mask, dist_thr, capacity, max_per_cell)
+    T = _identity_or(init, src.device)
+    eye6 = torch.eye(6, dtype=torch.float32, device=src.device)
+    with full_fp32_matmul():
+        for _ in range(max_iters):
+            p = se3.transform_points(T, src)
+            nn, dist = knn_gather(cells, tgt, p, src_mask, k=1, max_radius=dist_thr)
+            ok = src_mask & (nn[:, 0] >= 0)
+            idx = torch.where(ok, nn[:, 0], 0).to(torch.int64)
+            q, n = tgt[idx], nrm[idx]
+            ok = ok & ((n * n).sum(dim=-1) > 0.5)
+            w = ok.to(torch.float32)
+            J = torch.cat([n, torch.linalg.cross(p, n)], dim=-1) * w[:, None]
+            JtJ, Jtr = _normal_equations(J, ((p - q) * n).sum(dim=-1) * w)
+            delta = linalg.solve_spd6(JtJ + 1e-6 * eye6, -Jtr)
+            delta = torch.where(torch.isfinite(delta).all(), delta, 0.0)
+            T = se3.se3_exp(delta) @ T
+            fit, rmse, n_in = _stats(ok, dist[:, 0], src_mask)
+    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse, inliers=n_in)
+
+
+def icp_point_to_point(src_points, src_mask, tgt_points, tgt_mask, init=None,
+                       max_iters: int = 30, dist_thr: float = 0.05, capacity: int = 16384,
+                       max_per_cell: int = 8, cell_size: Optional[float] = None) -> ICPResult:
+    """Point-to-point ICP between two unorganized clouds: per iteration the
+    1-NN correspondences through the grid hash, then the closed-form
+    weighted Kabsch update. ``cell_size`` below ``dist_thr`` (down to half
+    of it) keeps a dense target from being thinned to ``max_per_cell``
+    points per cell; the search then reaches ``1.5 * cell_size``."""
+    from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
+        build_cell_lists,
+        knn_gather,
+    )
+
+    src = src_points.to(torch.float32)
+    tgt = tgt_points.to(torch.float32)
+    cs = float(cell_size) if cell_size is not None else dist_thr
+    cells = build_cell_lists(tgt, tgt_mask, cs, capacity, max_per_cell)
+    reach = min(float(np.float32(dist_thr)), float(np.float32(1.5 * cs)))
+    T = _identity_or(init, src.device)
+    eye3 = torch.eye(3, dtype=torch.float32, device=src.device)
+    with full_fp32_matmul():
+        for _ in range(max_iters):
+            p = se3.transform_points(T, src)
+            nn, dist = knn_gather(cells, tgt, p, src_mask, k=1, max_radius=reach)
+            ok = src_mask & (nn[:, 0] >= 0)
+            w = ok.to(torch.float32)[:, None]
+            q = tgt[torch.where(ok, nn[:, 0], 0).to(torch.int64)]
+            nw = torch.clamp_min(w.sum(), 1.0)
+            cp, cq = (p * w).sum(dim=0) / nw, (q * w).sum(dim=0) / nw
+            H = ((p - cp) * w).T @ ((q - cq) * w)
+            u, _, vt = torch.linalg.svd(H)
+            d = torch.sign(torch.linalg.det(vt.T @ u.T))
+            R = vt.T @ (torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+                        @ u.T)
+            t = cq - R @ cp
+            good = torch.isfinite(R).all() & torch.isfinite(t).all()
+            dT = torch.eye(4, dtype=torch.float32, device=src.device)
+            dT[:3, :3] = torch.where(good, R, eye3)
+            dT[:3, 3] = torch.where(good, t, 0.0)
+            T = dT @ T
+            fit, rmse, n_in = _stats(ok, dist[:, 0], src_mask)
+    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse, inliers=n_in)
+
+
+def evaluate_registration(src_points, src_mask, tgt_points, tgt_mask, T,
+                          dist_thr: float = 0.02, capacity: int = 16384):
+    """(fitness, inlier_rmse) of ``T`` applied to the source against the
+    target: the share of masked source points with a target point within
+    ``dist_thr``, and their RMS distance."""
+    from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
+        build_cell_lists,
+        knn_gather,
+    )
+
+    tgt = tgt_points.to(torch.float32)
+    cells = build_cell_lists(tgt, tgt_mask, dist_thr, capacity)
+    p = se3.transform_points(T.to(torch.float32), src_points.to(torch.float32))
+    nn, dist = knn_gather(cells, tgt, p, src_mask, k=1, max_radius=dist_thr)
+    fit, rmse, _ = _stats(src_mask & (nn[:, 0] >= 0), dist[:, 0], src_mask)
+    return fit, rmse
 
 
 def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,

@@ -24,13 +24,24 @@ worklist, odometry pyramid [20, 10, 5]):
    poses beside it, the launch counters zeroed just before and read just
    after: ATE <= 2 cm and <= the frame-to-frame ATE + 0.5 mm, refinements
    accepted, no gate rejection, no overflow, both kernels launched; then
-   times the phases of one frame-to-model frame.
+   times the phases of one frame-to-model frame;
+6. drives two-camera fusion, ``DualCameraFusion(..., device="cuda")``:
+   auto-calibrates the rig of ``tests/test_pipelines.py`` (within 2 cm /
+   0.03 rad of the truth) and times its stages; fuses the bench's rig
+   (camera 1 35 cm left, toed in 0.26 rad) with its extrinsics set by
+   hand, the static pair 24 times and the moving rig over the first 24
+   sweep poses, each synchronized per pair and with one sync at the end,
+   the launch counters zeroed just before the moving pass and read just
+   after: B1 launched exactly twice a pair, blocks allocated throughout, no
+   overflow; holds the first 4 moving pairs on the card against a CPU
+   pipeline (plain B1) by block key with B1's tolerances; saves the merged
+   cloud and the mesh and reads them back.
 
 Prints the card's name and power limit, the build time, the launch counts,
-per-frame fitness, ATE/RPE, ms/frame, mesh and frame-to-model results, one
-JSON line of per-kernel results, and, as the last line, ``{"ok": true,
-"device": {...}}``. Exits non-zero, printing no result, on any failure or
-when no CUDA device is available. Needs no jax.
+per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
+results, one JSON line of per-kernel results, and, as the last line,
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, on
+any failure or when no CUDA device is available. Needs no jax.
 """
 
 from __future__ import annotations
@@ -55,6 +66,12 @@ B1_WEIGHT_EQUAL_MIN = 0.9999
 B1_VALUE_TOL = 1e-5
 B2_POSE_TOL = 1e-4
 B2_FITNESS_TOL = 1e-3
+N_DUAL_PAIRS = 24
+N_DUAL_CPU_PAIRS = 4
+# the calibration rig of tests/test_pipelines.py and its bounds there
+CALIB_RIG_XI = (0.12, 0.03, -0.02, 0.05, -0.12, 0.04)
+CALIB_T_LIMIT_M = 0.02
+CALIB_R_LIMIT_RAD = 0.03
 
 
 def _log(msg: str) -> None:
@@ -310,6 +327,220 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     return failures, counts
 
 
+def bench_rig():
+    """Camera 1 in camera 0's frame on the bench's two-camera rig: 35 cm to
+    the left, 5 cm forward, toed in 0.26 rad about y."""
+    import numpy as np
+
+    a = 0.26
+    rig = np.eye(4)
+    rig[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    rig[:3, 3] = [-0.35, 0.0, 0.05]
+    return rig
+
+
+def _volumes_by_key(vg, vc):
+    """Two volumes' blocks matched by key: (same key set, weights equal
+    fraction, max |dtsdf|, max |dcolor| where the weights agree)."""
+    import numpy as np
+
+    def keyed(v):
+        n = int(v.n_blocks)
+        return {tuple(k): s for s, k in enumerate(v.block_coords[:n].cpu().numpy().tolist())}
+
+    kg, kc = keyed(vg), keyed(vc)
+    if kg.keys() != kc.keys() or not kg:
+        return False, 0.0, float("inf"), float("inf")
+    keys = sorted(kg)
+    rows = lambda v, k, f: getattr(v, f)[[k[x] for x in keys]].cpu().numpy()
+    wg, wc = rows(vg, kg, "weight"), rows(vc, kc, "weight")
+    agree = wg == wc
+    err_t = float(np.abs(rows(vg, kg, "tsdf") - rows(vc, kc, "tsdf"))[agree].max())
+    dcol = np.abs(rows(vg, kg, "color") - rows(vc, kc, "color"))
+    err_c = float(dcol[np.broadcast_to(agree[:, None], dcol.shape)].max())
+    return True, float(agree.mean()), err_t, err_c
+
+
+def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
+               cpu_pairs: int = N_DUAL_CPU_PAIRS):
+    """Two-camera fusion, ``DualCameraFusion(..., device=dev)``: (a) auto-
+    calibration of the test rig with its stage times; (b) fusion at the
+    bench rig with its extrinsics set by hand, the static pair and the
+    moving rig over the sweep, synchronized per pair and with one sync at
+    the end; (c) the first ``cpu_pairs`` moving pairs on the card against
+    a CPU pipeline, by block key; (d) the save, read back. Returns
+    (failures, B1 launches of the moving-rig pass)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.core.device import upload
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_obj, read_ply
+
+    failures = []
+    cam = SyntheticCamera(intrinsics=intr, device=dev)
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+    tmp = tempfile.TemporaryDirectory()
+
+    def pipeline(device=dev, calibrated=False):
+        p = DualCameraFusion((intr, intr), cfg, device=device, output_dir=tmp.name)
+        p.calibrated = calibrated
+        return p
+
+    # -- a. auto-calibration of the test rig --------------------------------------
+    T1 = se3.se3_exp(torch.tensor(CALIB_RIG_XI, dtype=torch.float64)).numpy()
+    pair = (cam.capture(np.eye(4)), cam.capture(T1))
+    warm = pipeline()
+    warm.process_frames(pair)  # lazy library and handle set-up stays out of the timing
+    _sync(dev)
+    del warm
+    pc = pipeline()
+    t0 = time.perf_counter()
+    pc.process_frames(pair)
+    _sync(dev)
+    calib_ms = ms_since(t0)
+    err = (np.zeros(6) if pc.extrinsics[1] is None else se3.se3_log(
+        torch.as_tensor(np.linalg.inv(T1) @ pc.extrinsics[1])).numpy())
+    et, er = float(np.linalg.norm(err[:3])), float(np.linalg.norm(err[3:]))
+    stages = {k: round(v, 4) for k, v in pc.calib_stage_ms.items()}
+    _log(f"dual calibration (test rig): calibrated {pc.calibrated}, extrinsic error "
+         f"{et * 1e3:.4f} mm / {er * 1e3:.4f} mrad; first pair {calib_ms:.3f} ms (host clock, "
+         f"calibration + fuse); stage ms (synchronized after each): {json.dumps(stages)} "
+         f"(sum {sum(stages.values()):.3f})  [{gpu}]")
+    if not (pc.calibrated and et <= CALIB_T_LIMIT_M and er <= CALIB_R_LIMIT_RAD):
+        failures.append(f"dual calibration off: calibrated {pc.calibrated}, "
+                        f"{et:.4f} m / {er:.4f} rad")
+    del pc
+
+    # -- b. fusion at the bench rig, extrinsics set by hand ------------------------
+    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n_pairs]
+    rig = bench_rig()
+    static = (cam.capture(poses[0]), cam.capture(poses[0] @ rig))
+    moving = [((cam.capture(T), cam.capture(T @ rig)), T, T @ rig) for T in poses]
+    ps = pipeline(calibrated=True)
+    ps.extrinsics = [poses[0], poses[0] @ rig]
+    for _ in range(2):
+        ps.process_frames(static)
+    _sync(dev)
+    per_pair = []
+    for _ in range(n_pairs):
+        t0 = time.perf_counter()
+        ps.process_frames(static)
+        _sync(dev)
+        per_pair.append(ms_since(t0))
+    t0 = time.perf_counter()
+    for _ in range(n_pairs):
+        ps.process_frames(static)
+    _sync(dev)
+    static_one = ms_since(t0) / n_pairs
+    overflow = bool(ps.volume.overflow)
+    del ps
+
+    pm = pipeline(calibrated=True)
+    _sync(dev)
+    build.launches.clear()
+    mv, n_blocks = [], {}
+    for j, (pr, A, B) in enumerate(moving):
+        t0 = time.perf_counter()
+        pm.extrinsics = [A, B]
+        pm.process_frames(pr)
+        _sync(dev)
+        mv.append(ms_since(t0))
+        if j + 1 in (n_pairs // 2, n_pairs):
+            n_blocks[j + 1] = int(pm.volume.n_blocks)
+    launches = build.launches[tk.KERNEL]
+    pm2 = pipeline(calibrated=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for pr, A, B in moving:
+        pm2.extrinsics = [A, B]
+        pm2.process_frames(pr)
+    _sync(dev)
+    moving_one = ms_since(t0) / n_pairs
+    overflow = overflow or bool(pm.volume.overflow) or bool(pm2.volume.overflow)
+    del pm2
+    med = lambda a: sorted(a)[len(a) // 2]
+    _log(f"dual launches on the moving-rig pass: {json.dumps({tk.KERNEL: launches})} over "
+         f"{n_pairs} pairs  [{gpu}]")
+    _log(f"dual ms/pair (host clock; raw pairs uploaded from host memory): static pair "
+         f"synchronized per pair median {med(per_pair):.3f} (min {min(per_pair):.3f}, max "
+         f"{max(per_pair):.3f}), one sync after {n_pairs} {static_one:.3f}; moving rig "
+         f"synchronized per pair median {med(mv):.3f} (min {min(mv):.3f}, max {max(mv):.3f}), "
+         f"one sync after {n_pairs} {moving_one:.3f}; n_blocks {json.dumps(n_blocks)}, "
+         f"overflow {overflow}  [{gpu}]")
+    # phases of one moving pair, on a copy of the moving rig's volume
+    cc = cfg.camera
+    scal = (1.0 / cc.depth_scale, cc.depth_min, cc.depth_trunc)
+    (pr, A, B) = moving[-1]
+    raw = [(upload(d, dev), upload(c, dev)) for d, c in pr]
+    dec = [decode_raw_frame(d, c, *scal) for d, c in raw]
+    vol = pm.volume._replace(**{k: t.clone() for k, t in pm.volume._asdict().items()})
+    TA, TB = (torch.as_tensor(T, dtype=torch.float32, device=dev) for T in (A, B))
+    rays = pm.rays[0]
+    phases = {
+        "upload (2 raw frames)": lambda: [(upload(d, dev), upload(c, dev)) for d, c in pr],
+        "decode x2": lambda: [decode_raw_frame(d, c, *scal) for d, c in raw],
+        "fuse camera 0": lambda: tk.integrate_step(vol, *dec[0][:2], TA, rays, intr, cfg.tsdf,
+                                                   2048),
+        "fuse camera 1": lambda: tk.integrate_step(vol, *dec[1][:2], TB, rays, intr, cfg.tsdf,
+                                                   2048),
+        "step": lambda: pm._step(vol, *raw[0], *raw[1], rays, rays, TA, TB, *scal,
+                                 torch.ones((), device=dev)),
+    }
+    times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
+    del vol
+    _log(f"dual pair phase ms (synchronized after each, median of 5; fuse = allocate + worklist "
+         f"+ B1, step = decode x2 + fuse x2 as process_frames enqueues it): "
+         f"{json.dumps(times)}  [{gpu}]")
+    half, full = n_blocks.get(n_pairs // 2, 0), n_blocks.get(n_pairs, 0)
+    if not 0 < half < full:
+        failures.append(f"the moving rig did not allocate throughout ({half} -> {full})")
+    if overflow:
+        failures.append("volume overflow in dual fusion")
+    if launches != 2 * n_pairs:
+        failures.append(f"B1 launched {launches} times over {n_pairs} dual pairs, not 2 each")
+
+    # -- c. the card against the CPU (plain B1) on the first moving pairs ----------
+    pg, pcpu = pipeline(calibrated=True), pipeline(torch.device("cpu"), calibrated=True)
+    t0 = time.perf_counter()
+    for pr, A, B in moving[:cpu_pairs]:
+        for p in (pg, pcpu):
+            p.extrinsics = [A, B]
+            p.process_frames(pr)
+    same_keys, frac, err_t, err_c = _volumes_by_key(pg.volume, pcpu.volume)
+    _log(f"dual card vs CPU over {cpu_pairs} moving pairs: same block keys {same_keys} "
+         f"({int(pg.volume.n_blocks)} blocks), weights equal on {frac:.6%}, max |dtsdf| "
+         f"{err_t:.3g}, max |dcolor| {err_c:.3g} where they agree ({ms_since(t0) / 1e3:.1f} s)")
+    if not (same_keys and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
+            and err_c <= B1_VALUE_TOL):
+        failures.append("dual fusion on the card differs from the CPU pipeline")
+    del pg, pcpu
+
+    # -- d. the save (into the pipelines' temporary output directory) -----------------
+    t0 = time.perf_counter()
+    paths = pm.save_current_state()
+    save_ms = ms_since(t0)
+    cv, cc, _ = read_ply(paths["pointcloud"]) if "pointcloud" in paths else (None,) * 3
+    mv_, _, mf = read_obj(paths["mesh"])
+    ok_cloud = cv is not None and len(cv) > 10000 and np.isfinite(cv).all() and cc is not None
+    ok_mesh = mf is not None and len(mf) > 10000 and np.isfinite(mv_).all() and mf.max() < len(mv_)
+    _log(f"dual save: merged cloud {0 if cv is None else len(cv)} points, mesh "
+         f"{len(mv_)} vertices / {0 if mf is None else len(mf)} triangles read back; "
+         f"save_current_state {save_ms:.1f} ms (host)  [{gpu}]")
+    if not (ok_cloud and ok_mesh):
+        failures.append("the dual save did not read back non-empty and finite")
+    tmp.cleanup()
+    return failures, launches
+
+
 def main() -> int:
     import torch
 
@@ -501,6 +732,9 @@ def main() -> int:
     failures += f2m_failures
     for k in kernels:
         k["launches_frame_to_model"] = f2m_counts[k["name"]]
+    dual_failures, dual_launches = dual_phase(intr, cfg, dev, gpu)
+    failures += dual_failures
+    kernels[0]["launches_dual"] = dual_launches
     if failures:
         return _fail("; ".join(failures))
 

@@ -9,7 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from azurekinect3dreconstruction_tpu_torch.config import OdometryConfig, PipelineConfig, TSDFConfig
+from azurekinect3dreconstruction_tpu_torch.config import (
+    OdometryConfig,
+    PipelineConfig,
+    RegistrationConfig,
+    TSDFConfig,
+)
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
 from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera, orbit_trajectory
 from azurekinect3dreconstruction_tpu_torch.ops.image import rgb_to_intensity
@@ -219,3 +224,139 @@ def test_graphed_icp_replays_the_eager_loop(dev, frames):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.inliers) > 1000
+
+
+# -- two-camera fusion and the registration stack ----------------------------
+
+DUAL_CFG = PipelineConfig(tsdf=CFG, registration=RegistrationConfig(
+    ransac_hypotheses=1024, icp_max_iters=20, colored_icp_max_iters=30))
+RIG_XI = (0.12, 0.03, -0.02, 0.05, -0.12, 0.04)  # tests/test_pipelines.py's rig
+
+
+@pytest.fixture(scope="module")
+def rig_pair():
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+
+    T1 = se3.se3_exp(torch.tensor(RIG_XI, dtype=torch.float64)).numpy()
+    cam = SyntheticCamera(intrinsics=INTR, device="cpu")
+    return T1, (cam.capture(np.eye(4)), cam.capture(T1))
+
+
+def test_dual_step_on_cuda_matches_cpu(dev, rig_pair):
+    """One raw pair through the dual step on the card (B1 launched twice)
+    and on the CPU (plain B1): the same block keys; matched voxels meet B1's
+    tolerances (weights equal on >= 99.99 %, tsdf/color <= 1e-5 where they
+    agree)."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import make_raw_dual_step
+
+    T1, ((d0, c0), (d1, c1)) = rig_pair
+    cam_c = DUAL_CFG.camera
+    scal = (1.0 / cam_c.depth_scale, cam_c.depth_min, cam_c.depth_trunc)
+    step = make_raw_dual_step(INTR, INTR, CFG)
+    vols = []
+    for d in (dev, torch.device("cpu")):
+        rays = pixel_rays(INTR, d)
+        t = lambda a: torch.from_numpy(a).to(d)
+        before = build.launches[tk.KERNEL]
+        vols.append(step(tsdf.create(CFG, d), t(d0), t(c0), t(d1), t(c1), rays, rays,
+                         torch.eye(4, device=d), torch.as_tensor(T1, dtype=torch.float32,
+                                                                 device=d),
+                         *scal, torch.ones((), device=d)))
+        assert build.launches[tk.KERNEL] - before == (2 if d.type == "cuda" else 0)
+
+    def keyed(v):
+        n = int(v.n_blocks)
+        return {tuple(k): s for s, k in enumerate(v.block_coords[:n].cpu().tolist())}
+
+    kg, kc = keyed(vols[0]), keyed(vols[1])
+    assert kg.keys() == kc.keys() and len(kg) > 50
+    keys = sorted(kg)
+    rows = lambda v, k, f: getattr(v, f)[[k[x] for x in keys]].cpu()
+    wg, wc = rows(vols[0], kg, "weight"), rows(vols[1], kc, "weight")
+    agree = wg == wc
+    assert agree.float().mean() >= 0.9999
+    assert (rows(vols[0], kg, "tsdf") - rows(vols[1], kc, "tsdf")).abs()[agree].max() <= 1e-5
+    dc = (rows(vols[0], kg, "color") - rows(vols[1], kc, "color")).abs()
+    assert dc[agree[:, None].expand_as(dc)].max() <= 1e-5
+
+
+def _structured_pair():
+    """A floor, a wall and a bump (distinctive FPFH), and its rigid copy."""
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+
+    rng = np.random.RandomState(0)
+    n = 400
+    floor = np.stack([rng.uniform(0, 1, n), np.zeros(n), rng.uniform(0, 1, n)], 1)
+    wall = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 0.5, n), np.zeros(n)], 1)
+    t, p = rng.uniform(0, 2 * np.pi, n), rng.uniform(0, np.pi, n)
+    bump = 0.15 * np.stack([np.sin(p) * np.cos(t), np.sin(p) * np.sin(t), np.cos(p)], 1)
+    src = np.concatenate([floor, wall, bump + [0.5, 0.15, 0.5]]).astype(np.float32)
+    T = se3.se3_exp(torch.tensor([0.2, -0.1, 0.15, 0.3, 0.2, -0.4])).numpy()
+    return src, (src @ T[:3, :3].T + T[:3, 3]).astype(np.float32), T
+
+
+def test_match_and_ransac_on_cuda_ignore_tf32(dev):
+    """With ``set_float32_matmul_precision("high")`` requested, matching
+    and RANSAC on the card equal the CPU's: the same correspondences where
+    the nearest feature is decided (a gap > 1e-5), and from the same
+    correspondences and ranks T within 1e-4 and fitness equal."""
+    from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig as RC
+    from azurekinect3dreconstruction_tpu_torch.ops.neighbors import estimate_normals_knn
+    from azurekinect3dreconstruction_tpu_torch.tracking import ransac
+    from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
+
+    src, tgt, T = _structured_pair()
+    mask = torch.ones(len(src), dtype=torch.bool)
+    feats = []
+    for pts, eye in ((src, [0.5, 2.0, 0.5]), (tgt, T[:3, :3] @ [0.5, 2.0, 0.5] + T[:3, 3])):
+        p = torch.from_numpy(pts)
+        n = estimate_normals_knn(p, mask, radius=0.12, k=16, orient_to=np.asarray(eye))
+        feats.append(compute_fpfh(p, n, mask, radius=0.15, k=16))
+    cfg = RC(ransac_hypotheses=2048)
+    corr_c = ransac.match_features(feats[0], feats[1], mask, mask)
+    ranks = ransac.draw_samples((corr_c >= 0).sum(), 2048, 4, torch.Generator().manual_seed(0))
+    res_c = ransac.ransac_registration(torch.from_numpy(src), torch.from_numpy(tgt), corr_c,
+                                       cfg, 0.05, samples=ranks)
+    g = lambda a: a.to(dev)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        corr_g = ransac.match_features(g(feats[0]), g(feats[1]), g(mask), g(mask)).cpu()
+        res_g = ransac.ransac_registration(g(torch.from_numpy(src)), g(torch.from_numpy(tgt)),
+                                           g(corr_c), cfg, 0.05, samples=g(ranks))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    f0, f1 = feats[0].double(), feats[1].double()
+    d = torch.cdist(f0, f1) ** 2
+    top2 = torch.topk(d, 2, dim=1, largest=False).values
+    decided = (top2[:, 1] - top2[:, 0]) > 1e-5
+    assert decided.float().mean() > 0.4
+    assert torch.equal(corr_g[decided], corr_c[decided])
+    np.testing.assert_allclose(res_g.T.cpu().numpy(), res_c.T.numpy(), atol=1e-4, rtol=0)
+    assert float(res_g.fitness) == float(res_c.fitness) > 0.1
+
+
+def test_calibrated_dual_loop_never_syncs(dev, rig_pair, tmp_path):
+    """``DualCameraFusion(device="cuda")``: the first pair calibrates the
+    test rig (within 2 cm / 0.03 rad), and after it ``process_frames`` runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    host synchronization, with B1 launched twice a pair."""
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+
+    T1, pair = rig_pair
+    pipe = DualCameraFusion((INTR, INTR), DUAL_CFG, device=dev, output_dir=str(tmp_path))
+    pipe.process_frames(pair)
+    assert pipe.calibrated
+    err = se3.se3_log(torch.as_tensor(np.linalg.inv(T1) @ pipe.extrinsics[1])).numpy()
+    assert np.linalg.norm(err[:3]) < 0.02 and np.linalg.norm(err[3:]) < 0.03
+    torch.cuda.synchronize()
+    before = build.launches[tk.KERNEL]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pipe.process_frames(pair)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert build.launches[tk.KERNEL] - before == 6
+    assert not bool(pipe.volume.overflow)
