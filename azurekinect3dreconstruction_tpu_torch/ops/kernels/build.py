@@ -36,10 +36,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # worklist, M, T_cw, depth, color, H, W, tsdf, weight, color_pool, R, trash, params, stream
     "akr_tsdf_integrate": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-    # src, tgt, H, W, state, partials, n_blocks, params, stream
-    "akr_odometry_reduce": [_P, _P, _I, _I, _P, _P, _I, _P, _P],
-    # partials, n_blocks, state, params, stream
-    "akr_odometry_solve": [_P, _I, _P, _P, _P],
+    # grid (out), band (out)
+    "akr_odometry_pyramid_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    # planes, dims, intr, n_levels, params, state, partials, grid, stream
+    "akr_odometry_pyramid": [_P, _P, _P, _I, _P, _P, _P, _I, _P],
 }
 
 launches: collections.Counter = collections.Counter()

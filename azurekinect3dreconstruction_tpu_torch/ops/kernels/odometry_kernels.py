@@ -1,20 +1,23 @@
-"""Per-level Gauss-Newton RGB-D odometry: the pyramid driver, the CUDA
-kernel wrapper (``csrc/odometry_level.cu``) and its plain PyTorch version.
+"""Gauss-Newton RGB-D odometry over the image pyramid: the pyramid loop, the
+CUDA kernel wrapper (``csrc/odometry_pyramid.cu``) and its plain PyTorch version.
 
-Each pyramid level runs all of its GN iterations against one device-side
-state vector (pose, convergence flag, fitness, rmse, n_valid), so a whole
-frame of odometry never waits on the host. Per iteration and source pixel:
-back-project, transform by the pose, project into the target, sample target
-intensity and depth bilinearly, form the photometric and geometric
-residuals, gate them on depth range and ``|r_d| < max_depth_diff``,
-Huber-weight them, and build the Jacobians from the *source* Sobel
-gradients (the forward-compositional gradient swap: it changes the GN path,
-not the fixed point). The 6x6 normal equations are damped, Jacobi
-equilibrated and solved by Cholesky; the step is applied by se3 exp and
-left-composed onto the pose.
+All GN iterations of all pyramid levels run against one device-side state
+vector (pose, convergence flag, fitness, rmse, n_valid), so a whole frame
+pair of odometry never waits on the host; on the card it is one launch. Per
+iteration and source pixel: back-project, transform by the pose, project
+into the target, sample target intensity and depth bilinearly, form the
+photometric and geometric residuals, gate them on depth range and
+``|r_d| < max_depth_diff``, Huber-weight them, and build the Jacobians from
+the *source* Sobel gradients (the forward-compositional gradient swap: it
+changes the GN path, not the fixed point). The 6x6 normal equations are
+damped, Jacobi equilibrated and solved by Cholesky; the step is applied by
+se3 exp and left-composed onto the pose. A level with no iterations passes
+the pose through.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,10 +29,10 @@ from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid, sobel
 from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
 from azurekinect3dreconstruction_tpu_torch.tracking.odometry import OdometryResult, huber_weight
 
-KERNEL = "odometry_level"
-THREADS = 256  # pixels per CTA of the reduce kernel (kThreads in the .cu)
+KERNEL = "odometry_pyramid"
 N_SUMS = 30  # 21 JtJ upper triangle + 6 Jtr + n_valid, squared cost, n_source
 STATE = 16  # pose 3x4, convergence flag, fitness, rmse, n_valid
+MAX_LEVELS = 4  # kMaxLevels in the .cu
 
 # (6, 6) -> index of the upper-triangle JtJ entry in the sums vector
 _JTJ = [[0] * 6 for _ in range(6)]
@@ -41,9 +44,14 @@ for _a in range(6):
 
 
 def _level_params(li: Intrinsics, cfg: OdometryConfig, term_i: float, term_d: float):
-    return (li.fx, li.fy, li.cx, li.cy, cfg.min_depth, cfg.max_depth, cfg.max_depth_diff,
-            1.0 / cfg.sigma_intensity, 1.0 / cfg.sigma_depth, cfg.huber_delta,
-            term_i, term_d, cfg.damping, cfg.convergence_delta ** 2)
+    return (li.fx, li.fy, li.cx, li.cy, *_shared_params(cfg, term_i, term_d))
+
+
+def _shared_params(cfg: OdometryConfig, term_i: float, term_d: float):
+    """The parameters every level shares, in the kernel's order."""
+    return (cfg.min_depth, cfg.max_depth, cfg.max_depth_diff, 1.0 / cfg.sigma_intensity,
+            1.0 / cfg.sigma_depth, cfg.huber_delta, term_i, term_d, cfg.damping,
+            cfg.convergence_delta ** 2)
 
 
 # ---------------------------------------------------------------------------
@@ -57,8 +65,7 @@ def _dp_dxi(jx, jy, jz, px, py, pz):
 
 
 def _gn_sums(state, src, tgt, li: Intrinsics, prm):
-    """The 30 normal-equation sums of one GN iteration (plain version of
-    the reduce kernel)."""
+    """The 30 normal-equation sums of one GN iteration."""
     fx, fy, cx, cy, min_d, max_d, max_dd, s_i, s_d, delta, term_i, term_d = prm[:12]
     H, W = li.height, li.width
     i_s, z, gx, gy, gdx, gdy = src
@@ -136,8 +143,8 @@ def _chol_solve6(A, b):
 
 
 def _solve_step(state, sums, prm) -> None:
-    """Plain version of the solve kernel: updates ``state`` in place unless
-    its convergence flag is already set."""
+    """One GN step from the sums: updates ``state`` in place unless its
+    convergence flag is already set."""
     damping, tol2 = prm[12], prm[13]
     dev = state.device
     idx = torch.tensor(_JTJ, device=dev)
@@ -165,46 +172,12 @@ def level_plain(state, src, tgt, li: Intrinsics, cfg: OdometryConfig, iters: int
         _solve_step(state, _gn_sums(state, src, tgt, li, prm), prm)
 
 
-# ---------------------------------------------------------------------------
-# CUDA kernel wrapper
-# ---------------------------------------------------------------------------
-
-
-def level_cuda(state, src, tgt, li: Intrinsics, cfg: OdometryConfig, iters: int,
-               term_i: float, term_d: float) -> None:
-    """All GN iterations of one level on the card: per iteration one reduce
-    launch and one solve launch on PyTorch's current stream; updates
-    ``state`` in place with no host synchronization."""
-    H, W = li.height, li.width
-    dev = state.device
-    build.check_tensor(state, torch.float32, (STATE,), dev, "state")
-    build.check_tensor(src, torch.float32, (6, H, W), dev, "source planes")
-    build.check_tensor(tgt, torch.float32, (2, H, W), dev, "target planes")
-    n_blocks = -(-H * W // THREADS)
-    partials = torch.empty((n_blocks, N_SUMS), dtype=torch.float32, device=dev)
-    params = build.float_params(*_level_params(li, cfg, term_i, term_d))
-    lib = build.library()
-    stream = build.stream_handle(dev)
-    for _ in range(iters):
-        build.check(lib.akr_odometry_reduce(src.data_ptr(), tgt.data_ptr(), H, W,
-                                            state.data_ptr(), partials.data_ptr(),
-                                            n_blocks, params, stream), "odometry_reduce")
-        build.launches[KERNEL] += 1
-        build.check(lib.akr_odometry_solve(partials.data_ptr(), n_blocks, state.data_ptr(),
-                                           params, stream), "odometry_solve")
-        build.launches[KERNEL] += 1
-
-
-# ---------------------------------------------------------------------------
-# pyramid driver
-# ---------------------------------------------------------------------------
-
-
 def level_inputs(intensity_s, depth_s, intensity_t, depth_t):
     """Stacked (6, H, W) source planes [I, D, dI/du, dI/dv, dD/du, dD/dv]
     and (2, H, W) target planes [I, D] of one pyramid level. Depth
     gradients are zeroed where any 4-neighbour (wrapping at the image
-    edges, as the JAX package's roll does) has no depth."""
+    edges, as the JAX package's roll does) has no depth. The kernel computes
+    the same source planes on chip."""
     gx, gy = sobel_gradients(intensity_s)
     gdx, gdy = sobel_gradients(depth_s)
     dv = depth_s > 0
@@ -216,11 +189,108 @@ def level_inputs(intensity_s, depth_s, intensity_t, depth_t):
             torch.stack([intensity_t, depth_t]).contiguous())
 
 
-def odometry_pyramid(level, intensity_s, depth_s, intensity_t, depth_t, intr: Intrinsics,
+def pyramid_plain(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
+                  term_i: float, term_d: float) -> None:
+    """Every level, coarse to fine, in plain PyTorch; updates ``state``."""
+    for lvl in reversed(range(len(cfg.pyramid_iters))):
+        state[12] = 0.0  # each level starts unconverged
+        iters = cfg.pyramid_iters[lvl]
+        if iters <= 0:
+            continue
+        src, tgt = level_inputs(*pyr_s[lvl], *pyr_t[lvl])
+        level_plain(state, src, tgt, intr.scaled(1.0 / (1 << lvl)), cfg, iters, term_i, term_d)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+_PLANES = ("source intensity", "source depth", "target intensity", "target depth")
+
+
+def pack_levels(pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig, device):
+    """Check every level's planes and pack them for the kernel: (plane
+    pointers [I_s, D_s, I_t, D_t] per level, [H, W, iterations] per level,
+    [fx, fy, cx, cy] per level). Raises ``ValueError`` on a level count
+    outside 1..MAX_LEVELS, a pyramid of another depth, or a plane that is
+    not a contiguous float32 (H, W) tensor on ``device``."""
+    levels = len(cfg.pyramid_iters)
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"odometry_pyramid: {levels} pyramid levels, the kernel takes "
+                         f"1 to {MAX_LEVELS}")
+    if len(pyr_s) != levels or len(pyr_t) != levels:
+        raise ValueError(f"odometry_pyramid: {levels} levels configured, pyramids of "
+                         f"{len(pyr_s)} and {len(pyr_t)} given")
+    ptrs, dims, intr_f = [], [], []
+    for lvl in range(levels):
+        li = intr.scaled(1.0 / (1 << lvl))
+        for t, what in zip((*pyr_s[lvl], *pyr_t[lvl]), _PLANES):
+            build.check_tensor(t, torch.float32, (li.height, li.width), device,
+                               f"level {lvl} {what}")
+            ptrs.append(t.data_ptr())
+        dims += [li.height, li.width, int(cfg.pyramid_iters[lvl])]
+        intr_f += [li.fx, li.fy, li.cx, li.cy]
+    return ptrs, dims, intr_f
+
+
+def check_band(dims, grid: int, band: int) -> None:
+    """Raise ``ValueError`` when a level that iterates has more pixels than
+    the kernel's grid holds in shared memory: ``grid`` CTAs of ``band``
+    pixels each (about 0.93 M pixels on an H100). ``dims`` is
+    :func:`pack_levels`' [H, W, iterations] per level."""
+    for lvl in range(len(dims) // 3):
+        H, W, iters = dims[3 * lvl:3 * lvl + 3]
+        if iters > 0 and H * W > grid * band:
+            raise ValueError(f"odometry_pyramid: level {lvl} is {H}x{W} = {H * W} pixels, "
+                             f"the kernel holds at most {grid * band} on this card "
+                             f"({grid} CTAs x {band} pixels of shared memory)")
+
+
+def launch_grid() -> tuple[int, int]:
+    """(grid, band) on the current card: the kernel's fixed co-resident
+    CTAs and the most pixels one CTA's shared memory holds, computed once
+    per process by the library."""
+    n, band = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().akr_odometry_pyramid_grid(ctypes.byref(n), ctypes.byref(band)),
+                "odometry_pyramid grid")
+    return n.value, band.value
+
+
+def pyramid_cuda(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
+                 term_i: float, term_d: float) -> None:
+    """Every level, coarse to fine, on the card in ONE cooperative launch on
+    PyTorch's current stream; updates ``state`` in place with no host
+    synchronization. Every level's planes and size are checked before the
+    launch."""
+    dev = state.device
+    build.check_tensor(state, torch.float32, (STATE,), dev, "state")
+    ptrs, dims, intr_f = pack_levels(pyr_s, pyr_t, intr, cfg, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"pyramid_cuda needs CUDA tensors, got {dev}")
+    lib = build.library()
+    with torch.cuda.device(dev):
+        grid, band = launch_grid()
+        check_band(dims, grid, band)
+        # the partial rows: one tagged 64-bit word per sum (zeroed by the launch)
+        partials = torch.empty((2, grid, N_SUMS), dtype=torch.int64, device=dev)
+        build.check(lib.akr_odometry_pyramid(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
+            build.float_params(*intr_f), len(dims) // 3,
+            build.float_params(*_shared_params(cfg, term_i, term_d)), state.data_ptr(),
+            partials.data_ptr(), grid, build.stream_handle(dev)), KERNEL)
+    build.launches[KERNEL] += 1
+
+
+# ---------------------------------------------------------------------------
+# pyramid loop
+# ---------------------------------------------------------------------------
+
+
+def odometry_pyramid(run, intensity_s, depth_s, intensity_t, depth_t, intr: Intrinsics,
                      cfg: OdometryConfig, init=None) -> OdometryResult:
-    """Coarse-to-fine GN over the image pyramid, running each level with
-    ``level`` (:func:`level_cuda` or :func:`level_plain`). The result stays
-    on the input device."""
+    """Coarse-to-fine GN over the image pyramid, all levels run by ``run``
+    (:func:`pyramid_cuda` or :func:`pyramid_plain`). The result stays on
+    the input device."""
     dev = depth_s.device
     levels = len(cfg.pyramid_iters)
     pyr_s = build_pyramid(intensity_s, depth_s, levels)
@@ -231,11 +301,7 @@ def odometry_pyramid(level, intensity_s, depth_s, intensity_t, depth_t, intr: In
     state = torch.zeros(STATE, dtype=torch.float32, device=dev)
     T0 = torch.eye(4, device=dev) if init is None else init.to(device=dev, dtype=torch.float32)
     state[:12] = T0[:3].reshape(-1)
-    for lvl in reversed(range(levels)):
-        src, tgt = level_inputs(*pyr_s[lvl], *pyr_t[lvl])
-        state[12] = 0.0  # each level starts unconverged
-        level(state, src, tgt, intr.scaled(1.0 / (1 << lvl)), cfg, cfg.pyramid_iters[lvl],
-              term_i, term_d)
+    run(state, pyr_s, pyr_t, intr, cfg, term_i, term_d)
 
     T = torch.cat([state[:12].reshape(3, 4), torch.eye(4, device=dev)[3:]])
     return OdometryResult(T_target_source=T, fitness=state[13], rmse=state[14],
@@ -245,6 +311,6 @@ def odometry_pyramid(level, intensity_s, depth_s, intensity_t, depth_t, intr: In
 def compute_odometry_fast(intensity_s, depth_s, intensity_t, depth_t, intr: Intrinsics,
                           cfg: OdometryConfig = OdometryConfig(), init=None) -> OdometryResult:
     """Hybrid odometry source -> target (``T_target_source``): CUDA tensors
-    run the kernels, CPU tensors the plain version."""
-    level = level_cuda if depth_s.device.type == "cuda" else level_plain
-    return odometry_pyramid(level, intensity_s, depth_s, intensity_t, depth_t, intr, cfg, init)
+    run the kernel, CPU tensors the plain version."""
+    run = pyramid_cuda if depth_s.device.type == "cuda" else pyramid_plain
+    return odometry_pyramid(run, intensity_s, depth_s, intensity_t, depth_t, intr, cfg, init)

@@ -8,7 +8,10 @@ with nvcc, then, at the bench headline configuration (640x576 NFOV depth,
 worklist, odometry pyramid [20, 10, 5]):
 
 1. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and times both with CUDA events;
+   shapes the main path gives it, times both with CUDA events, reads each
+   kernel's device time per launch from ``torch.profiler``, computes its
+   bound from this run's data, and captures one odometry call into a CUDA
+   graph and replays it;
 2. drives ``MonoOdometryTSDF(..., device="cuda").process_frame`` over the
    first 16 poses of the bench sweep (``orbit_trajectory(64, radius=0.35,
    angle_span=1.3)``), rendered on the card and quantized to u16 mm / u8 RGB,
@@ -42,10 +45,21 @@ per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
 results, one JSON line of per-kernel results, and, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, on
 any failure or when no CUDA device is available. Needs no jax.
+
+    python3 chip_smoke.py --odometry
+
+times only the odometry of the package beside the script, with calls that
+every version of the port has: B2's device time and launches per frame pair
+and the odometry phase (``compute_odometry_fast`` on the first frame pair),
+and the mono loop's ms/frame over the 16 frames. It prints the card's name
+and power limit, then one JSON line. To compare a change with its parent on
+one card, copy this script into an unpacked parent commit and run both in
+one call: parent, change, change, parent.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -56,6 +70,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "azurekinect3dreconstruction_tpu_torch"
 N_FRAMES = 16
+ODO_REPS = 50  # odometry calls per timing of one frame pair
 N_F2M_FRAMES = 32
 ATE_LIMIT_M = 0.02
 F2M_ATE_SLACK_M = 0.0005  # frame-to-model may not drift more than frame-to-frame + this
@@ -66,6 +81,19 @@ B1_WEIGHT_EQUAL_MIN = 0.9999
 B1_VALUE_TOL = 1e-5
 B2_POSE_TOL = 1e-4
 B2_FITNESS_TOL = 1e-3
+# published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): float32
+# outside the tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# B1 per updated voxel: read and write tsdf, weight and 3 colors (5 x 4 B each way)
+B1_BYTES_PER_UPDATED_VOXEL = 40
+# B2 flops: per source pixel of a level (Sobel of 2 planes, back-projection),
+# per pixel-iteration with valid source depth (transform, projection), and
+# per valid pixel-iteration (2 bilinear samples, Jacobians, weights, 27
+# weighted products, cost); fma counted as 2
+B2_FLOPS_PROLOGUE = 38
+B2_FLOPS_WARP = 25
+B2_FLOPS_VALID = 220
 N_DUAL_PAIRS = 24
 N_DUAL_CPU_PAIRS = 4
 # the calibration rig of tests/test_pipelines.py and its bounds there
@@ -108,6 +136,70 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_us(fn, reps: int, kernel: str):
+    """Device time per call of the CUDA kernels whose name holds ``kernel``,
+    from ``torch.profiler`` over ``reps`` calls after one warm-up, and their
+    launches per call; (None, 0) when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if kernel in e.key and t > 0:
+            total += t
+            count += e.count
+    return (total / reps if total > 0 else None), count / reps
+
+
+def _bound(n_bytes: float, flops: float):
+    """(bound ms, what sets it): the larger of bytes over HBM bandwidth and
+    flops over the float32 peak."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.3f} us"
+
+
+def b2_work(pyr_s, pyr_t, intr, cfg, terms):
+    """The work of one frame pair at this run's data, from the plain
+    version's own iterations: (source pixels of the levels that iterate,
+    pixel-iterations with valid source depth, valid pixel-iterations)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+
+    dev = pyr_s[0][0].device
+    state = torch.zeros(odo.STATE, device=dev)
+    state[:12] = torch.eye(4, device=dev)[:3].reshape(-1)
+    pixels = src = valid = 0.0
+    for lvl in reversed(range(len(cfg.pyramid_iters))):
+        state[12] = 0.0
+        iters = cfg.pyramid_iters[lvl]
+        if iters <= 0:
+            continue
+        li = intr.scaled(1.0 / (1 << lvl))
+        planes = odo.level_inputs(*pyr_s[lvl], *pyr_t[lvl])
+        prm = odo._level_params(li, cfg, *terms)
+        pixels += li.height * li.width
+        for _ in range(iters):
+            if float(state[12]) != 0.0:
+                break
+            sums = odo._gn_sums(state, *planes, li, prm)
+            src += float(sums[29])
+            valid += float(sums[27])
+            odo._solve_step(state, sums, prm)
+    return pixels, src, valid
+
+
 def _median_ms(fn, dev, reps: int = 5) -> float:
     """Median time of ``fn`` over ``reps`` calls, each closed by a device
     synchronization: CUDA events on a card, the host clock on the CPU."""
@@ -129,6 +221,75 @@ def _median_ms(fn, dev, reps: int = 5) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[len(times) // 2]
+
+
+def odometry_timing(odo, args, dev):
+    """One frame pair through ``compute_odometry_fast(*args)``: device us
+    per call of its odometry kernels and their launches per call
+    (``torch.profiler``), and the call's ms, synchronized after each call
+    (median of ``ODO_REPS``, CUDA events)."""
+    call = lambda: odo.compute_odometry_fast(*args)
+    us, per_call = _device_us(call, ODO_REPS, "odometry")
+    return us, per_call, _median_ms(call, dev, ODO_REPS)
+
+
+def _quantize(rendered):
+    """A rendered (depth m, color 0..1) pair as the sensor gives it: u16 mm
+    and u8 RGB on the host."""
+    import numpy as np
+    import torch
+
+    z, c = rendered
+    return (torch.round(z * 1000.0).cpu().numpy().astype(np.uint16),
+            torch.round(c * 255.0).cpu().numpy().astype(np.uint8))
+
+
+def _bench(dev, n: int):
+    """The bench headline configuration, its intrinsics and synthetic
+    camera, the first ``n`` poses of the bench sweep and their frames."""
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+
+    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16,
+                                         block_capacity=16384, hash_capacity=65536))
+    intr = Intrinsics.azure_kinect_depth_nfov()
+    cam = SyntheticCamera(intrinsics=intr, device=dev)
+    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n]
+    return cfg, intr, cam, poses, [_quantize(cam.render(T)) for T in poses]
+
+
+def _decode(raw_pair, cfg, dev):
+    """(depth, color, intensity) on the card, decoded as the live loop does."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+
+    d, c = raw_pair
+    cc = cfg.camera
+    return decode_raw_frame(torch.from_numpy(d).to(dev), torch.from_numpy(c).to(dev),
+                            1.0 / cc.depth_scale, cc.depth_min, cc.depth_trunc)
+
+
+def _run_frames(pipe, raw, each: bool):
+    """Host-clock ms of ``pipe.process_frame`` over ``raw``: each frame's,
+    synchronized after each, when ``each``; else ms/frame with one
+    synchronization at the end."""
+    import torch
+
+    frame_ms = []
+    t0 = time.perf_counter()
+    for d, c in raw:
+        pipe.process_frame(d, c)
+        if each:
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return frame_ms if each else (time.perf_counter() - t0) * 1e3 / len(raw)
 
 
 def _sync(dev) -> None:
@@ -252,8 +413,7 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         pm.process_frame(d, c)
         _sync(dev)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = {"tsdf_integrate": build.launches[tk.KERNEL],
-              "odometry_level": build.launches[odo.KERNEL]}
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
     a_m = ate(pm.trajectory[1:], gt_np)
     ev = pm.counts
     rejected = pm.odometry_failures
@@ -286,9 +446,9 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         failures.append("a frame was rejected by the fitness gate")
     if overflow or bool(pf.volume.overflow):
         failures.append("volume overflow on the frame_to_model pass")
-    if counts["tsdf_integrate"] < n or \
-            counts["odometry_level"] != 2 * sum(cfg.odometry.pyramid_iters) * (n - 1):
-        failures.append("a kernel was not launched as expected on the frame_to_model pass")
+    if counts[tk.KERNEL] < n or counts[odo.KERNEL] != n - 1:
+        failures.append("a kernel was not launched as expected on the frame_to_model pass "
+                        "(B2 once per frame pair)")
 
     # phases of one frame (the last pair) against the pipeline's final model
     cam = cfg.camera
@@ -551,13 +711,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
-    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
-    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
-        SyntheticCamera,
-        orbit_trajectory,
-    )
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
@@ -580,21 +736,9 @@ def main() -> int:
     _log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s) "
          f"-> {os.path.relpath(lib_path, REPO)}")
 
-    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16,
-                                         block_capacity=16384, hash_capacity=65536))
+    cfg, intr, cam, poses, raw = _bench(dev, N_FRAMES)
     tcfg, ocfg = cfg.tsdf, cfg.odometry
-    intr = Intrinsics.azure_kinect_depth_nfov()
-    cam = SyntheticCamera(intrinsics=intr, device=dev)
-    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_FRAMES]
-    raw = []
-    for T in poses:
-        z, c = cam.render(T)
-        raw.append((torch.round(z * 1000.0).cpu().numpy().astype(np.uint16),
-                    torch.round(c * 255.0).cpu().numpy().astype(np.uint8)))
-    camc = cfg.camera
-    scal = (1.0 / camc.depth_scale, camc.depth_min, camc.depth_trunc)
-    dec = [decode_raw_frame(torch.from_numpy(d).to(dev), torch.from_numpy(c).to(dev), *scal)
-           for d, c in raw[:3]]
+    dec = [_decode(r, cfg, dev) for r in raw[:3]]
     gt = [torch.as_tensor(np.linalg.inv(poses[0]) @ T, dtype=torch.float32, device=dev)
           for T in poses]
     rays = pixel_rays(intr, dev)
@@ -621,64 +765,117 @@ def main() -> int:
     frac = float(agree.float().mean())
     err_t = float((vk.tsdf[live] - vp.tsdf[live]).abs()[agree].max())
     err_c = float((vk.color[live] - vp.color[live]).abs()[agree[:, None].expand(-1, 3, -1)].max())
-    updated = float((wk != base["weight"][live]).float().mean())
+    n_updated = int((wk != base["weight"][live]).sum())
+    updated = n_updated / max(wk.numel(), 1)
     _log(f"B1 tsdf_integrate: {int(n_active)} live worklist rows, {updated:.3%} of their voxels "
          f"updated; weights equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max |dcolor| "
          f"{err_c:.3g} where they agree")
     if not (frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL and err_c <= B1_VALUE_TOL):
         failures.append("B1 kernel disagrees with its plain version")
-    ms_k = _time_ms(lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg), 50)
+    b1_call = lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg)
+    ms_k = _time_ms(b1_call, 50)
     ms_p = _time_ms(lambda: tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg), 5)
-    _log(f"B1 time at M=2048 ({int(n_active)} live): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-    kernels.append(dict(name="tsdf_integrate", route="cuda",
+    us_k, per_call = _device_us(b1_call, 20, "tsdf_integrate_kernel")
+    # bound: the voxels this frame updates, read and written once; the live
+    # worklist rows, the depth and color images and the pose read once
+    n_live = live.numel()
+    b1_bytes = (n_updated * B1_BYTES_PER_UPDATED_VOXEL + n_live * 16 + d2.numel() * 4
+                + c2.numel() * 4 + 64)
+    b1_bound, b1_by = _bound(b1_bytes, 0.0)
+    _log(f"B1 time at M=2048 ({int(n_active)} live): wrapper {ms_k:.4f} ms (CUDA events), "
+         f"device {_fmt_us(us_k)} per launch ({per_call:g} kernel/call, torch.profiler), plain "
+         f"{ms_p:.4f} ms; bound {b1_bound * 1e3:.3f} us ({b1_by}: {n_updated} voxels updated, "
+         f"{b1_bytes / 1e6:.2f} MB)  [{gpu}]")
+    kernels.append(dict(name=tk.KERNEL, route="cuda",
                         source=f"{PKG}/csrc/tsdf_integrate.cu",
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/tsdf_kernels.py:323",
                         max_abs_err=max(err_t, err_c), ms=ms_k, plain_ms=ms_p,
-                        weight_equal_fraction=frac))
+                        bound_ms=b1_bound, bound_by=b1_by, library_ms=None,
+                        device_us=us_k, weight_equal_fraction=frac))
     del vol, vk, vp, base
 
     # -- B2: one frame pair at [20,10,5], kernel vs plain ---------------------
     (d0, _, i0), (d1, _, i1) = dec[0], dec[1]
     args = (i0, d0, i1, d1, intr, ocfg)
-    rk = odo.odometry_pyramid(odo.level_cuda, *args)
-    rp = odo.odometry_pyramid(odo.level_plain, *args)
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args)
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args)
     torch.cuda.synchronize()
     err_T = float((rk.T_target_source - rp.T_target_source).abs().max())
     err_f = abs(float(rk.fitness) - float(rp.fitness))
-    _log(f"B2 odometry_level: max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} "
-         f"(fitness kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f})")
-    if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL):
-        failures.append("B2 kernel disagrees with its plain version")
-    # per frame: the pyramid's 3 level launches of both versions
-    ms_k = _time_ms(lambda: odo.odometry_pyramid(odo.level_cuda, *args), 20)
-    ms_p = _time_ms(lambda: odo.odometry_pyramid(odo.level_plain, *args), 3)
-    _log(f"B2 time per frame pair (35 GN iterations): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-    kernels.append(dict(name="odometry_level", route="cuda",
-                        source=f"{PKG}/csrc/odometry_level.cu",
+    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args)
+    same = bool(torch.equal(rk.T_target_source, rk2.T_target_source))
+    _log(f"B2 odometry_pyramid: max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} "
+         f"(fitness kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); "
+         f"a second launch equal to the bit: {same}")
+    if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same):
+        failures.append("B2 kernel disagrees with its plain version or with itself")
+    # the runners on one prebuilt pyramid (the wrapper alone), then the whole call
+    levels = len(ocfg.pyramid_iters)
+    pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
+    terms = (0.0 if ocfg.term == "depth" else 1.0, 0.0 if ocfg.term == "color" else 1.0)
+    state0 = torch.zeros(odo.STATE, device=dev)
+    state0[:12] = torch.eye(4, device=dev)[:3].reshape(-1)
+    runner = lambda run: (lambda: run(state0.clone(), pyr_s, pyr_t, intr, ocfg, *terms))
+    ms_k = _time_ms(runner(odo.pyramid_cuda), 20)
+    ms_p = _time_ms(runner(odo.pyramid_plain), 3)
+    us_k, per_call, ms_call = odometry_timing(odo, args, dev)
+    grid, band = odo.launch_grid()
+    pixels, n_src, n_valid = b2_work(pyr_s, pyr_t, intr, ocfg, terms)
+    b2_flops = (pixels * B2_FLOPS_PROLOGUE + n_src * B2_FLOPS_WARP + n_valid * B2_FLOPS_VALID)
+    b2_bytes = 4 * 4 * pixels + 64  # I_s, D_s, I_t, D_t of every level, read once
+    b2_bound, b2_by = _bound(b2_bytes, b2_flops)
+    _log(f"B2 per frame pair ({sum(ocfg.pyramid_iters)} GN iterations, one launch): wrapper "
+         f"{ms_k:.4f} ms (CUDA events), device {_fmt_us(us_k)} per launch ({per_call:g} "
+         f"kernel/call, torch.profiler), plain {ms_p:.4f} ms; compute_odometry_fast "
+         f"(pyramids + launch, synchronized, median of {ODO_REPS}) {ms_call:.4f} ms; bound "
+         f"{b2_bound * 1e3:.3f} us ({b2_by}: {pixels:.0f} level pixels, {n_src:.0f} / "
+         f"{n_valid:.0f} source-valid / valid pixel-iterations, {b2_flops / 1e9:.3f} GFLOP, "
+         f"{b2_bytes / 1e6:.2f} MB)  [{gpu}]")
+    _log(f"B2 grid: {grid} CTAs x {band} pixels of shared memory each, so a level that "
+         f"iterates may hold up to {grid * band} pixels")
+    # one odometry call captured into a CUDA graph, replayed on the next pair
+    static = [a.clone() for a in (i0, d0, i1, d1)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        odo.compute_odometry_fast(*static, intr, ocfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = odo.compute_odometry_fast(*static, intr, ocfg)
+    (d2_, _, i2_) = dec[2]
+    for t, a in zip(static, (i1, d1, i2_, d2_)):
+        t.copy_(a)
+    graph.replay()
+    want = odo.compute_odometry_fast(i1, d1, i2_, d2_, intr, ocfg)
+    torch.cuda.synchronize()
+    replay_equal = bool(torch.equal(out.T_target_source, want.T_target_source))
+    ms_graph = _median_ms(graph.replay, dev, 11)
+    _log(f"B2 CUDA graph: one compute_odometry_fast call captured, its replay on the next pair "
+         f"equal to the eager pose to the bit: {replay_equal}; replay {ms_graph:.4f} ms vs eager "
+         f"{ms_call:.4f} ms (synchronized, median of 11)  [{gpu}]")
+    if not replay_equal:
+        failures.append("the CUDA-graph replay of B2 differs from the eager call")
+    del graph
+    kernels.append(dict(name=odo.KERNEL, route="cuda",
+                        source=f"{PKG}/csrc/odometry_pyramid.cu",
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/odometry_kernels.py:487",
-                        max_abs_err=max(err_T, err_f), ms=ms_k, plain_ms=ms_p))
+                        max_abs_err=max(err_T, err_f), ms=ms_k, plain_ms=ms_p,
+                        bound_ms=b2_bound, bound_by=b2_by, library_ms=None, device_us=us_k,
+                        odometry_call_ms=ms_call, graph_replay_ms=ms_graph,
+                        max_level_pixels=grid * band))
 
     # -- the main path: the live loop over 16 frames ---------------------------
-    warm = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
-    for d, c in raw[:3]:
-        warm.process_frame(d, c)
-    torch.cuda.synchronize()
-    del warm
+    _run_frames(MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048), raw[:3], False)
     pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
     torch.cuda.synchronize()
     build.launches.clear()
-    frame_ms = []
-    for d, c in raw:
-        t0 = time.perf_counter()
-        pipe.process_frame(d, c)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = {"tsdf_integrate": build.launches[tk.KERNEL],
-              "odometry_level": build.launches[odo.KERNEL]}
+    frame_ms = _run_frames(pipe, raw, True)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
     _log(f"launches on the main path: {json.dumps(counts)}")
-    if counts["tsdf_integrate"] < N_FRAMES or \
-            counts["odometry_level"] != 2 * sum(ocfg.pyramid_iters) * (N_FRAMES - 1):
-        failures.append("a kernel of the main path was not launched as expected")
+    if counts[tk.KERNEL] < N_FRAMES or counts[odo.KERNEL] != N_FRAMES - 1:
+        failures.append("a kernel of the main path was not launched as expected "
+                        "(B2 once per frame pair)")
     for k in kernels:
         k["launches"] = counts[k["name"]]
 
@@ -702,12 +899,8 @@ def main() -> int:
          f"max {steady[-1]:.3f}  [{gpu}]")
     # the live loop's own pace: the same frames again, one sync at the end
     pipe.reset()
-    t0 = time.perf_counter()
-    for d, c in raw:
-        pipe.process_frame(d, c)
-    torch.cuda.synchronize()
     _log(f"ms/frame (host clock, one sync after {N_FRAMES} frames): "
-         f"{(time.perf_counter() - t0) * 1e3 / N_FRAMES:.3f}  [{gpu}]")
+         f"{_run_frames(pipe, raw, False):.3f}  [{gpu}]")
     if n_rejected or len(fit) != N_FRAMES - 1:
         failures.append(f"{n_rejected} frame(s) rejected by the fitness gate")
     if overflow:
@@ -721,11 +914,7 @@ def main() -> int:
     failures += mesh_phase(pipe, tcfg, dev, gpu)
     del pipe
     poses32 = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_F2M_FRAMES]
-    raw32 = raw + []
-    for T in poses32[N_FRAMES:]:
-        z, c = cam.render(T)
-        raw32.append((torch.round(z * 1000.0).cpu().numpy().astype(np.uint16),
-                      torch.round(c * 255.0).cpu().numpy().astype(np.uint8)))
+    raw32 = raw + [_quantize(cam.render(T)) for T in poses32[N_FRAMES:]]
     gt32 = [torch.as_tensor(np.linalg.inv(poses32[0]) @ T, dtype=torch.float32, device=dev)
             for T in poses32]
     f2m_failures, f2m_counts = f2m_phase(intr, cfg, raw32, gt32, dev, gpu)
@@ -746,5 +935,61 @@ def main() -> int:
     return 0
 
 
+def odometry_main() -> int:
+    """``--odometry``: the odometry numbers of the package beside this
+    script, through calls every version of the port has."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device is available")
+    pkg_dir = os.path.join(REPO, PKG)
+    if not os.path.isdir(pkg_dir):
+        return _fail(f"the {PKG} package is not beside this script")
+    sys.path.insert(0, REPO)
+    import statistics
+
+    import azurekinect3dreconstruction_tpu_torch as port
+
+    if not os.path.abspath(port.__file__).startswith(pkg_dir + os.sep):
+        return _fail(f"imported {port.__file__}, not the package beside this script")
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    gpu = _gpu_line()
+    _log(f"gpu: {gpu}")
+    build.library()
+    cfg, intr, _, _, raw = _bench(dev, N_FRAMES)
+    (d0, _, i0), (d1, _, i1) = [_decode(r, cfg, dev) for r in raw[:2]]
+    args = (i0, d0, i1, d1, intr, cfg.odometry)
+    before = build.launches[odo.KERNEL]
+    res = odo.compute_odometry_fast(*args)
+    counter = build.launches[odo.KERNEL] - before
+    us, per_call, ms_call = odometry_timing(odo, args, dev)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    frame_ms = _run_frames(pipe, raw, True)
+    rejected = pipe.odometry_failures
+    pipe.reset()
+    loop_ms = _run_frames(pipe, raw, False)
+    _log(json.dumps({
+        "checkout": REPO, "gpu": gpu,
+        "odometry_device_us_per_call": us, "odometry_kernels_per_call": per_call,
+        "launch_counter_per_call": counter,
+        "odometry_call_ms_synced_median": ms_call,
+        "mono_ms_per_frame_synced_median": statistics.median(frame_ms[1:]),
+        "mono_ms_per_frame_one_sync": loop_ms, "mono_gate_rejections": rejected,
+        "pose": res.T_target_source.cpu().numpy().round(7).tolist(),
+        "fitness": float(res.fitness)}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--odometry", action="store_true",
+                    help="time only the odometry of the package beside this script")
+    sys.exit(odometry_main() if ap.parse_args().odometry else main())

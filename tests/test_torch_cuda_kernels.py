@@ -73,20 +73,80 @@ def test_integrate_kernel_matches_plain_bitwise(dev, frames):
     assert torch.equal(a.color, b.color)
 
 
+def _odometry_args(fr, i=0):
+    (_, z0, c0), (_, z1, c1) = fr[i], fr[i + 1]
+    return (rgb_to_intensity(c0), z0, rgb_to_intensity(c1), z1, INTR)
+
+
 def test_odometry_kernel_matches_plain(dev, frames):
+    """One launch per frame pair; pose <= 1e-5 and fitness <= 1e-4 against
+    the plain version at (8, 8, 8); the fixed grid and sum order give the
+    same pose to the bit on a second run."""
     _, fr = frames
-    (_, z0, c0), (_, z1, c1) = fr[0], fr[1]
-    args = (rgb_to_intensity(c0), z0, rgb_to_intensity(c1), z1, INTR)
+    args = _odometry_args(fr)
     cfg = OdometryConfig(pyramid_iters=(8, 8, 8))
     before = build.launches[odo.KERNEL]
-    rk = odo.odometry_pyramid(odo.level_cuda, *args, cfg)
-    assert build.launches[odo.KERNEL] == before + 2 * 24
-    rp = odo.odometry_pyramid(odo.level_plain, *args, cfg)
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
+    assert build.launches[odo.KERNEL] == before + 1
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args, cfg)
     torch.testing.assert_close(rk.T_target_source, rp.T_target_source, atol=1e-5, rtol=0)
     assert abs(float(rk.fitness) - float(rp.fitness)) <= 1e-4
-    # deterministic: the fixed-order reduction gives the same pose every run
-    rk2 = odo.odometry_pyramid(odo.level_cuda, *args, cfg)
+    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
     assert torch.equal(rk.T_target_source, rk2.T_target_source)
+    assert torch.equal(rk.fitness, rk2.fitness) and torch.equal(rk.rmse, rk2.rmse)
+
+
+def test_odometry_kernel_zero_iteration_levels(dev, frames):
+    """A (0, 3, 0) schedule: the empty levels pass the pose through, so the
+    kernel equals the plain version at the same schedule."""
+    _, fr = frames
+    args = _odometry_args(fr)
+    cfg = OdometryConfig(pyramid_iters=(0, 3, 0))
+    init = torch.eye(4, device=dev)
+    init[:3, 3] = torch.tensor([0.003, -0.002, 0.001], device=dev)
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg, init=init)
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args, cfg, init=init)
+    torch.testing.assert_close(rk.T_target_source, rp.T_target_source, atol=1e-5, rtol=0)
+    assert abs(float(rk.fitness) - float(rp.fitness)) <= 1e-4
+    none = odo.odometry_pyramid(odo.pyramid_cuda, *args, OdometryConfig(pyramid_iters=(0, 0, 0)),
+                                init=init)
+    assert torch.equal(none.T_target_source, init) and float(none.fitness) == 0.0
+
+
+def test_odometry_kernel_convergence_exit(dev, frames):
+    """convergence_delta = 1e9 stops every level after its first applied
+    step: the same launch as a (1, 1, 1) schedule, to the bit."""
+    _, fr = frames
+    args = _odometry_args(fr)
+    r_early = odo.odometry_pyramid(odo.pyramid_cuda, *args,
+                                   OdometryConfig(pyramid_iters=(8, 8, 8), convergence_delta=1e9))
+    r_one = odo.odometry_pyramid(odo.pyramid_cuda, *args, OdometryConfig(pyramid_iters=(1, 1, 1)))
+    assert torch.equal(r_early.T_target_source, r_one.T_target_source)
+    assert torch.equal(r_early.fitness, r_one.fitness)
+
+
+def test_odometry_kernel_replays_in_a_cuda_graph(dev, frames):
+    """One odometry call captures into a CUDA graph; a replay on new inputs
+    gives the eager pose to the bit."""
+    _, fr = frames
+    cfg = OdometryConfig(pyramid_iters=(8, 8, 8))
+    static = [a.clone() for a in _odometry_args(fr)[:4]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        odo.compute_odometry_fast(*static, INTR, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = odo.compute_odometry_fast(*static, INTR, cfg)
+    new = _odometry_args(fr, 1)
+    for s, a in zip(static, new[:4]):
+        s.copy_(a)
+    graph.replay()
+    want = odo.compute_odometry_fast(*new[:4], INTR, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out.T_target_source, want.T_target_source)
+    assert torch.equal(out.fitness, want.fitness)
 
 
 def test_wrappers_refuse_bad_inputs(dev, frames):
@@ -97,9 +157,31 @@ def test_wrappers_refuse_bad_inputs(dev, frames):
     with pytest.raises(ValueError):
         tk.integrate_worklist_cuda(vol, wl, z, c, torch.eye(4, device=dev), INTR, CFG)
     state = torch.zeros(odo.STATE, device=dev)
-    src = torch.zeros((6, 10, 10), device=dev)
-    with pytest.raises(ValueError):
-        odo.level_cuda(state, src, src[:2], INTR, OdometryConfig(), 1, 1.0, 1.0)
+    cfg = OdometryConfig(pyramid_iters=(1, 1, 1))
+    pyr = [(torch.zeros((h, w), device=dev),) * 2 for h, w in ((144, 160), (72, 80), (36, 40))]
+    before = build.launches[odo.KERNEL]
+    cases = {
+        "shape": ([pyr[0], (torch.zeros((72, 81), device=dev),) * 2, pyr[2]], pyr, cfg),
+        "dtype": (pyr, [tuple(p.double() for p in pyr[0])] + pyr[1:], cfg),
+        "depth": (pyr[:2], pyr[:2], cfg),
+        "levels": (pyr + pyr[-1:] * 2, pyr + pyr[-1:] * 2, OdometryConfig(pyramid_iters=(1,) * 5)),
+    }
+    for ps, pt, c in cases.values():
+        with pytest.raises(ValueError):
+            odo.pyramid_cuda(state, ps, pt, INTR, c, 1.0, 1.0)
+    assert build.launches[odo.KERNEL] == before
+
+
+def test_odometry_kernel_refuses_an_oversized_level(dev):
+    """A 1024x1024 level (WFOV unbinned) does not fit the grid's shared
+    memory: pyramid_cuda raises before the launch."""
+    big = Intrinsics(1024, 1024, 504.0, 504.0, 511.5, 511.5)
+    pyr = [(torch.zeros((1024, 1024), device=dev),) * 2]
+    state = torch.zeros(odo.STATE, device=dev)
+    before = build.launches[odo.KERNEL]
+    with pytest.raises(ValueError, match="level 0 is 1024x1024"):
+        odo.pyramid_cuda(state, pyr, pyr, big, OdometryConfig(pyramid_iters=(1,)), 1.0, 1.0)
+    assert build.launches[odo.KERNEL] == before
 
 
 def test_mono_pipeline_on_cuda_matches_cpu(dev, frames):
@@ -114,7 +196,7 @@ def test_mono_pipeline_on_cuda_matches_cpu(dev, frames):
         pg.process_frame(d, c)
         pc.process_frame(d, c)
     assert build.launches[tk.KERNEL] - b1 == len(raw)
-    assert build.launches[odo.KERNEL] - b2 == 2 * 24 * (len(raw) - 1)
+    assert build.launches[odo.KERNEL] - b2 == len(raw) - 1
     np.testing.assert_allclose(np.stack(pg.trajectory), np.stack(pc.trajectory), atol=1e-4)
     assert pg.odometry_failures == 0 and not bool(pg.volume.overflow)
     assert int(pg.volume.n_blocks) == int(pc.volume.n_blocks)
@@ -177,7 +259,7 @@ def test_f2m_step_on_cuda_matches_cpu(dev, frames):
     finally:
         torch.set_float32_matmul_precision(prev)
     assert build.launches[tk.KERNEL] == b1 + 1
-    assert build.launches[odo.KERNEL] == b2 + 2 * 24
+    assert build.launches[odo.KERNEL] == b2 + 1
     out_c = step(*host, torch.from_numpy(d1), torch.from_numpy(c1), pipe.rays.cpu(), mp.cpu(),
                  mm.cpu(), *scal)
     assert bool(out_g[6]) == bool(out_c[6]) is True

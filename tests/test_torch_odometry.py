@@ -19,6 +19,9 @@ from azurekinect3dreconstruction_tpu.ops.pallas.odometry_kernels import compute_
 from azurekinect3dreconstruction_tpu.tracking.odometry import compute_odometry
 from azurekinect3dreconstruction_tpu_torch.config import OdometryConfig
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
+from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.odometry_kernels import (
     compute_odometry_fast,
 )
@@ -107,6 +110,132 @@ def test_convergence_early_exit_matches_iteration_cap(pair):
     np.testing.assert_allclose(r_early.T_target_source.numpy(), r_one.T_target_source.numpy(),
                                atol=1e-6)
     assert abs(float(r_early.fitness) - float(r_one.fitness)) <= 1e-6
+
+
+def _pyramids(arrs, levels):
+    t = [torch.from_numpy(np.array(a)) for a in arrs]
+    return build_pyramid(t[0], t[1], levels), build_pyramid(t[2], t[3], levels)
+
+
+def _per_level_route(arrs, cfg, init):
+    """The route of the per-level runner: level_inputs + level_plain per
+    level, coarse to fine, on one state vector."""
+    levels = len(cfg.pyramid_iters)
+    pyr_s, pyr_t = _pyramids(arrs, levels)
+    state = torch.zeros(odo.STATE)
+    state[:12] = torch.from_numpy(np.array(init, np.float32))[:3].reshape(-1)
+    for lvl in reversed(range(levels)):
+        src, tgt = odo.level_inputs(*pyr_s[lvl], *pyr_t[lvl])
+        state[12] = 0.0
+        odo.level_plain(state, src, tgt, INTR.scaled(1.0 / (1 << lvl)), cfg,
+                        cfg.pyramid_iters[lvl], 1.0, 1.0)
+    return state
+
+
+@pytest.mark.parametrize("iters", [(2, 2, 2), (1, 0, 3)])
+def test_pyramid_plain_equals_per_level_route(pair, iters):
+    """The whole-pyramid plain runner is the per-level route, to the bit."""
+    arrs, _ = pair
+    cfg = OdometryConfig(pyramid_iters=iters)
+    init = np.eye(4)
+    init[:3, 3] = [0.004, -0.003, 0.002]
+    want = _per_level_route(arrs, cfg, init)
+    t = [torch.from_numpy(np.array(a)) for a in arrs]
+    got = odo.odometry_pyramid(odo.pyramid_plain, *t, INTR, cfg,
+                               init=torch.from_numpy(init.astype(np.float32)))
+    assert torch.equal(got.T_target_source[:3].reshape(-1), want[:12])
+    assert torch.equal(got.fitness, want[13]) and torch.equal(got.rmse, want[14])
+    assert int(got.inliers) == int(want[15])
+
+
+def test_zero_iteration_levels_pass_the_pose_through(pair):
+    """A level with no iterations leaves the pose as it found it: all-zero
+    levels return ``init`` to the bit, and empty coarse levels in front of
+    level 0 change nothing against a one-level pyramid."""
+    arrs, T_true = pair
+    init = np.asarray(jse3.se3_exp(jnp.asarray(
+        np.asarray(jse3.se3_log(jnp.asarray(T_true, jnp.float32))) * 0.5, jnp.float32)))
+    init_t = torch.from_numpy(np.array(init, np.float32))
+    res = _port(arrs, OdometryConfig(pyramid_iters=(0, 0, 0)), init=init)
+    assert torch.equal(res.T_target_source, init_t)
+    assert float(res.fitness) == 0.0 and int(res.inliers) == 0
+    padded = _port(arrs, OdometryConfig(pyramid_iters=(2, 0, 0)), init=init)
+    alone = _port(arrs, OdometryConfig(pyramid_iters=(2,)), init=init)
+    assert torch.equal(padded.T_target_source, alone.T_target_source)
+    assert torch.equal(padded.fitness, alone.fitness)
+    assert not torch.equal(padded.T_target_source, init_t)
+
+
+def test_pack_levels_order(pair):
+    """The kernel's per-level arguments: plane pointers [I_s, D_s, I_t, D_t],
+    [H, W, iterations] and the scaled [fx, fy, cx, cy], finest level first."""
+    arrs, _ = pair
+    cfg = OdometryConfig(pyramid_iters=(4, 3, 2))
+    pyr_s, pyr_t = _pyramids(arrs, 3)
+    ptrs, dims, intr = odo.pack_levels(pyr_s, pyr_t, INTR, cfg, torch.device("cpu"))
+    assert ptrs == [t.data_ptr() for lvl in range(3) for t in (*pyr_s[lvl], *pyr_t[lvl])]
+    assert dims == [144, 160, 4, 72, 80, 3, 36, 40, 2]
+    for lvl in range(3):
+        li = INTR.scaled(1.0 / (1 << lvl))
+        assert intr[4 * lvl:4 * lvl + 4] == [li.fx, li.fy, li.cx, li.cy]
+
+
+def _bad_inputs(arrs):
+    """(state, pyr_s, pyr_t, cfg, message) cases pyramid_cuda must refuse."""
+    cfg = OdometryConfig(pyramid_iters=(1, 1, 1))
+    pyr_s, pyr_t = _pyramids(arrs, 3)
+    state = torch.zeros(odo.STATE)
+    wrong_shape = list(pyr_s)
+    wrong_shape[1] = (pyr_s[1][0], torch.zeros((72, 81)))
+    wrong_dtype = list(pyr_t)
+    wrong_dtype[0] = (pyr_t[0][0].double(), pyr_t[0][1])
+    strided = list(pyr_s)
+    strided[2] = (pyr_s[2][0], torch.zeros((40, 36)).t())
+    five = OdometryConfig(pyramid_iters=(1,) * 5)
+    deep_s, deep_t = _pyramids(arrs, 5)
+    return {
+        "cpu": (state, pyr_s, pyr_t, cfg, "needs CUDA tensors"),
+        "shape": (state, wrong_shape, pyr_t, cfg, "level 1 source depth"),
+        "dtype": (state, pyr_s, wrong_dtype, cfg, "level 0 target intensity"),
+        "contiguity": (state, strided, pyr_t, cfg, "non-contiguous"),
+        "levels": (state, deep_s, deep_t, five, "5 pyramid levels"),
+        "depth": (state, pyr_s[:2], pyr_t[:2], cfg, "pyramids of 2 and 2"),
+        "state": (torch.zeros(12), pyr_s, pyr_t, cfg, "state"),
+    }
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "dtype", "contiguity", "levels", "depth",
+                                  "state"])
+def test_pyramid_cuda_refuses_before_building(pair, monkeypatch, case):
+    """pyramid_cuda checks every level before it builds or launches: CPU
+    tensors, a wrong shape, dtype, stride, level count or pyramid depth, or
+    a wrong state vector raise ``ValueError`` and launch nothing."""
+    arrs, _ = pair
+
+    def no_build():
+        raise AssertionError("built the kernels before checking the inputs")
+
+    monkeypatch.setattr(build, "library", no_build)
+    state, pyr_s, pyr_t, cfg, msg = _bad_inputs(arrs)[case]
+    before = build.launches[odo.KERNEL]
+    with pytest.raises(ValueError, match=msg):
+        odo.pyramid_cuda(state, pyr_s, pyr_t, INTR, cfg, 1.0, 1.0)
+    assert build.launches[odo.KERNEL] == before
+
+
+@pytest.mark.parametrize("dims, fits", [
+    ([576, 640, 20, 288, 320, 10, 144, 160, 5], True),  # NFOV unbinned
+    ([1024, 1024, 20, 512, 512, 10, 256, 256, 5], False),  # WFOV unbinned
+    ([1024, 1024, 0, 512, 512, 10, 256, 256, 5], True),  # level 0 not iterated
+])
+def test_check_band_refuses_a_level_over_the_shared_memory(dims, fits):
+    """A level that iterates may hold at most grid x band pixels; 132 CTAs
+    of 7,078 pixels is an H100's limit (32 B of shared memory a pixel)."""
+    if fits:
+        odo.check_band(dims, 132, 7078)
+    else:
+        with pytest.raises(ValueError, match="level 0 is 1024x1024"):
+            odo.check_band(dims, 132, 7078)
 
 
 def test_color_term_matches_pallas_kernel(pair):
