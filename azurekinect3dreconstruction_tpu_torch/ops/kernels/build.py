@@ -34,8 +34,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns the int cudaError_t)
 _SIGNATURES = {
-    # worklist, M, T_cw, depth, color, H, W, tsdf, weight, color_pool, R, trash, params, stream
-    "akr_tsdf_integrate": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    # worklist, M, n_active, T_cw, depth, color, H, W, tsdf, weight, color_pool, R, trash,
+    # params, stream
+    "akr_tsdf_integrate": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    # R, grid (out)
+    "akr_tsdf_integrate_grid": [_I, ctypes.POINTER(_I)],
     # grid (out), band (out)
     "akr_odometry_pyramid_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # planes, dims, intr, n_levels, params, state, partials, grid, stream

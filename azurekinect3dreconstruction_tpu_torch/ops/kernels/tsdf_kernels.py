@@ -9,6 +9,7 @@ volume's sticky ``overflow`` flag instead.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -21,6 +22,7 @@ from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf_volume
 
 KERNEL = "tsdf_integrate"
+BLOCK_RESOLUTIONS = (8, 16, 32)  # the kernel's instantiations (csrc/tsdf_integrate.cu)
 
 
 def build_worklist(block_coords, n_blocks, T_world_cam, intr: Intrinsics, cfg: TSDFConfig):
@@ -61,7 +63,7 @@ def build_worklist(block_coords, n_blocks, T_world_cam, intr: Intrinsics, cfg: T
     visible = ((slot_ids < n_blocks) & ~behind.all(1) & (z.amax(1) > 1e-3)
                & (umax > 0) & (umin < intr.width) & (vmax > 0) & (vmin < intr.height))
 
-    order = torch.cumsum(visible.to(torch.int32), 0) - 1
+    order = torch.cumsum(visible.to(torch.int32), 0, dtype=torch.int32) - 1
     dst = torch.where(visible, order, N).to(torch.int64)
     rows = torch.cat([slot_ids[:, None], block_coords.to(torch.int32)], dim=1)  # (N, 4)
     worklist = torch.zeros((N + 1, 4), dtype=torch.int32, device=dev)
@@ -80,27 +82,72 @@ def integrate_worklist_plain(vol, worklist, depth, color, T_world_cam, intr: Int
                             intr, cfg)
 
 
+def updated_voxels(worklist, depth, T_world_cam, intr: Intrinsics, cfg: TSDFConfig):
+    """How many voxels of the worklist's rows one frame updates (an int64
+    0-d tensor), by the plain version's own rule (``tsdf.volume.update_mask``);
+    saturated weights count. B1's bound is taken on this count."""
+    upd, _, _ = tsdf_volume.update_mask(
+        worklist[:, 1:], worklist[:, 0] != cfg.block_capacity - 1, depth,
+        se3.inverse(T_world_cam.to(torch.float32)), intr, cfg)
+    return upd.sum()
+
+
+def check_block_resolution(R: int) -> None:
+    """Raise ``ValueError`` unless the kernel is built for ``R``."""
+    if R not in BLOCK_RESOLUTIONS:
+        raise ValueError(f"{KERNEL}: block_resolution {R} is not supported; the kernel is "
+                         f"built for {', '.join(map(str, BLOCK_RESOLUTIONS))}")
+
+
+def launch_grid(R: int) -> int:
+    """The kernel's persistent grid for block resolution ``R`` on the
+    current card (CTAs the card holds at once), computed once per process."""
+    check_block_resolution(R)
+    n = ctypes.c_int(0)
+    build.check(build.library().akr_tsdf_integrate_grid(R, ctypes.byref(n)), f"{KERNEL} grid")
+    return n.value
+
+
 def integrate_worklist_cuda(vol, worklist, depth, color, T_world_cam, intr: Intrinsics,
-                            cfg: TSDFConfig) -> None:
-    """Launch ``akr_tsdf_integrate`` on PyTorch's current stream. In place."""
+                            cfg: TSDFConfig, n_active=None) -> None:
+    """Launch ``akr_tsdf_integrate`` on PyTorch's current stream. In place.
+
+    ``n_active`` (int32 0-d tensor on the card, as :func:`build_worklist`
+    gives it) bounds the rows the kernel reads on the device, so padding
+    rows cost nothing and nothing waits on the host; ``None`` means all rows.
+    Raises ``ValueError`` before the launch on an unsupported
+    ``block_resolution``, a tensor the kernel does not take, or pools or a
+    worklist that are not 16-B aligned."""
     R = cfg.block_resolution
+    check_block_resolution(R)
     H, W = intr.height, intr.width
     N = vol.tsdf.shape[0]
     dev = vol.tsdf.device
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_worklist_cuda needs CUDA tensors, got {dev}")
     build.check_tensor(worklist, torch.int32, (worklist.shape[0], 4), dev, "worklist")
     build.check_tensor(depth, torch.float32, (H, W), dev, "depth")
     build.check_tensor(color, torch.float32, (H, W, 3), dev, "color")
     build.check_tensor(vol.tsdf, torch.float32, (N, R ** 3), dev, "tsdf pool")
     build.check_tensor(vol.weight, torch.float32, (N, R ** 3), dev, "weight pool")
     build.check_tensor(vol.color, torch.float32, (N, 3, R ** 3), dev, "color pool")
+    for t, what in ((worklist, "worklist"), (vol.tsdf, "tsdf pool"),
+                    (vol.weight, "weight pool"), (vol.color, "color pool")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: the kernel loads 16-B words; its base is not 16-B aligned")
+    if n_active is not None:
+        build.check_tensor(n_active, torch.int32, (), dev, "n_active")
     T_cw = se3.inverse(T_world_cam.to(device=dev, dtype=torch.float32))[:3].contiguous()
     params = build.float_params(intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size,
                                 cfg.sdf_trunc, rcp32(cfg.sdf_trunc), cfg.max_integration_weight)
     lib = build.library()
-    err = lib.akr_tsdf_integrate(
-        worklist.data_ptr(), worklist.shape[0], T_cw.data_ptr(), depth.data_ptr(),
-        color.data_ptr(), H, W, vol.tsdf.data_ptr(), vol.weight.data_ptr(),
-        vol.color.data_ptr(), R, cfg.block_capacity - 1, params, build.stream_handle(dev))
+    with torch.cuda.device(dev):
+        err = lib.akr_tsdf_integrate(
+            worklist.data_ptr(), worklist.shape[0],
+            None if n_active is None else n_active.data_ptr(), T_cw.data_ptr(),
+            depth.data_ptr(), color.data_ptr(), H, W, vol.tsdf.data_ptr(),
+            vol.weight.data_ptr(), vol.color.data_ptr(), R, cfg.block_capacity - 1, params,
+            build.stream_handle(dev))
     build.check(err, KERNEL)
     build.launches[KERNEL] += 1
 
@@ -111,12 +158,15 @@ def integrate_worklist(vol, depth, color, T_world_cam, intr: Intrinsics, cfg: TS
     is updated in place; returns ``vol`` with ``overflow`` set if more
     blocks are visible than ``worklist_size`` (default: the whole pool).
 
-    CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (bounded on the device by the live row
+    count), CPU tensors run the plain version."""
     worklist, n_active = build_worklist(vol.block_coords, vol.n_blocks, T_world_cam, intr, cfg)
     M = vol.tsdf.shape[0] if worklist_size is None else min(worklist_size, worklist.shape[0])
     worklist = worklist[:M].contiguous()
-    fn = integrate_worklist_cuda if vol.tsdf.is_cuda else integrate_worklist_plain
-    fn(vol, worklist, depth, color, T_world_cam, intr, cfg)
+    if vol.tsdf.is_cuda:
+        integrate_worklist_cuda(vol, worklist, depth, color, T_world_cam, intr, cfg, n_active)
+    else:
+        integrate_worklist_plain(vol, worklist, depth, color, T_world_cam, intr, cfg)
     return vol._replace(overflow=vol.overflow | (n_active > M))
 
 

@@ -147,22 +147,13 @@ def voxel_world_centers(block_coords, cfg: TSDFConfig):
     return (vox.to(torch.float32) + 0.5) * cfg.voxel_size
 
 
-def fuse_blocks(vol: TSDFVolume, slots, coords, active, depth, color, T_cam_world,
-                intr: Intrinsics, cfg: TSDFConfig) -> None:
-    """The per-voxel update of pool rows ``slots`` (int64 (M,)) whose block
-    coords are ``coords`` ((M, 3) int32), for rows where ``active`` is set;
-    writes the pool tensors of ``vol`` in place.
-
-    For each voxel center: camera coords via ``T_cam_world``, nearest pixel
-    by round-half-to-even of ``fma(x / max(z, 1e-6), f, c)``, depth and
-    color sampled there; where the pixel is in the image, ``z > 1e-4``,
-    depth > 0 and ``sdf = d - z > -trunc``: tsdf and color take the running
-    weighted average with ``min(sdf / trunc, 1)`` and weight becomes
-    ``min(w + 1, max_weight)``. Multiply-adds are fused, and ``/ trunc`` is
-    a multiply by the float32 reciprocal, exactly where the JAX package's
-    compiled integrate does so (see ``core.fmath``): the two agree to the
-    bit. This is the plain version of the CUDA kernel
-    ``csrc/tsdf_integrate.cu``."""
+def update_mask(coords, active, depth, T_cam_world, intr: Intrinsics, cfg: TSDFConfig):
+    """Which voxels of the blocks at ``coords`` ((M, 3) int32) one depth
+    frame updates, for rows where ``active`` is set: the rule of
+    :func:`fuse_blocks`, which uses it. It does not depend on the pool, so
+    a voxel whose weight is already at ``max_integration_weight`` still
+    counts. Returns (update mask (M, R^3) bool, sdf (M, R^3) f32, pixel
+    index (M, R^3) int64)."""
     pts_c = se3.transform_points(T_cam_world, voxel_world_centers(coords, cfg))
     z = pts_c[..., 2]
     safe_z = torch.clamp_min(z, 1e-6)
@@ -175,7 +166,26 @@ def fuse_blocks(vol: TSDFVolume, slots, coords, active, depth, color, T_cam_worl
     d = depth.reshape(-1)[pix]  # (M, V) gather
     sdf = d - z
     upd = inb & (d > 0.0) & (sdf > -cfg.sdf_trunc) & active[:, None]
+    return upd, sdf, pix
 
+
+def fuse_blocks(vol: TSDFVolume, slots, coords, active, depth, color, T_cam_world,
+                intr: Intrinsics, cfg: TSDFConfig) -> None:
+    """The per-voxel update of pool rows ``slots`` (int64 (M,)) whose block
+    coords are ``coords`` ((M, 3) int32), for rows where ``active`` is set;
+    writes the pool tensors of ``vol`` in place.
+
+    For each voxel center: camera coords via ``T_cam_world``, nearest pixel
+    by round-half-to-even of ``fma(x / max(z, 1e-6), f, c)``, depth and
+    color sampled there; where the pixel is in the image, ``z > 1e-4``,
+    depth > 0 and ``sdf = d - z > -trunc`` (:func:`update_mask`): tsdf and
+    color take the running weighted average with ``min(sdf / trunc, 1)``
+    and weight becomes ``min(w + 1, max_weight)``. Multiply-adds are fused,
+    and ``/ trunc`` is a multiply by the float32 reciprocal, exactly where
+    the JAX package's compiled integrate does so (see ``core.fmath``): the
+    two agree to the bit. This is the plain version of the CUDA kernel
+    ``csrc/tsdf_integrate.cu``."""
+    upd, sdf, pix = update_mask(coords, active, depth, T_cam_world, intr, cfg)
     tsdf_obs = torch.clamp_max(sdf * rcp32(cfg.sdf_trunc), 1.0)
     w_old = vol.weight[slots]
     inv = 1.0 / torch.clamp_min(w_old + 1.0, 1.0)

@@ -10,8 +10,9 @@ worklist, odometry pyramid [20, 10, 5]):
 1. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, times both with CUDA events, reads each
    kernel's device time per launch from ``torch.profiler``, computes its
-   bound from this run's data, and captures one odometry call into a CUDA
-   graph and replays it;
+   bound from this run's data (B1's from the voxels the update rule
+   updates, ``tsdf_kernels.updated_voxels``), prints B1's persistent grid,
+   and captures one odometry call into a CUDA graph and replays it;
 2. drives ``MonoOdometryTSDF(..., device="cuda").process_frame`` over the
    first 16 poses of the bench sweep (``orbit_trajectory(64, radius=0.35,
    angle_span=1.3)``), rendered on the card and quantized to u16 mm / u8 RGB,
@@ -55,6 +56,15 @@ and the mono loop's ms/frame over the 16 frames. It prints the card's name
 and power limit, then one JSON line. To compare a change with its parent on
 one card, copy this script into an unpacked parent commit and run both in
 one call: parent, change, change, parent.
+
+    python3 chip_smoke.py --integrate
+
+does the same for B1 (TSDF integrate): its device time per launch on the
+stated input (the third sweep frame into a 2-frame volume through
+``integrate_worklist(..., worklist_size=2048)``), on the first frame's
+whole-pool worklist (``integrate_frame``), and over the 16-frame mono loop,
+with the bound and its bytes (null for a version without
+``updated_voxels``).
 """
 
 from __future__ import annotations
@@ -136,18 +146,14 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_us(fn, reps: int, kernel: str):
-    """Device time per call of the CUDA kernels whose name holds ``kernel``,
-    from ``torch.profiler`` over ``reps`` calls after one warm-up, and their
-    launches per call; (None, 0) when the profiler sees no device time."""
+def _profiled(fn, kernel: str):
+    """Run ``fn`` once under ``torch.profiler``, synchronized: (device us,
+    launches) of the CUDA kernels whose name holds ``kernel``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for e in prof.key_averages():
@@ -155,6 +161,18 @@ def _device_us(fn, reps: int, kernel: str):
         if kernel in e.key and t > 0:
             total += t
             count += e.count
+    return total, count
+
+
+def _device_us(fn, reps: int, kernel: str):
+    """Device time per call of the CUDA kernels whose name holds ``kernel``,
+    from ``torch.profiler`` over ``reps`` calls after one warm-up, and their
+    launches per call; (None, 0) when the profiler sees no device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total, count = _profiled(lambda: [fn() for _ in range(reps)], kernel)
     return (total / reps if total > 0 else None), count / reps
 
 
@@ -163,6 +181,14 @@ def _bound(n_bytes: float, flops: float):
     flops over the float32 peak."""
     t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b1_bound_bytes(n_updated: int, n_live: int, depth, color) -> int:
+    """B1's least bytes: the voxels the frame updates (by the update rule,
+    saturated weights included), read and written once; the live worklist
+    rows, the depth and color images and the pose read once."""
+    return (n_updated * B1_BYTES_PER_UPDATED_VOXEL + n_live * 16 + depth.numel() * 4
+            + color.numel() * 4 + 64)
 
 
 def _fmt_us(us) -> str:
@@ -704,11 +730,9 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        return _fail("no CUDA device is available")
-    if not os.path.isdir(os.path.join(REPO, PKG)):
-        return _fail(f"the {PKG} package is not beside this script")
-    sys.path.insert(0, REPO)
+    why = _port_beside()
+    if why:
+        return _fail(why)
     import numpy as np
 
     from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
@@ -756,7 +780,7 @@ def main() -> int:
     base = {k: getattr(vol, k).clone() for k in ("tsdf", "weight", "color")}
     vk = vol._replace(**{k: v.clone() for k, v in base.items()})
     vp = vol._replace(**{k: v.clone() for k, v in base.items()})
-    tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg)
+    tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
     tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg)
     torch.cuda.synchronize()
     live = wl[: min(int(n_active), wl.shape[0]), 0].long()
@@ -765,22 +789,21 @@ def main() -> int:
     frac = float(agree.float().mean())
     err_t = float((vk.tsdf[live] - vp.tsdf[live]).abs()[agree].max())
     err_c = float((vk.color[live] - vp.color[live]).abs()[agree[:, None].expand(-1, 3, -1)].max())
-    n_updated = int((wk != base["weight"][live]).sum())
+    bitwise = all(torch.equal(getattr(vk, k), getattr(vp, k)) for k in ("tsdf", "weight", "color"))
+    n_updated = int(tk.updated_voxels(wl[: live.numel()], d2, gt[2], intr, tcfg))
     updated = n_updated / max(wk.numel(), 1)
+    grid = tk.launch_grid(tcfg.block_resolution)
     _log(f"B1 tsdf_integrate: {int(n_active)} live worklist rows, {updated:.3%} of their voxels "
-         f"updated; weights equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max |dcolor| "
-         f"{err_c:.3g} where they agree")
+         f"updated (update rule); weights equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max "
+         f"|dcolor| {err_c:.3g} where they agree; pools equal to the bit: {bitwise}; "
+         f"persistent grid {grid} CTAs")
     if not (frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL and err_c <= B1_VALUE_TOL):
         failures.append("B1 kernel disagrees with its plain version")
-    b1_call = lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg)
+    b1_call = lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
     ms_k = _time_ms(b1_call, 50)
     ms_p = _time_ms(lambda: tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg), 5)
     us_k, per_call = _device_us(b1_call, 20, "tsdf_integrate_kernel")
-    # bound: the voxels this frame updates, read and written once; the live
-    # worklist rows, the depth and color images and the pose read once
-    n_live = live.numel()
-    b1_bytes = (n_updated * B1_BYTES_PER_UPDATED_VOXEL + n_live * 16 + d2.numel() * 4
-                + c2.numel() * 4 + 64)
+    b1_bytes = b1_bound_bytes(n_updated, live.numel(), d2, c2)
     b1_bound, b1_by = _bound(b1_bytes, 0.0)
     _log(f"B1 time at M=2048 ({int(n_active)} live): wrapper {ms_k:.4f} ms (CUDA events), "
          f"device {_fmt_us(us_k)} per launch ({per_call:g} kernel/call, torch.profiler), plain "
@@ -791,7 +814,8 @@ def main() -> int:
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/tsdf_kernels.py:323",
                         max_abs_err=max(err_t, err_c), ms=ms_k, plain_ms=ms_p,
                         bound_ms=b1_bound, bound_by=b1_by, library_ms=None,
-                        device_us=us_k, weight_equal_fraction=frac))
+                        device_us=us_k, weight_equal_fraction=frac, bitwise=bitwise,
+                        grid=grid))
     del vol, vk, vp, base
 
     # -- B2: one frame pair at [20,10,5], kernel vs plain ---------------------
@@ -935,23 +959,35 @@ def main() -> int:
     return 0
 
 
-def odometry_main() -> int:
-    """``--odometry``: the odometry numbers of the package beside this
-    script, through calls every version of the port has."""
+def _port_beside():
+    """Why the package beside this script cannot be timed on a card (no
+    card, no package, another copy imported), or None; puts it on the
+    import path."""
     import torch
 
     if not torch.cuda.is_available():
-        return _fail("no CUDA device is available")
+        return "no CUDA device is available"
     pkg_dir = os.path.join(REPO, PKG)
     if not os.path.isdir(pkg_dir):
-        return _fail(f"the {PKG} package is not beside this script")
+        return f"the {PKG} package is not beside this script"
     sys.path.insert(0, REPO)
-    import statistics
-
     import azurekinect3dreconstruction_tpu_torch as port
 
     if not os.path.abspath(port.__file__).startswith(pkg_dir + os.sep):
-        return _fail(f"imported {port.__file__}, not the package beside this script")
+        return f"imported {port.__file__}, not the package beside this script"
+    return None
+
+
+def odometry_main() -> int:
+    """``--odometry``: the odometry numbers of the package beside this
+    script, through calls every version of the port has."""
+    import statistics
+
+    import torch
+
+    why = _port_beside()
+    if why:
+        return _fail(why)
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
     from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
@@ -988,8 +1024,95 @@ def odometry_main() -> int:
     return 0
 
 
+def integrate_main() -> int:
+    """``--integrate``: B1's numbers of the package beside this script,
+    through calls every version of the port has (the bound needs
+    ``tsdf_kernels.updated_voxels``; a version without it prints null)."""
+    import numpy as np
+    import torch
+
+    why = _port_beside()
+    if why:
+        return _fail(why)
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+
+    dev = torch.device("cuda:0")
+    gpu = _gpu_line()
+    _log(f"gpu: {gpu}")
+    build.library()
+    cfg, intr, _, poses, raw = _bench(dev, N_FRAMES)
+    tcfg = cfg.tsdf
+    dec = [_decode(r, cfg, dev) for r in raw[:3]]
+    gt = [torch.as_tensor(np.linalg.inv(poses[0]) @ T, dtype=torch.float32, device=dev)
+          for T in poses[:3]]
+    rays = pixel_rays(intr, dev)
+    count = getattr(tk, "updated_voxels", None)
+
+    def bound(vol, d, c, T):
+        """(live rows, updated voxels, bound us, bytes) of one frame into ``vol``."""
+        wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, T, intr, tcfg)
+        n_live = int(n_active)
+        if count is None:
+            return n_live, None, None, None
+        n_upd = int(count(wl[:n_live], d, T, intr, tcfg))
+        n_bytes = b1_bound_bytes(n_upd, n_live, d, c)
+        return n_live, n_upd, _bound(n_bytes, 0.0)[0] * 1e3, n_bytes
+
+    # the stated input: the third frame into a 2-frame volume, M = 2048
+    vol = tsdf.create(tcfg, dev)
+    for i in range(2):
+        vol = tsdf.integrate_frame(vol, dec[i][0], dec[i][1], rays, gt[i], intr, tcfg)
+    d2, c2, _ = dec[2]
+    vol = tsdf.allocate(vol, d2, rays, gt[2], tcfg)
+    n_live, n_upd, bound_us, n_bytes = bound(vol, d2, c2, gt[2])
+    call = lambda: tk.integrate_worklist(vol, d2, c2, gt[2], intr, tcfg, worklist_size=2048)
+    us, per_call = _device_us(call, 50, "tsdf_integrate")
+    call_ms = _median_ms(call, dev, 50)
+    del vol
+
+    # the first frame: allocate + a whole-pool worklist (integrate_frame)
+    d0, c0, _ = dec[0]
+    fresh = tsdf.create(tcfg, dev)
+    first = tsdf.allocate(fresh, d0, rays, gt[0], tcfg)
+    first_live, first_upd, first_bound_us, _ = bound(first, d0, c0, gt[0])
+    del first
+    us_first, _ = _device_us(
+        lambda: tsdf.integrate_frame(fresh, d0, c0, rays, gt[0], intr, tcfg), 20, "tsdf_integrate")
+    del fresh
+
+    # the 16-frame mono loop: B1's device time per launch
+    _run_frames(MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048), raw[:3], False)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    torch.cuda.synchronize()
+    total, launches = _profiled(lambda: _run_frames(pipe, raw, False), "tsdf_integrate")
+    grid = tk.launch_grid(tcfg.block_resolution) if hasattr(tk, "launch_grid") else None
+    _log(json.dumps({
+        "checkout": REPO, "gpu": gpu, "grid": grid,
+        "b1_device_us_per_launch": us, "b1_kernels_per_call": per_call,
+        "integrate_worklist_ms_synced_median": call_ms,
+        "worklist_rows": 2048, "live_rows": n_live, "updated_voxels": n_upd,
+        "bound_us": bound_us, "bound_bytes": n_bytes,
+        "first_frame_device_us_per_launch": us_first,
+        "first_frame_worklist_rows": tcfg.block_capacity, "first_frame_live_rows": first_live,
+        "first_frame_updated_voxels": first_upd, "first_frame_bound_us": first_bound_us,
+        "mono_b1_device_us_per_launch": total / launches if launches else None,
+        "mono_b1_launches": launches, "mono_frames": N_FRAMES}))
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--odometry", action="store_true",
-                    help="time only the odometry of the package beside this script")
-    sys.exit(odometry_main() if ap.parse_args().odometry else main())
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--odometry", action="store_true",
+                      help="time only the odometry of the package beside this script")
+    mode.add_argument("--integrate", action="store_true",
+                      help="time only B1 (TSDF integrate) of the package beside this script")
+    args = ap.parse_args()
+    sys.exit(odometry_main() if args.odometry else integrate_main() if args.integrate
+             else main())

@@ -73,6 +73,146 @@ def test_integrate_kernel_matches_plain_bitwise(dev, frames):
     assert torch.equal(a.color, b.color)
 
 
+# the main path's block geometry (5 mm voxels in 16^3 blocks) at quarter resolution
+CFG16 = TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16, block_capacity=4096,
+                   hash_capacity=16384)
+
+
+def _volume_before(fr, cfg, i=2):
+    """A volume holding frames < i, with frame i's blocks allocated."""
+    rays = pixel_rays(INTR, fr[0][1].device)
+    vol = tsdf.create(cfg, rays.device)
+    for T, z, c in fr[:i]:
+        vol = tsdf.integrate_frame(vol, z, c, rays, T, INTR, cfg)
+    T, z, _ = fr[i]
+    return tsdf.allocate(vol, z, rays, T, cfg)
+
+
+def test_integrate_kernel_matches_plain_bitwise_at_r16(dev, frames):
+    """R = 16 at 5 mm (the main path's blocks): the kernel, bounded by the
+    device-side row count, equals the plain version to the bit."""
+    _, fr = frames
+    vol = _volume_before(fr, CFG16)
+    T, z, c = fr[2]
+    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, T, INTR, CFG16)
+    wl = wl[:2048].contiguous()
+    a, b = _clone(vol), _clone(vol)
+    before = build.launches[tk.KERNEL]
+    tk.integrate_worklist_cuda(a, wl, z, c, T, INTR, CFG16, n_active)
+    assert build.launches[tk.KERNEL] == before + 1
+    tk.integrate_worklist_plain(b, wl, z, c, T, INTR, CFG16)
+    torch.cuda.synchronize()
+    assert 100 < int(n_active) < 2048
+    assert int(tk.updated_voxels(wl, z, T, INTR, CFG16)) > 100_000
+    for k in ("weight", "tsdf", "color"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.parametrize("cfg, size", [(CFG, 1024), (CFG16, 2048)], ids=["r8", "r16"])
+def test_integrate_whole_pool_worklist_equals_compacted(dev, frames, cfg, size):
+    """The first frame's whole-pool worklist (the default) and a compacted
+    one give the same pools to the bit."""
+    _, fr = frames
+    vol = _volume_before(fr, cfg)
+    T, z, c = fr[2]
+    a = tk.integrate_worklist(_clone(vol), z, c, T, INTR, cfg)
+    b = tk.integrate_worklist(_clone(vol), z, c, T, INTR, cfg, worklist_size=size)
+    assert not bool(a.overflow) and not bool(b.overflow)
+    for k in ("weight", "tsdf", "color"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def test_integrate_n_active_past_m_integrates_the_first_m_rows(dev, frames):
+    """With more live rows than the worklist holds, exactly its M rows are
+    integrated, as in the plain version, and the sticky flag is set."""
+    _, fr = frames
+    vol = _volume_before(fr, CFG16)
+    T, z, c = fr[2]
+    full, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, T, INTR, CFG16)
+    M = 32
+    assert int(n_active) > M
+    wl = full[:M].contiguous()
+    a, b = _clone(vol), _clone(vol)
+    tk.integrate_worklist_cuda(a, wl, z, c, T, INTR, CFG16, n_active)
+    tk.integrate_worklist_plain(b, wl, z, c, T, INTR, CFG16)
+    for k in ("weight", "tsdf", "color"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    moved = (a.weight != vol.weight).any(dim=1)
+    assert moved.sum() > 0 and not moved[full[M:int(n_active), 0].long()].any()
+    assert set(moved.nonzero().flatten().tolist()) <= set(wl[:, 0].tolist())
+    assert bool(tk.integrate_worklist(_clone(vol), z, c, T, INTR, CFG16, M).overflow)
+
+
+def _by_key(vol):
+    n = int(vol.n_blocks)
+    keys = [tuple(k) for k in vol.block_coords[:n].cpu().tolist()]
+    order = sorted(range(n), key=keys.__getitem__)
+    idx = torch.tensor(order, device=vol.tsdf.device)
+    return ([keys[i] for i in order],
+            {k: getattr(vol, k)[idx] for k in ("weight", "tsdf", "color")})
+
+
+def test_integrate_step_replays_in_a_cuda_graph(dev, frames):
+    """allocate + worklist + B1 (``integrate_step``) captures into a CUDA
+    graph; its replay on the next frame equals the eager call to the bit,
+    block by block key (colliding hash claims may pick other slots)."""
+    _, fr = frames
+    rays = pixel_rays(INTR, dev)
+    vol = _volume_before(fr, CFG16, 1)
+    static = [a.clone() for a in fr[1]]  # T, depth, color
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.integrate_step(_clone(vol), static[1], static[2], static[0], rays, INTR, CFG16, 2048)
+    torch.cuda.current_stream().wait_stream(side)
+    captured = _clone(vol)
+    graph = torch.cuda.CUDAGraph()
+    before = build.launches[tk.KERNEL]
+    with torch.cuda.graph(graph):
+        out = tk.integrate_step(captured, static[1], static[2], static[0], rays, INTR, CFG16,
+                                2048)
+    assert build.launches[tk.KERNEL] == before + 1
+    for s, a in zip(static, fr[2]):
+        s.copy_(a)
+    graph.replay()
+    T, z, c = fr[2]
+    want = tk.integrate_step(_clone(vol), z, c, T, rays, INTR, CFG16, 2048)
+    torch.cuda.synchronize()
+    assert int(out.n_blocks) == int(want.n_blocks) > int(vol.n_blocks)
+    keys_g, rows_g = _by_key(out)
+    keys_e, rows_e = _by_key(want)
+    assert keys_g == keys_e
+    for k in rows_g:
+        assert torch.equal(rows_g[k], rows_e[k]), k
+    assert bool(out.overflow) == bool(want.overflow) is False
+
+
+def test_integrate_persistent_grid(dev):
+    """The persistent grid: a whole number of CTAs on every SM, the same on
+    a second query; printed for the record."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for R in tk.BLOCK_RESOLUTIONS:
+        grid = tk.launch_grid(R)
+        print(f"B1 persistent grid at R={R}: {grid} CTAs ({grid // sms} a SM, {sms} SMs)")
+        assert grid > 0 and grid % sms == 0 and tk.launch_grid(R) == grid
+
+
+def test_integrate_wrapper_refuses_unsupported_r_and_misaligned_pools(dev, frames):
+    _, fr = frames
+    T, z, c = fr[0]
+    wl = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    before = build.launches[tk.KERNEL]
+    cfg4 = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=4, block_capacity=64,
+                      hash_capacity=256)
+    with pytest.raises(ValueError, match="8, 16, 32"):
+        tk.integrate_worklist_cuda(tsdf.create(cfg4, dev), wl, z, c, T, INTR, cfg4)
+    vol = tsdf.create(CFG, dev)
+    shifted = torch.zeros(CFG.block_capacity * 512 + 1, device=dev)[1:].view(-1, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.integrate_worklist_cuda(vol._replace(tsdf=shifted), wl, z, c, T, INTR, CFG)
+    assert build.launches[tk.KERNEL] == before
+
+
 def _odometry_args(fr, i=0):
     (_, z0, c0), (_, z1, c1) = fr[i], fr[i + 1]
     return (rgb_to_intensity(c0), z0, rgb_to_intensity(c1), z1, INTR)
