@@ -51,16 +51,23 @@
 // the identity start a whole border column sits on the u < W-1 edge. The
 // gradients and the back-projection are those of level_inputs to the bit.
 //
-// Size limit: a CTA keeps its whole band of a level in shared memory
-// (32 B a pixel), so a level that iterates may have at most grid x band
-// pixels (akr_odometry_pyramid_grid): on an H100 (132 SMs, 227 KB of shared
-// memory a CTA) about 0.93 M, enough for 640x576 NFOV and 512x512 WFOV
-// binned depth but not for 1024x1024 WFOV unbinned. The wrapper raises on a
-// larger level before the launch.
+// Two places for the band: a CTA keeps its band of a level in shared memory
+// (32 B a pixel), which holds at most grid x band pixels of a level
+// (akr_odometry_pyramid_grid): on an H100 (132 SMs, 227 KB of shared memory
+// a CTA) 934,296, enough for 640x576 NFOV and 512x512 WFOV binned depth. A
+// pyramid with a larger level that iterates (1024x1024 WFOV unbinned) runs
+// the kGlobal instance instead: every level keeps the same 8 planes in the
+// CTA's slice of a global scratch buffer (32 MB at 1024x1024), written once
+// per level by the prologue and read back by the GN iterations with plain
+// loads (the non-coherent read-only path is not allowed for data the same
+// launch writes). The per-pixel arithmetic and every sum order are the
+// same, so both instances give the same pose to the bit where both apply.
+// The scratch misses the 50 MB L2 beside the target planes, so that path is
+// slower per pixel; it is the correct path for such input, not a fast one.
 //
 // The launch is capture-safe: it allocates nothing and never waits on the
 // host. The wrapper gives it the partial rows (2 x grid x 30 tagged 64-bit
-// words), which the entry point zeroes on the stream.
+// words), which the entry point zeroes on the stream, and the scratch.
 //
 // State layout (float[16], device): [0..11] pose 3x4 row-major (target from
 // source), [12] convergence flag of the finest level, [13] fitness, [14]
@@ -97,6 +104,7 @@ struct PyramidParams {
   float min_d, max_d, max_dd, s_i, s_d, delta, term_i, term_d, damping, tol2;
   float* state;
   unsigned long long* partials;  // [2][grid][kSums] tagged words, zeroed before the launch
+  float* scratch;                // kGlobal: [grid][kPlanes][cap] floats; else unused
 };
 
 __device__ __forceinline__ float huber(float r, float s, float delta) {
@@ -292,8 +300,10 @@ __device__ __forceinline__ float warp_transpose_sum(float (&v)[32], int lane) {
   return v[0];
 }
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const PyramidParams P) {
-  extern __shared__ float planes[];  // kPlanes x P.cap
+  extern __shared__ float smem[];  // kPlanes x P.cap (the shared instance)
+  float* const planes = kGlobal ? P.scratch + (size_t)blockIdx.x * kPlanes * P.cap : smem;
   __shared__ float warp_sums[kWarps][kSums];
   __shared__ double group_sums[kWarps][kSums];
   __shared__ float sums[kSums];
@@ -508,29 +518,34 @@ int g_band[kMaxDevices] = {0};
 }  // namespace
 
 // The grid of akr_odometry_pyramid on the current device: the CTAs that are
-// co-resident at zero dynamic shared memory (occupancy x SM count), and the
-// band: the most pixels one CTA's shared memory holds (kPlanes floats each).
-// Computed once per process and device, so every launch sums in the same
-// order. A level with iterations may have at most grid x band pixels.
+// co-resident at zero dynamic shared memory in both instances (occupancy x
+// SM count), and the band: the most pixels one CTA's shared memory holds
+// (kPlanes floats each). Computed once per process and device, so every
+// launch sums in the same order. A pyramid whose levels that iterate have
+// at most grid x band pixels each runs from shared memory, any other from
+// the global scratch.
 extern "C" int akr_odometry_pyramid_grid(int* grid, int* band) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (g_grid[dev] == 0) {
-    int sms = 0, optin = 0, occ = 0;
+    int sms = 0, optin = 0, occ = 0, occ_global = 0;
     cudaFuncAttributes attr;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
         (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
             cudaSuccess ||
-        (e = cudaFuncGetAttributes(&attr, odometry_pyramid_kernel)) != cudaSuccess ||
-        (e = cudaFuncSetAttribute(odometry_pyramid_kernel,
+        (e = cudaFuncGetAttributes(&attr, odometry_pyramid_kernel<false>)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(odometry_pyramid_kernel<false>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   optin - static_cast<int>(attr.sharedSizeBytes))) !=
             cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, odometry_pyramid_kernel,
-                                                            kThreads, 0)) != cudaSuccess)
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, odometry_pyramid_kernel<false>,
+                                                            kThreads, 0)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &occ_global, odometry_pyramid_kernel<true>, kThreads, 0)) != cudaSuccess)
       return static_cast<int>(e);
+    occ = std::min(occ, occ_global);
     if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     g_grid[dev] = occ * sms;
     g_band[dev] = (optin - static_cast<int>(attr.sharedSizeBytes)) /
@@ -545,15 +560,17 @@ extern "C" int akr_odometry_pyramid_grid(int* grid, int* band) {
 // dims: 3 ints per level [H, W, iterations]; intr: 4 floats per level [fx,
 // fy, cx, cy]; params (host): min_depth, max_depth, max_depth_diff,
 // 1/sigma_i, 1/sigma_d, huber_delta, term_i, term_d, damping, tol^2; state:
-// float[16]; partials: 64-bit words[2 * grid * 30]. Level 0
-// is the finest; levels run from n_levels-1 down to 0. A refused launch
-// (cudaErrorCooperativeLaunchTooLarge: the bands do not fit in shared
-// memory at this grid; the wrapper refuses such levels first) is returned,
-// never worked around.
+// float[16]; partials: 64-bit words[2 * grid * 30]; scratch: null to keep
+// the bands in shared memory, else grid * 8 * cap floats (cap: the pixels
+// of the largest band, ceil(H * W / grid) over the levels that iterate) to
+// keep them there. Level 0 is the finest; levels run from n_levels-1 down
+// to 0. A refused launch (cudaErrorCooperativeLaunchTooLarge: the bands do
+// not fit in shared memory at this grid; the wrapper passes a scratch for
+// such a pyramid) is returned, never worked around.
 extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
                                     const float* intr, int n_levels, const float* params,
-                                    float* state, unsigned long long* partials, int grid,
-                                    void* stream) {
+                                    float* state, unsigned long long* partials, float* scratch,
+                                    int grid, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PyramidParams P{};
@@ -588,12 +605,17 @@ extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
   P.tol2 = params[9];
   P.state = state;
   P.partials = partials;
+  P.scratch = scratch;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(partials, 0, sizeof(unsigned long long) * 2 * kSums * grid, s);
   if (e == cudaSuccess) {
     void* args[] = {&P};
-    e = cudaLaunchCooperativeKernel(odometry_pyramid_kernel, dim3(grid), dim3(kThreads), args,
-                                    static_cast<size_t>(cap) * kPlanes * sizeof(float), s);
+    e = scratch != nullptr
+            ? cudaLaunchCooperativeKernel(odometry_pyramid_kernel<true>, dim3(grid),
+                                          dim3(kThreads), args, 0, s)
+            : cudaLaunchCooperativeKernel(odometry_pyramid_kernel<false>, dim3(grid),
+                                          dim3(kThreads), args,
+                                          static_cast<size_t>(cap) * kPlanes * sizeof(float), s);
   }
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);

@@ -27,12 +27,17 @@ from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
 from azurekinect3dreconstruction_tpu_torch.core.fmath import div, fma
 from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid, sobel_gradients
 from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
-from azurekinect3dreconstruction_tpu_torch.tracking.odometry import OdometryResult, huber_weight
+from azurekinect3dreconstruction_tpu_torch.tracking.odometry import (
+    OdometryResult,
+    dp_dxi,
+    huber_weight,
+)
 
 KERNEL = "odometry_pyramid"
 N_SUMS = 30  # 21 JtJ upper triangle + 6 Jtr + n_valid, squared cost, n_source
 STATE = 16  # pose 3x4, convergence flag, fitness, rmse, n_valid
 MAX_LEVELS = 4  # kMaxLevels in the .cu
+PLANES = 8  # kPlanes in the .cu: i_s, z, xs, ys, gx, gy, gdx, gdy per source pixel
 
 # (6, 6) -> index of the upper-triangle JtJ entry in the sums vector
 _JTJ = [[0] * 6 for _ in range(6)]
@@ -57,11 +62,6 @@ def _shared_params(cfg: OdometryConfig, term_i: float, term_d: float):
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
-
-
-def _dp_dxi(jx, jy, jz, px, py, pz):
-    """Point Jacobian (jx, jy, jz) contracted with dp'/dxi = [I | -hat(p')]."""
-    return (jx, jy, jz, -jy * pz + jz * py, jx * pz - jz * px, -jx * py + jy * px)
 
 
 def _gn_sums(state, src, tgt, li: Intrinsics, prm):
@@ -106,8 +106,8 @@ def _gn_sums(state, src, tgt, li: Intrinsics, prm):
     inv_z = 1.0 / zs
     ju0, ju2 = fx * inv_z, -fx * px * inv_z * inv_z
     jv1, jv2 = fy * inv_z, -fy * py * inv_z * inv_z
-    J_i = _dp_dxi(gx * ju0, gy * jv1, gx * ju2 + gy * jv2, px, py, pz)
-    J_d = _dp_dxi(gdx * ju0, gdy * jv1, gdx * ju2 + gdy * jv2 - 1.0, px, py, pz)
+    J_i = dp_dxi(gx * ju0, gy * jv1, gx * ju2 + gy * jv2, px, py, pz)
+    J_d = dp_dxi(gdx * ju0, gdy * jv1, gdx * ju2 + gdy * jv2 - 1.0, px, py, pz)
     # invalid pixels contribute nothing (their Jacobians may be huge)
     J_i = [torch.where(valid, j, 0.0) for j in J_i]
     J_d = [torch.where(valid, j, 0.0) for j in J_d]
@@ -233,17 +233,23 @@ def pack_levels(pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig, device):
     return ptrs, dims, intr_f
 
 
-def check_band(dims, grid: int, band: int) -> None:
-    """Raise ``ValueError`` when a level that iterates has more pixels than
-    the kernel's grid holds in shared memory: ``grid`` CTAs of ``band``
-    pixels each (about 0.93 M pixels on an H100). ``dims`` is
-    :func:`pack_levels`' [H, W, iterations] per level."""
-    for lvl in range(len(dims) // 3):
-        H, W, iters = dims[3 * lvl:3 * lvl + 3]
-        if iters > 0 and H * W > grid * band:
-            raise ValueError(f"odometry_pyramid: level {lvl} is {H}x{W} = {H * W} pixels, "
-                             f"the kernel holds at most {grid * band} on this card "
-                             f"({grid} CTAs x {band} pixels of shared memory)")
+def oversized_levels(dims, grid: int, band: int) -> list:
+    """The levels that iterate and have more pixels than the kernel's grid
+    holds in shared memory: ``grid`` CTAs of ``band`` pixels each (934,296
+    on an H100). A pyramid with any such level keeps the source planes of
+    all its levels in a global scratch buffer instead (the same arithmetic,
+    slower). ``dims`` is :func:`pack_levels`' [H, W, iterations] per level."""
+    return [lvl for lvl in range(len(dims) // 3)
+            if dims[3 * lvl + 2] > 0 and dims[3 * lvl] * dims[3 * lvl + 1] > grid * band]
+
+
+def scratch_floats(dims, grid: int) -> int:
+    """Floats of the global scratch the kernel needs: ``PLANES`` planes of
+    the largest band (``ceil(H * W / grid)`` pixels over the levels that
+    iterate) for each of the ``grid`` CTAs."""
+    cap = max((dims[3 * lvl] * dims[3 * lvl + 1] + grid - 1) // grid
+              for lvl in range(len(dims) // 3) if dims[3 * lvl + 2] > 0)
+    return grid * PLANES * cap
 
 
 def launch_grid() -> tuple[int, int]:
@@ -260,8 +266,10 @@ def pyramid_cuda(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
                  term_i: float, term_d: float) -> None:
     """Every level, coarse to fine, on the card in ONE cooperative launch on
     PyTorch's current stream; updates ``state`` in place with no host
-    synchronization. Every level's planes and size are checked before the
-    launch."""
+    synchronization. Every level's planes are checked before the launch; a
+    pyramid with a level larger than the grid's shared memory
+    (:func:`oversized_levels`) gets a global scratch for its planes,
+    allocated here so that the launch stays capture-safe."""
     dev = state.device
     build.check_tensor(state, torch.float32, (STATE,), dev, "state")
     ptrs, dims, intr_f = pack_levels(pyr_s, pyr_t, intr, cfg, dev)
@@ -270,14 +278,16 @@ def pyramid_cuda(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
     lib = build.library()
     with torch.cuda.device(dev):
         grid, band = launch_grid()
-        check_band(dims, grid, band)
+        scratch = (torch.empty(scratch_floats(dims, grid), dtype=torch.float32, device=dev)
+                   if oversized_levels(dims, grid, band) else None)
         # the partial rows: one tagged 64-bit word per sum (zeroed by the launch)
         partials = torch.empty((2, grid, N_SUMS), dtype=torch.int64, device=dev)
         build.check(lib.akr_odometry_pyramid(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
             build.float_params(*intr_f), len(dims) // 3,
             build.float_params(*_shared_params(cfg, term_i, term_d)), state.data_ptr(),
-            partials.data_ptr(), grid, build.stream_handle(dev)), KERNEL)
+            partials.data_ptr(), None if scratch is None else scratch.data_ptr(), grid,
+            build.stream_handle(dev)), KERNEL)
     build.launches[KERNEL] += 1
 
 

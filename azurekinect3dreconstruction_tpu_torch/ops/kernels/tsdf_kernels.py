@@ -159,14 +159,16 @@ def integrate_worklist(vol, depth, color, T_world_cam, intr: Intrinsics, cfg: TS
     blocks are visible than ``worklist_size`` (default: the whole pool).
 
     CUDA tensors launch the kernel (bounded on the device by the live row
-    count), CPU tensors run the plain version."""
+    count), CPU tensors run the plain version on the live rows only (the
+    rows past them are trash rows, which do nothing)."""
     worklist, n_active = build_worklist(vol.block_coords, vol.n_blocks, T_world_cam, intr, cfg)
     M = vol.tsdf.shape[0] if worklist_size is None else min(worklist_size, worklist.shape[0])
-    worklist = worklist[:M].contiguous()
     if vol.tsdf.is_cuda:
-        integrate_worklist_cuda(vol, worklist, depth, color, T_world_cam, intr, cfg, n_active)
+        integrate_worklist_cuda(vol, worklist[:M].contiguous(), depth, color, T_world_cam, intr,
+                                cfg, n_active)
     else:
-        integrate_worklist_plain(vol, worklist, depth, color, T_world_cam, intr, cfg)
+        integrate_worklist_plain(vol, worklist[:min(M, int(n_active))], depth, color,
+                                 T_world_cam, intr, cfg)
     return vol._replace(overflow=vol.overflow | (n_active > M))
 
 

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig
+from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
 from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
 from azurekinect3dreconstruction_tpu_torch.core.device import (
@@ -40,7 +40,7 @@ from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
 
 __all__ = ["MonoOdometryTSDF", "apply_odometry_gate", "decode_raw_frame",
-           "integration_reach", "make_raw_f2m_step", "make_raw_slam_step"]
+           "integration_reach", "make_raw_batch_fn", "make_raw_f2m_step", "make_raw_slam_step"]
 
 TRACKING_MODES = ("frame_to_frame", "frame_to_model")
 
@@ -272,6 +272,31 @@ def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int
         return vol, T, fit, inten, d
 
     return step
+
+
+def make_raw_batch_fn(intr: Intrinsics, tsdf_cfg: TSDFConfig, worklist_size: Optional[int] = None,
+                      stride: int = 2):
+    """Integration of raw frames at given poses, with no odometry (the
+    offline bundle's reintegration):
+
+    batch(vol, depth_raws (F, H, W), color_raws (F, H, W, 3), poses
+          (F, 4, 4), rays, inv_scale, depth_min, depth_trunc) -> vol
+
+    decode -> allocate -> worklist -> integrate (B1), once per frame, with
+    no host synchronization; the pools update in place. A zero-depth frame
+    integrates nothing. ``worklist_size`` defaults to the whole pool: B1
+    bounds itself on the device by the live row count, so the whole-pool
+    worklist costs what a compacted one does and no visible block is left
+    out (a smaller size sets the sticky ``overflow`` flag instead)."""
+
+    def batch(vol, depth_raws, color_raws, poses, rays, inv_scale, depth_min, depth_trunc):
+        with full_fp32_matmul():
+            for dr, cr, T in zip(depth_raws, color_raws, poses):
+                d, c, _ = decode_raw_frame(dr, cr, inv_scale, depth_min, depth_trunc)
+                vol = integrate_step(vol, d, c, T, rays, intr, tsdf_cfg, worklist_size, stride)
+        return vol
+
+    return batch
 
 
 def make_raw_f2m_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,

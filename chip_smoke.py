@@ -39,7 +39,24 @@ worklist, odometry pyramid [20, 10, 5]):
    after: B1 launched exactly twice a pair, blocks allocated throughout, no
    overflow; holds the first 4 moving pairs on the card against a CPU
    pipeline (plain B1) by block key with B1's tolerances; saves the merged
-   cloud and the mesh and reads them back.
+   cloud and the mesh and reads them back;
+7. drives the recorder, ``Recorder(..., device="cuda")``, over the first 32
+   sweep poses at the default keyframe interval (10), the launch counters
+   zeroed just before and read just after: B1 exactly once a recorded
+   frame, B2 never, every keyframe accepted by colored ICP, no overflow,
+   the keyframes' ATE <= 2 cm; saves and reads back, times one keyframe
+   step, its colored ICP and one interval step; then the keyframe jump of
+   ``tests/test_pipelines.py`` must be rebased through the fallback ladder;
+8. drives the offline bundle, ``OfflineBundle(..., device="cuda")``, over
+   the first 12 sweep poses out and back (24 frames) and ``finalize``, the
+   counters zeroed just before and read just after: B1 exactly once a
+   logged frame, all in the reintegration, B2 never, a loop closure, the
+   optimized ATE <= the raw chain's, no overflow, the mesh read back; and
+   reintegrates 4 logged frames on the card and on the CPU, by block key.
+
+Between steps 1 and 2 it runs one 1024x1024 (WFOV unbinned) frame pair
+through ``compute_odometry_fast``: B2 on its global-memory path against
+the plain version on the card, with its device time and bound.
 
 Prints the card's name and power limit, the build time, the launch counts,
 per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
@@ -110,6 +127,14 @@ N_DUAL_CPU_PAIRS = 4
 CALIB_RIG_XI = (0.12, 0.03, -0.02, 0.05, -0.12, 0.04)
 CALIB_T_LIMIT_M = 0.02
 CALIB_R_LIMIT_RAD = 0.03
+N_REC_FRAMES = 32
+# tests/test_pipelines.py's keyframe jump and its bounds there (at its registration budgets)
+JUMP_T_LIMIT_M = 0.06
+JUMP_R_LIMIT_RAD = 0.08
+N_OFFLINE_OUT = 12  # the offline scan: 12 sweep poses out and back, 24 frames
+N_OFFLINE_CPU = 4
+# Azure Kinect WFOV unbinned depth: width, height, fx, fy, cx, cy
+WFOV = (1024, 1024, 504.0, 504.0, 511.5, 511.5)
 
 
 def _log(msg: str) -> None:
@@ -727,6 +752,317 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     return failures, launches
 
 
+def wfov_check(cfg, dev, gpu: str):
+    """One 1024x1024 (WFOV unbinned) frame pair of the sweep through
+    ``compute_odometry_fast`` (B2 on its global-memory path) against the
+    plain version on the card: pose and fitness to B2's tolerances, a
+    second launch equal to the bit; B2's device time beside its bound.
+    Returns (failures, keys for B2's entry of the kernels line)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+
+    intr, ocfg = Intrinsics(*WFOV), cfg.odometry
+    cam = SyntheticCamera(intrinsics=intr, device=dev)
+    (d0, _, i0), (d1, _, i1) = [_decode(_quantize(cam.render(T)), cfg, dev)
+                                for T in orbit_trajectory(64, radius=0.35, angle_span=1.3)[:2]]
+    args = (i0, d0, i1, d1, intr, ocfg)
+    levels = len(ocfg.pyramid_iters)
+    pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
+    grid, band = odo.launch_grid()
+    _, dims, _ = odo.pack_levels(pyr_s, pyr_t, intr, ocfg, dev)
+    oversized = odo.oversized_levels(dims, grid, band)
+    rk = odo.compute_odometry_fast(*args)
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args)
+    rk2 = odo.compute_odometry_fast(*args)
+    torch.cuda.synchronize()
+    err_T = float((rk.T_target_source - rp.T_target_source).abs().max())
+    err_f = abs(float(rk.fitness) - float(rp.fitness))
+    same = bool(torch.equal(rk.T_target_source, rk2.T_target_source))
+    terms = (0.0 if ocfg.term == "depth" else 1.0, 0.0 if ocfg.term == "color" else 1.0)
+    state0 = torch.zeros(odo.STATE, device=dev)
+    state0[:12] = torch.eye(4, device=dev)[:3].reshape(-1)
+    runner = lambda run: (lambda: run(state0.clone(), pyr_s, pyr_t, intr, ocfg, *terms))
+    ms_k = _time_ms(runner(odo.pyramid_cuda), 20)
+    ms_p = _time_ms(runner(odo.pyramid_plain), 2)
+    us_k, per_call, ms_call = odometry_timing(odo, args, dev)
+    pixels, n_src, n_valid = b2_work(pyr_s, pyr_t, intr, ocfg, terms)
+    flops = pixels * B2_FLOPS_PROLOGUE + n_src * B2_FLOPS_WARP + n_valid * B2_FLOPS_VALID
+    n_bytes = 4 * 4 * pixels + 64
+    bound, by = _bound(n_bytes, flops)
+    _log(f"B2 at 1024x1024 (WFOV unbinned): levels {oversized} over the grid's {grid * band} "
+         f"shared-memory pixels, so the global-memory path ({odo.scratch_floats(dims, grid) * 4 / 1e6:.2f} "
+         f"MB scratch); max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} (fitness kernel "
+         f"{float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); a second launch equal to the "
+         f"bit: {same}")
+    _log(f"B2 at 1024x1024 per frame pair: wrapper {ms_k:.4f} ms (CUDA events), device "
+         f"{_fmt_us(us_k)} per launch ({per_call:g} kernel/call, torch.profiler), plain "
+         f"{ms_p:.4f} ms; compute_odometry_fast {ms_call:.4f} ms (synchronized, median of "
+         f"{ODO_REPS}); bound {bound * 1e3:.3f} us ({by}: {pixels:.0f} level pixels, "
+         f"{n_src:.0f} / {n_valid:.0f} source-valid / valid pixel-iterations, "
+         f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)  [{gpu}]")
+    failures = []
+    if oversized != [0]:
+        failures.append(f"the 1024x1024 pyramid's oversized levels are {oversized}, not [0]")
+    if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same and float(rk.fitness) > 0.5):
+        failures.append("B2 at 1024x1024 disagrees with its plain version or with itself")
+    return failures, dict(wfov_max_abs_err=max(err_T, err_f), wfov_ms=ms_k, wfov_plain_ms=ms_p,
+                          wfov_device_us=us_k, wfov_bound_ms=bound, wfov_bound_by=by)
+
+
+def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
+    """The recorder, ``Recorder(..., device=dev)``, over ``raw`` at ``cfg``
+    (a keyframe every ``cfg.keyframe_interval`` frames), the launch counters
+    zeroed just before and read just after: B1 once a recorded frame, B2
+    never, every keyframe accepted by colored ICP, no overflow, the
+    keyframes' ATE against ``gt``; the save read back; the ms of one
+    keyframe step, its colored ICP and one interval step. Then the keyframe
+    jump of tests/test_pipelines.py (a keyframe every frame) must be caught
+    by the deferred check and rebased through the fallback ladder. Returns
+    (failures, launch counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.core.device import upload
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.recorder import Recorder
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import TargetMaps, icp_projective
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver, read_geometry
+
+    failures = []
+    n = len(raw)
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+    tmp = tempfile.TemporaryDirectory()
+    rec = Recorder(intr, cfg, device=dev, output_dir=tmp.name)
+    rec.toggle_recording()
+    _sync(dev)
+    build.launches.clear()
+    t0 = time.perf_counter()
+    for d, c in raw:
+        rec.process_frame(d, c)
+    traj = rec.trajectory  # runs the deferred check of the last keyframe, then syncs
+    loop_ms = ms_since(t0) / n
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    ev = rec.telemetry.counters
+    kf = [i for i in range(n) if i % cfg.keyframe_interval == 0]
+    gt_np = [g.cpu().numpy().astype(np.float64) for g in gt]
+    # in the first camera's frame, as both start there (no alignment)
+    a_kf = ate([traj[1 + i] for i in kf], [gt_np[i] for i in kf], align=False)
+    a_all = ate(traj[1:], gt_np, align=False)
+    overflow = bool(rec.volume.overflow)
+    _log(f"recorder launches: {json.dumps(counts)} over {n} recorded frames  [{gpu}]")
+    _log(f"recorder over {n} frames, a keyframe every {cfg.keyframe_interval}: keyframes' ATE "
+         f"rmse {a_kf['rmse'] * 1e3:.3f} mm (max {a_kf['max'] * 1e3:.3f} mm) over {len(kf)} "
+         f"keyframes; all frames (interval frames hold the last keyframe's pose) "
+         f"{a_all['rmse'] * 1e3:.3f} mm; events {json.dumps(ev)}, overflow {overflow}, "
+         f"n_blocks {int(rec.volume.n_blocks)}; {loop_ms:.3f} ms/frame (host clock, one sync "
+         f"after {n}); host ms a step (telemetry): keyframe "
+         f"{rec.telemetry.mean_time_ms('keyframe'):.3f}, interval "
+         f"{rec.telemetry.mean_time_ms('integrate'):.3f}  [{gpu}]")
+    if counts[tk.KERNEL] != n or counts[odo.KERNEL] != 0:
+        failures.append(f"recorder launches {counts}: B1 not once a recorded frame or B2 run")
+    if not a_kf["rmse"] <= ATE_LIMIT_M:
+        failures.append(f"recorder keyframe ATE {a_kf['rmse']:.4f} m over {ATE_LIMIT_M} m")
+    if ev.get("colored_icp_reject", 0) or ev.get("colored_icp_ok", 0) != len(kf) - 1:
+        failures.append(f"recorder keyframes not all accepted by colored ICP: {ev}")
+    if overflow:
+        failures.append("volume overflow in the recorder")
+
+    t0 = time.perf_counter()
+    paths = rec.save_model()
+    save_ms = ms_since(t0)
+    v, _, f = read_geometry(paths["mesh"])
+    pts, cols, _ = read_geometry(paths["pointcloud"])
+    saved = np.stack(ResultSaver.load_trajectory(paths["trajectory"]))
+    ok_save = (f is not None and len(f) > 10000 and np.isfinite(v).all() and f.max() < len(v)
+               and len(pts) > 10000 and cols is not None and np.isfinite(pts).all()
+               and saved.shape == (n + 1, 4, 4) and np.allclose(saved, np.stack(traj), atol=1e-6))
+    _log(f"recorder save: mesh {len(v)} vertices / {0 if f is None else len(f)} triangles, "
+         f"cloud {len(pts)} points, trajectory {saved.shape[0]} poses read back; save_model "
+         f"{save_ms:.1f} ms (host)  [{gpu}]")
+    if not ok_save:
+        failures.append("the recorder's save did not read back non-empty, finite and whole")
+
+    # the steps of the last frame, on the recorder's volume (synchronized)
+    cc = cfg.camera
+    scal = (1.0 / cc.depth_scale, cc.depth_min, cc.depth_trunc)
+    rawd = (upload(raw[-1][0], dev), upload(raw[-1][1], dev))
+    d, _, inten = decode_raw_frame(*rawd, *scal)
+    src = backproject_depth(d, rec.rays)[::4, ::4].reshape(-1, 3)
+    reg = cfg.registration
+    maps = TargetMaps(*rec._maps)
+    phases = {
+        "keyframe step": lambda: rec._kf_step(rec.volume, rec._T, rec._W_prev_kf, *rec._maps,
+                                              *rawd, rec.rays, *scal),
+        "colored ICP of the keyframe step (eager)": lambda: icp_projective(
+            src, src[:, 2] > 0, maps, intr, init=torch.eye(4, device=dev),
+            max_iters=reg.colored_icp_max_iters, dist_thr=reg.icp_distance_threshold,
+            lambda_geometric=reg.colored_icp_lambda_geometric, colored=True,
+            src_intensity=inten[::4, ::4].reshape(-1)),
+        "interval step": lambda: rec._int_step(rec.volume, rec._T, *rawd, rec.rays, *scal),
+    }
+    times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
+    _log(f"recorder step ms (synchronized after each, median of 5; {reg.colored_icp_max_iters} "
+         f"colored ICP iterations): {json.dumps(times)}  [{gpu}]")
+    del rec
+
+    # the jump: frames 0-2 of an 8-pose orbit, then frame 7, at the test's
+    # registration budgets (30 colored ICP iterations, which the jump defeats)
+    JUMP_REG = RegistrationConfig(ransac_hypotheses=1024, icp_max_iters=20,
+                                  colored_icp_max_iters=30)
+    orbit = orbit_trajectory(8, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    jump = orbit[:3] + [orbit[7]]
+    rj = Recorder(intr, dataclasses.replace(cfg, keyframe_interval=1, registration=JUMP_REG),
+                  device=dev, output_dir=tmp.name)
+    rj.toggle_recording()
+    for T in jump:
+        rj.process_frame(*_quantize(cam.render(T)))
+    deferred = len(rj._pending) > 0
+    rj.save_model()
+    evj = rj.telemetry.counters
+    err = se3.se3_log(torch.as_tensor(np.linalg.inv(np.linalg.inv(jump[0]) @ jump[-1])
+                                      @ rj.T_world_cam)).numpy()
+    et, er = float(np.linalg.norm(err[:3])), float(np.linalg.norm(err[3:]))
+    _log(f"recorder jump (orbit[:3] + [orbit[7]]): rejection pending until the check {deferred}; "
+         f"events {json.dumps(evj)}; rebased pose off by {et * 1e3:.3f} mm / {er * 1e3:.3f} mrad; "
+         f"fallback ladder {rj.telemetry.mean_time_ms('fallback'):.1f} ms (host clock)  [{gpu}]")
+    if not (evj.get("colored_icp_reject", 0) >= 1 and evj.get("fallback_rebase", 0) >= 1
+            and et < JUMP_T_LIMIT_M and er < JUMP_R_LIMIT_RAD):
+        failures.append(f"the recorder's jump was not rebased through the ladder: {evj}, "
+                        f"{et:.4f} m / {er:.4f} rad")
+    del rj
+    tmp.cleanup()
+    return failures, counts
+
+
+def offline_phase(intr, cfg, cam, poses, dev, gpu: str, cpu_frames: int = N_OFFLINE_CPU):
+    """The offline bundle, ``OfflineBundle(..., device=dev)``, over ``poses``
+    out and back, then ``finalize``, the launch counters zeroed just before
+    the first frame and read just after finalize: B1 once a logged frame,
+    all in the reintegration, B2 never (the bundle tracks with the plain
+    odometry, as the JAX package does); at least one loop closure; the
+    optimized ATE <= the raw odometry chain's; no overflow; the mesh read
+    back. Then the first ``cpu_frames`` logged frames reintegrated at their
+    optimized poses on the card and on the CPU, by block key. Returns
+    (failures, launch counts)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.core.device import upload
+    from azurekinect3dreconstruction_tpu_torch.io.replay import NpzReplaySource
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        make_raw_batch_fn,
+    )
+    from azurekinect3dreconstruction_tpu_torch.pipelines.offline_bundle import OfflineBundle
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_geometry
+
+    failures = []
+    seq = list(poses) + list(poses)[::-1]
+    raw = [_quantize(cam.render(T)) for T in seq]
+    gt = [np.linalg.inv(seq[0]) @ T for T in seq]
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+    tmp = tempfile.TemporaryDirectory()
+    ob = OfflineBundle(intr, cfg, device=dev, output_dir=tmp.name)
+    _sync(dev)
+    build.launches.clear()
+    frame_ms = []
+    for d, c in raw:
+        t0 = time.perf_counter()
+        ob.process_frame(d, c)
+        _sync(dev)
+        frame_ms.append(ms_since(t0))
+    tracked_b1 = build.launches[tk.KERNEL]
+    t0 = time.perf_counter()
+    try:
+        ob.finalize()
+    except RuntimeError as e:
+        failures.append(f"offline finalize: {e}")
+    finalize_ms = ms_since(t0)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    chain = [np.eye(4)]
+    for e in ob.graph.edges:
+        if not e.uncertain and e.target == e.source + 1:
+            chain.append(chain[-1] @ e.transformation)
+    a_raw = ate(chain, gt, align=False)
+    a_opt = ate(ob.graph.nodes, gt, align=False)
+    ev = ob.telemetry.counters
+    loops = [(e.source, e.target) for e in ob.graph.edges if e.uncertain]
+    overflow = ob.volume is None or bool(ob.volume.overflow)
+    v, _, f = read_geometry(os.path.join(tmp.name, "latest_optimized_mesh.ply"))
+    stats = {k: round(x, 4) for k, x in ob.last_finalize_stats.items()}
+    steady = sorted(frame_ms[1:])
+    _log(f"offline launches: {json.dumps(counts)} over {len(raw)} logged frames, "
+         f"{tracked_b1} of B1 while tracking  [{gpu}]")
+    _log(f"offline bundle over {len(raw)} frames out and back: loop closures kept {loops}, "
+         f"events {json.dumps(ev)}; ATE rmse raw chain {a_raw['rmse'] * 1e3:.3f} mm (final drift "
+         f"{a_raw['final_drift'] * 1e3:.3f} mm), optimized {a_opt['rmse'] * 1e3:.3f} mm (final "
+         f"drift {a_opt['final_drift'] * 1e3:.3f} mm); overflow {overflow}; mesh "
+         f"{0 if f is None else len(f)} triangles read back  [{gpu}]")
+    _log(f"offline ms: process_frame (host clock, synchronized per frame) median "
+         f"{steady[len(steady) // 2]:.3f} (min {steady[0]:.3f}, max {steady[-1]:.3f}); finalize "
+         f"{finalize_ms:.1f}; last_finalize_stats (s) {json.dumps(stats)}  [{gpu}]")
+    if counts[tk.KERNEL] != len(raw) or tracked_b1 != 0 or counts[odo.KERNEL] != 0:
+        failures.append(f"offline launches {counts} ({tracked_b1} while tracking): B1 not once a "
+                        f"logged frame in the reintegration, or B2 run")
+    if ev.get("loop_closures", 0) < 1:
+        failures.append("the offline bundle closed no loop")
+    if not a_opt["rmse"] <= a_raw["rmse"]:
+        failures.append(f"optimized ATE {a_opt['rmse']:.5f} m over the raw chain's "
+                        f"{a_raw['rmse']:.5f} m")
+    if overflow:
+        failures.append("volume overflow in the offline reintegration")
+    if not (f is not None and len(f) > 10000 and np.isfinite(v).all() and f.max() < len(v)):
+        failures.append("the offline mesh did not read back non-empty and finite")
+
+    # the first logged frames reintegrated on the card and on the CPU
+    ds, cs = zip(*itertools.islice(NpzReplaySource(ob.frames_dir).frames(), cpu_frames))
+    Ts = np.stack(ob.graph.nodes[:cpu_frames]).astype(np.float32)
+    cc = cfg.camera
+    scal = (1.0 / cc.depth_scale, cc.depth_min, cc.depth_trunc)
+    del ob
+    vols = []
+    t0 = time.perf_counter()
+    for device in (dev, torch.device("cpu")):
+        vols.append(make_raw_batch_fn(intr, cfg.tsdf)(
+            tsdf.create(cfg.tsdf, device), upload(np.stack(ds), device),
+            upload(np.stack(cs), device), upload(Ts, device), pixel_rays(intr, device), *scal))
+    same_keys, frac, err_t, err_c = _volumes_by_key(*vols)
+    _log(f"offline reintegration card vs CPU over {cpu_frames} frames: same block keys "
+         f"{same_keys} ({int(vols[0].n_blocks)} blocks), weights equal on {frac:.6%}, max |dtsdf| "
+         f"{err_t:.3g}, max |dcolor| {err_c:.3g} where they agree; overflow "
+         f"{[bool(x.overflow) for x in vols]} ({ms_since(t0) / 1e3:.1f} s)")
+    if not (same_keys and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
+            and err_c <= B1_VALUE_TOL) or any(bool(x.overflow) for x in vols):
+        failures.append("the offline reintegration on the card differs from the CPU's")
+    del vols
+    tmp.cleanup()
+    return failures, counts
+
+
 def main() -> int:
     import torch
 
@@ -888,6 +1224,9 @@ def main() -> int:
                         bound_ms=b2_bound, bound_by=b2_by, library_ms=None, device_us=us_k,
                         odometry_call_ms=ms_call, graph_replay_ms=ms_graph,
                         max_level_pixels=grid * band))
+    wfov_failures, wfov = wfov_check(cfg, dev, gpu)
+    failures += wfov_failures
+    kernels[1].update(wfov)
 
     # -- the main path: the live loop over 16 frames ---------------------------
     _run_frames(MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048), raw[:3], False)
@@ -948,6 +1287,14 @@ def main() -> int:
     dual_failures, dual_launches = dual_phase(intr, cfg, dev, gpu)
     failures += dual_failures
     kernels[0]["launches_dual"] = dual_launches
+    rec_failures, rec_counts = recorder_phase(intr, cfg, cam, raw32[:N_REC_FRAMES],
+                                              gt32[:N_REC_FRAMES], dev, gpu)
+    failures += rec_failures
+    off_failures, off_counts = offline_phase(intr, cfg, cam, poses32[:N_OFFLINE_OUT], dev, gpu)
+    failures += off_failures
+    for k in kernels:
+        k["launches_recorder"] = rec_counts[k["name"]]
+        k["launches_offline"] = off_counts[k["name"]]
     if failures:
         return _fail("; ".join(failures))
 

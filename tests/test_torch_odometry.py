@@ -229,13 +229,15 @@ def test_pyramid_cuda_refuses_before_building(pair, monkeypatch, case):
     ([1024, 1024, 0, 512, 512, 10, 256, 256, 5], True),  # level 0 not iterated
 ])
 def test_check_band_refuses_a_level_over_the_shared_memory(dims, fits):
-    """A level that iterates may hold at most grid x band pixels; 132 CTAs
-    of 7,078 pixels is an H100's limit (32 B of shared memory a pixel)."""
-    if fits:
-        odo.check_band(dims, 132, 7078)
-    else:
-        with pytest.raises(ValueError, match="level 0 is 1024x1024"):
-            odo.check_band(dims, 132, 7078)
+    """The level plan at an H100's grid and band (132 CTAs of 7,078 pixels,
+    32 B of shared memory a pixel): a pyramid whose levels that iterate fit
+    takes the shared path everywhere; 1024x1024 WFOV takes the global path
+    because of level 0, with a 33.5 MB scratch (8 planes of 7,944-pixel
+    bands)."""
+    assert odo.oversized_levels(dims, 132, 7078) == ([] if fits else [0])
+    if not fits:
+        assert odo.scratch_floats(dims, 132) == 132 * 8 * 7944
+        assert odo.scratch_floats(dims, 132) * 4 / 1e6 == pytest.approx(33.55, abs=0.01)
 
 
 def test_color_term_matches_pallas_kernel(pair):
