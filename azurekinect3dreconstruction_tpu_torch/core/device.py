@@ -44,10 +44,9 @@ def full_fp32_matmul():
 def upload(a, device: torch.device) -> torch.Tensor:
     """A host array (or tensor) -> a tensor on ``device`` without waiting
     on the device: to a card through a pinned staging copy and an
-    asynchronous transfer. A tensor already on ``device`` is returned as is."""
+    asynchronous transfer. A tensor already on ``device`` is returned as is
+    (``"cuda"`` names the current card, so a tensor on ``cuda:0`` is on it)."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-    if t.device == device:
-        return t
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    if t.is_cuda or device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

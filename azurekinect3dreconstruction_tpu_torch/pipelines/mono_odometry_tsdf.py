@@ -6,12 +6,16 @@ failure), allocate blocks along the new depth's truncation band, build the
 frustum worklist and integrate. In frame-to-model mode, projective
 point-to-plane ICP against a surface sample of the fused model refines the
 odometry pose before the frame is fused (:func:`make_raw_f2m_step`), which
-bounds frame-to-frame drift; the sample is refreshed every few frames.
+bounds frame-to-frame drift; the sample is refreshed every few frames. With
+``relocalize`` the step carries a device-side fusion latch
+(:func:`apply_lost_latch`), and a lost pose is recovered against the fused
+model (:class:`tracking.relocalize.Relocalizer`).
 
 The pose, the gates and the trajectory stay on the device; the host only
 enqueues work. The host views (``T_world_cam``, ``trajectory``,
 ``odometry_failures``, ``counts``) synchronize when read, at save or report
-cadence, not per frame.
+cadence, not per frame; relocalization adds one read every
+``reloc_interval`` frames.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from azurekinect3dreconstruction_tpu_torch.ops.kernels.odometry_kernels import (
 )
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.tsdf_kernels import integrate_step
 from azurekinect3dreconstruction_tpu_torch.tracking.icp import GraphedICP, TargetMaps
+from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
 
-__all__ = ["MonoOdometryTSDF", "apply_odometry_gate", "decode_raw_frame",
+__all__ = ["MonoOdometryTSDF", "apply_lost_latch", "apply_odometry_gate", "decode_raw_frame",
            "integration_reach", "make_raw_batch_fn", "make_raw_f2m_step", "make_raw_slam_step"]
 
 TRACKING_MODES = ("frame_to_frame", "frame_to_model")
@@ -64,7 +70,19 @@ class MonoOdometryTSDF:
     ``model_min_inliers`` inliers. The model is re-sampled every
     ``model_refine_interval`` frames from ``model_sample_blocks`` blocks near
     the camera; a run of accepted refinements stretches the interval up to
-    twice, any rejection snaps it back."""
+    twice, any rejection snaps it back.
+
+    ``relocalize`` (frame-to-frame only; ``ValueError`` otherwise): the step
+    carries a device-side fusion latch that sets at the first gate
+    rejection (:func:`apply_lost_latch`). Every ``reloc_interval`` frames
+    the host reads the fitness scalars since the last check in one copy;
+    ``reloc_window`` rejections in a row declare the pose lost, after which
+    frames bypass the step and a :class:`tracking.relocalize.Relocalizer`
+    (gated on ``reloc_min_inliers``) tries every ``reloc_interval``-th lost
+    frame against the fused model, with the stale pose as its hint, until it
+    recovers. ``reloc_warmup`` runs :meth:`Relocalizer.warmup` at
+    construction. ``counts`` gains ``tracking_lost``, ``relocalized``,
+    ``reloc_failed`` and ``fusion_paused_frames``."""
 
     MIN_FITNESS = 0.3  # odometry acceptance gate
     REFRESH_MARGIN = 0.25  # metres the camera may move before the next refresh
@@ -72,9 +90,14 @@ class MonoOdometryTSDF:
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
                  device, tracking: str = "frame_to_frame", model_refine_interval: int = 5,
                  model_points: int = 32768, model_sample_blocks: int = 256,
-                 model_min_inliers: int = 3000, worklist_size: int = 2048):
+                 model_min_inliers: int = 3000, worklist_size: int = 2048,
+                 relocalize: bool = False, reloc_window: int = 3, reloc_interval: int = 8,
+                 reloc_min_inliers: int = 2000, reloc_warmup: bool = False):
         if tracking not in TRACKING_MODES:
             raise ValueError(f"tracking must be one of {TRACKING_MODES}, got {tracking!r}")
+        if relocalize and tracking != "frame_to_frame":
+            raise ValueError("relocalize requires tracking='frame_to_frame' (its step carries "
+                             "the fusion latch)")
         self.device = resolve_device(device)
         self.intr = intrinsics
         self.cfg = config or PipelineConfig()
@@ -84,8 +107,14 @@ class MonoOdometryTSDF:
         self.model_sample_blocks = model_sample_blocks
         self.worklist_size = worklist_size
         self.rays = pixel_rays(intrinsics, self.device)
+        self.relocalize = relocalize
+        self.reloc_window = reloc_window
+        self.reloc_interval = reloc_interval
+        self.reloc_min_inliers = reloc_min_inliers
+        self._relocalizer = None
         self._step = make_raw_slam_step(intrinsics, self.cfg, worklist_size=worklist_size,
-                                        stride=2, min_fitness=self.MIN_FITNESS)
+                                        stride=2, min_fitness=self.MIN_FITNESS,
+                                        integrate_rejected=not relocalize)
         self._f2m_step = make_raw_f2m_step(intrinsics, self.cfg, worklist_size=worklist_size,
                                            stride=2, min_fitness=self.MIN_FITNESS,
                                            min_inliers=model_min_inliers)
@@ -95,9 +124,12 @@ class MonoOdometryTSDF:
         self._no_model = (torch.zeros((m, 3), dtype=torch.float32, device=self.device),
                           torch.zeros((m,), dtype=torch.bool, device=self.device))
         self.reset()
+        if relocalize and reloc_warmup:
+            self._get_relocalizer().warmup()
 
     def reset(self) -> None:
-        """Drop the volume, the trajectory, the previous frame and the model."""
+        """Drop the volume, the trajectory, the previous frame, the model and
+        the tracking-loss state."""
         self.volume = tsdf.create(self.cfg.tsdf, self.device)
         self._T = torch.eye(4, dtype=torch.float32, device=self.device)
         self._traj = [self._T]
@@ -112,6 +144,13 @@ class MonoOdometryTSDF:
         self._ok_pending = []  # (frame index, host copy of its gate flag, copy-done event)
         self._ok_streak = 0
         self._next_refresh = self.model_refine_interval
+        self.lost = False  # the pose is declared untrusted
+        self._lost = torch.zeros((), dtype=torch.float32, device=self.device)  # device latch
+        self._lost_frames = 0  # frames since the loss was declared
+        self._consec_fail = 0  # gate rejections in a row, as the checks saw them
+        self._latch_up = False  # host mirror of the device latch
+        self._paused_pending = 0  # latched frames not yet counted
+        self._fit_checked = 0  # fitness scalars already read by a check
 
     # -- host views (each read synchronizes once) -----------------------------
 
@@ -141,10 +180,13 @@ class MonoOdometryTSDF:
 
     @property
     def counts(self) -> dict:
-        """Frame-to-model event counts: ``model_icp_ok`` / ``model_icp_skip``
+        """Event counts: frame-to-model's ``model_icp_ok`` / ``model_icp_skip``
         (refinements the gate accepted / rejected) and ``model_truncated``
-        (model refreshes whose sample overflowed its supplier rows). Reads
-        the pending device flags in one synchronization."""
+        (model refreshes whose sample overflowed its supplier rows), read
+        from the pending device flags in one synchronization; and
+        relocalization's ``tracking_lost``, ``relocalized``, ``reloc_failed``
+        and ``fusion_paused_frames`` (tracked frames the latch kept out of
+        the volume without a loss being declared)."""
         for flags, yes, no in ((self._icp_ok, "model_icp_ok", "model_icp_skip"),
                                (self._model_ovf, "model_truncated", None)):
             if flags:
@@ -170,7 +212,10 @@ class MonoOdometryTSDF:
 
     def process_frame(self, depth_raw, color_raw):
         """Track + fuse one frame; returns the device-resident camera-to-world
-        pose used. Nothing here waits on the device."""
+        pose used. Nothing here waits on the device, except relocalization's
+        check every ``reloc_interval`` frames and its lost frames."""
+        if self.lost:
+            return self._process_lost(depth_raw, color_raw)
         cam = self.cfg.camera
         depth_raw, color_raw = upload(depth_raw, self.device), upload(color_raw, self.device)
         scal = (1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc)
@@ -192,12 +237,18 @@ class MonoOdometryTSDF:
                 # the refresh cadence reads this flag >= 2 frames later
                 self._ok_pending.append((self.frame_index, *self._host_flag(ok)))
         else:
-            (self.volume, self._T, fit, self._prev_int, self._prev_depth) = self._step(
-                self.volume, self._T, self._prev_int, self._prev_depth, depth_raw,
-                color_raw, self.rays, *scal)
+            args = (self.volume, self._T, self._prev_int, self._prev_depth, depth_raw, color_raw,
+                    self.rays, *scal)
+            if self.relocalize:
+                (self.volume, self._T, fit, self._prev_int, self._prev_depth,
+                 self._lost) = self._step(*args, self._lost)
+            else:
+                (self.volume, self._T, fit, self._prev_int, self._prev_depth) = self._step(*args)
             self._fits.append(fit)
         self._traj.append(self._T)
         self.frame_index += 1
+        if self.relocalize and self.frame_index % self.reloc_interval == 0:
+            self._check_tracking()
         if self.tracking == "frame_to_model":
             self._maybe_refresh_model()
         return self._T
@@ -228,6 +279,103 @@ class MonoOdometryTSDF:
         self._model_ovf.append(ovf)
         self._next_refresh = self.frame_index + base + min(self._ok_streak // base, base)
 
+    # -- tracking loss and relocalization (relocalize mode) --------------------
+
+    def _get_relocalizer(self) -> Relocalizer:
+        if self._relocalizer is None:
+            self._relocalizer = Relocalizer(self.intr, self.cfg, device=self.device, rays=self.rays,
+                                            model_points=self.model_points,
+                                            min_inliers=self.reloc_min_inliers)
+        return self._relocalizer
+
+    def _check_tracking(self) -> None:
+        """The check every ``reloc_interval`` frames: read the fitness
+        scalars since the last check in one copy and scan them for rejection
+        streaks. The worst streak in the window decides, not the trailing
+        one: a ``reloc_window``-long streak that ended before the check has
+        already corrupted the pose chain (frame-to-frame odometry re-locks
+        against a corrupt previous frame), so the pose is lost even if the
+        last frames passed the gate. Otherwise the latch reopens only when
+        the window ends outside a streak: a streak that reaches the check may
+        still be growing, and reopening now would let a gate-passing corrupt
+        re-lock fuse before the next check. The paused frames are counted
+        when the streak resolves."""
+        fresh = self._fits[self._fit_checked:]
+        self._fit_checked = len(self._fits)
+        if not fresh:
+            return
+        f = torch.stack(fresh).cpu().numpy()
+        bad = (f <= self.MIN_FITNESS) | ~np.isfinite(f)
+        streak = worst = self._consec_fail
+        for b in bad:
+            streak = streak + 1 if b else 0
+            worst = max(worst, streak)
+        self._consec_fail = streak
+        # the host mirror of the device latch, which sets at the first
+        # rejected frame and which only the host clears
+        if self._latch_up:
+            self._paused_pending += len(bad)
+        elif bad.any():
+            self._latch_up = True
+            self._paused_pending += len(bad) - int(np.argmax(bad))
+        if worst >= self.reloc_window:
+            self.lost = True
+            self._lost_frames = 0
+            self._paused_pending = 0  # these frames belong to the lost episode now
+            self._counts["tracking_lost"] += 1
+            log_warning(f"tracking LOST ({worst} consecutive rejections); fusion paused, "
+                        "relocalizing")
+        elif self._latch_up:
+            if bad[-1]:
+                log_info(f"tracking rejection streak ({streak}) reaches the check boundary: "
+                         "fusion stays paused")
+            else:
+                self._counts["fusion_paused_frames"] += self._paused_pending
+                log_info(f"transient tracking rejection: {self._paused_pending} frame(s) "
+                         "tracked but not fused")
+                self._paused_pending = 0
+                self._latch_up = False
+                self._lost = torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _process_lost(self, depth_raw, color_raw):
+        """A frame while the pose is lost: the step is bypassed (no odometry
+        against a corrupt chain, no fusion) and the stale pose repeats in the
+        trajectory. Every ``reloc_interval``-th lost frame, starting with the
+        first, attempts a relocalization with the stale pose as the hint; a
+        recovered frame integrates (B1) at its pose, re-seeds frame-to-frame
+        tracking and clears every latch. A lost frame records fitness -1, the
+        recovered one +1."""
+        cam = self.cfg.camera
+        recovered = False
+        if self._lost_frames % self.reloc_interval == 0:
+            frame = RGBDFrame.from_raw(upload(depth_raw, self.device),
+                                       upload(color_raw, self.device), cam.depth_scale,
+                                       cam.depth_trunc, cam.depth_min)
+            T = self._get_relocalizer().attempt(self.volume, frame.depth,
+                                                T_hint=self.T_world_cam)
+            if T is None:
+                self._counts["reloc_failed"] += 1
+            else:
+                self._T = torch.as_tensor(T, dtype=torch.float32).to(self.device)
+                self.volume = tsdf.integrate_frame(self.volume, frame.depth, frame.color,
+                                                   self.rays, self._T, self.intr, self.cfg.tsdf)
+                self._prev_int, self._prev_depth = frame.intensity, frame.depth
+                self.lost = False
+                self._lost = torch.zeros((), dtype=torch.float32, device=self.device)
+                self._consec_fail = 0
+                self._latch_up = False
+                self._paused_pending = 0
+                recovered = True
+                self._counts["relocalized"] += 1
+                log_info(f"relocalized after {self._lost_frames + 1} lost frames")
+        self._lost_frames += 1
+        self._fits.append(torch.full((), 1.0 if recovered else -1.0, dtype=torch.float32,
+                                     device=self.device))
+        self._fit_checked = len(self._fits)  # the checks must not count these again
+        self._traj.append(self._T)
+        self.frame_index += 1
+        return self._T
+
     def extract_mesh(self, **kw):
         """Scene mesh (:func:`tsdf.marching_cubes.extract_mesh`; budgets and
         ``auto_grow`` pass through)."""
@@ -249,8 +397,21 @@ def apply_odometry_gate(T_prev, res, min_fitness: float):
     return T, torch.where(ok, res.fitness, -1.0)
 
 
+def apply_lost_latch(lost_in, fit, depth):
+    """The device-side fusion latch of relocalize mode: ``lost`` sets on any
+    gate rejection (``fit < 0``) and only the host clears it, so from the
+    first rejected frame on nothing fuses until the pose is proven again,
+    gate-passing frames with a corrupt pose included. The depth is scaled to
+    zero while latched: allocate then adds nothing and no voxel's update
+    mask is set, with no branch. Returns (lost, depth to fuse)."""
+    lost = torch.maximum(torch.as_tensor(lost_in, dtype=torch.float32, device=fit.device),
+                         (fit < 0).to(torch.float32))
+    return lost, depth * (1.0 - lost)
+
+
 def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
-                       stride: int = 2, min_fitness: float = 0.3):
+                       stride: int = 2, min_fitness: float = 0.3,
+                       integrate_rejected: bool = True):
     """The live-loop step, fed raw sensor tensors on the device:
 
     step(vol, T_prev, prev_intensity, prev_depth, depth_raw, color_raw, rays,
@@ -259,17 +420,27 @@ def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int
 
     decode -> odometry (previous frame = source, this frame = target) ->
     gate -> allocate -> worklist -> integrate, with no host synchronization.
-    The volume's pools are updated in place."""
+    The volume's pools are updated in place.
+
+    ``integrate_rejected=False`` (relocalize mode): the step takes a trailing
+    ``lost_in`` (a 0-d float32 tensor on the device), applies
+    :func:`apply_lost_latch` between the gate and the integrate, and returns
+    ``lost`` last. A latched frame still tracks, and B1 still launches once,
+    with nothing to update."""
 
     def step(vol, T_prev, prev_int, prev_depth, depth_raw, color_raw, rays,
-             inv_scale, depth_min, depth_trunc):
+             inv_scale, depth_min, depth_trunc, *lost_in):
         with full_fp32_matmul():
             d, c, inten = decode_raw_frame(depth_raw, color_raw, inv_scale, depth_min,
                                            depth_trunc)
             res = compute_odometry_fast(prev_int, prev_depth, inten, d, intr, cfg.odometry)
             T, fit = apply_odometry_gate(T_prev, res, min_fitness)
-            vol = integrate_step(vol, d, c, T, rays, intr, cfg.tsdf, worklist_size, stride)
-        return vol, T, fit, inten, d
+            if integrate_rejected:
+                vol = integrate_step(vol, d, c, T, rays, intr, cfg.tsdf, worklist_size, stride)
+                return vol, T, fit, inten, d
+            lost, d_fuse = apply_lost_latch(*lost_in, fit, d)
+            vol = integrate_step(vol, d_fuse, c, T, rays, intr, cfg.tsdf, worklist_size, stride)
+        return vol, T, fit, inten, d, lost
 
     return step
 

@@ -186,10 +186,11 @@ def _select_groups(case, max_bricks: int, subsample: bool):
 
 
 def _emit(sv: _Survey, cfg: TSDFConfig, max_cells: int, max_tris: int,
-          subsample: bool = False):
+          subsample: bool = False, return_cells: bool = False):
     """Stage 3. Returns (vertices (3, 3, max_tris), colors (same, or None
     without ``sv.cpad``), num_tris, overflow); slots past ``num_tris`` are
-    zero.
+    zero. ``return_cells`` appends each triangle's integer global cell
+    coordinates, (3, max_tris) int32, -9999 past ``num_tris``.
 
     ``subsample`` (the sampler): groups thin by stride (see
     :func:`_select_groups`) and output slot ``j`` holds global triangle
@@ -223,7 +224,8 @@ def _emit(sv: _Survey, cfg: TSDFConfig, max_cells: int, max_tris: int,
     cid = cell[c_t]
     row, lin = cid // C3, cid % C3
     xyz = torch.stack([lin // (R * R), (lin // R) % R, lin % R])  # (3, T) in-block cell
-    cell_f = (sv.coords[row].T.to(torch.int64) * R + xyz).to(torch.float32)
+    cell_i = sv.coords[row].T.to(torch.int64) * R + xyz
+    cell_f = cell_i.to(torch.float32)
     case_t = case[c_t]
     R1 = R + 1
     base = row * R1 ** 3 + xyz[0] * R1 * R1 + xyz[1] * R1 + xyz[2]
@@ -252,22 +254,36 @@ def _emit(sv: _Survey, cfg: TSDFConfig, max_cells: int, max_tris: int,
             col = torch.stack([fma(frac, ch(pb, sh) - ch(pa, sh), ch(pa, sh))
                                for sh in (16, 8, 0)])
             cols.append(torch.where(tmask, col * inv255, 0.0))
-    return (torch.stack(verts), torch.stack(cols) if cols else None,
-            num_tris.to(torch.int32), overflow)
+    out = (torch.stack(verts), torch.stack(cols) if cols else None,
+           num_tris.to(torch.int32), overflow)
+    if return_cells:
+        out += (torch.where(tmask, cell_i, -9999).to(torch.int32),)
+    return out
 
 
 def extract_mesh_arrays(vol: TSDFVolume, cfg: TSDFConfig, max_cells: int = 65536,
                         max_tris: int = 131072, extract_blocks: Optional[int] = None,
                         emit_mask=None, sel=None, nbr_sel=None,
-                        subsample_bricks: bool = False):
+                        subsample_bricks: bool = False, return_cells: bool = False):
     """Device-side extraction. Returns (vertices (3, 3, max_tris), colors,
     num_tris, overflow) — all tensors on the volume's device, nothing waits
     on the host. ``extract_blocks`` bounds the alive prefix scanned;
     ``max_cells`` budgets the cells of the group worklist (``max_cells //
     64`` groups); ``emit_mask`` / ``sel`` / ``nbr_sel``: see
-    :func:`_survey`; ``subsample_bricks``: see :func:`_emit`."""
+    :func:`_survey`; ``subsample_bricks`` / ``return_cells``: see
+    :func:`_emit`."""
     sv = _survey(vol, cfg, extract_blocks, emit_mask, sel, nbr_sel)
-    return _emit(sv, cfg, max_cells, max_tris, subsample_bricks)
+    return _emit(sv, cfg, max_cells, max_tris, subsample_bricks, return_cells)
+
+
+def exact_budgets(sv: _Survey, cfg: TSDFConfig, max_cells: int = 0, max_tris: int = 1):
+    """(max_cells, max_tris) that hold every active group and triangle of a
+    survey: its exact counts, read from the device in one transfer, raised
+    to the floors given. An emission at these budgets cannot overflow."""
+    n_groups, n_tris = torch.stack([_active_groups(sv.case).sum(),
+                                    _tables(sv.case.device)[1][sv.case].sum()]).tolist()
+    return (max(max_cells, n_groups * min(GROUP, cfg.block_resolution ** 3)),
+            max(max_tris, n_tris))
 
 
 def extract_mesh(vol: TSDFVolume, cfg: TSDFConfig, max_cells: int = 65536,
@@ -285,10 +301,7 @@ def extract_mesh(vol: TSDFVolume, cfg: TSDFConfig, max_cells: int = 65536,
     E = snap_extract_blocks(int(vol.n_blocks), N)
     sv = _survey(vol, cfg, extract_blocks=E)
     if auto_grow:
-        n_groups, n_tris = torch.stack([_active_groups(sv.case).sum(),
-                                        _tables(sv.case.device)[1][sv.case].sum()]).tolist()
-        max_cells = max(max_cells, n_groups * min(GROUP, cfg.block_resolution ** 3))
-        max_tris = max(n_tris, 1)
+        max_cells, max_tris = exact_budgets(sv, cfg, max_cells)
     verts_t, vcols_t, num_tris, overflow = _emit(sv, cfg, max_cells, max_tris)
     nt = int(num_tris)
 
@@ -304,6 +317,32 @@ def extract_mesh(vol: TSDFVolume, cfg: TSDFConfig, max_cells: int = 65536,
         vertex_colors=soup(vcols_t),
         overflow=bool(overflow),
     )
+
+
+def build_compact_selection(find, n_live: int, sel_slots, emit_slots, coords, Es: int, *,
+                            pack):
+    """Host numpy arguments for the compact form of :func:`extract_mesh_arrays`.
+
+    ``find`` maps packed keys to pool slots (-1 where absent), and ``pack``
+    is the key packing its index was built with; ``sel_slots``: the unique
+    pool slots to select (the emitting blocks and their alive positive-corner
+    neighbors, which supply corner values); ``emit_slots``: the subset that
+    emits triangles; ``coords``: (n_live, 3) alive block coords; ``Es``: the
+    selection's padded length. Returns (sel (Es,), nbr_sel (Es, 8), emit
+    (Es,)), -1 / False in the padding."""
+    ns = len(sel_slots)
+    pool2c = np.full(n_live, -1, np.int32)
+    pool2c[sel_slots] = np.arange(ns, dtype=np.int32)
+    corners = np.asarray(mt.CORNER_OFFSETS)
+    nsl = find(pack(coords[sel_slots][:, None, :] + corners[None]).reshape(-1))
+    nbr_c = np.where(nsl >= 0, pool2c[np.maximum(nsl, 0)], -1).reshape(ns, 8).astype(np.int32)
+    sel = np.full(Es, -1, np.int32)
+    sel[:ns] = sel_slots
+    nbr_pad = np.full((Es, 8), -1, np.int32)
+    nbr_pad[:ns] = nbr_c
+    emit = np.zeros(Es, bool)
+    emit[:ns] = np.isin(sel_slots, emit_slots, assume_unique=True)
+    return sel, nbr_pad, emit
 
 
 def weld_vertices(mesh: TriangleMeshHost, decimals: int = 6) -> TriangleMeshHost:

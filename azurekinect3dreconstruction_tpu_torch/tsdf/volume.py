@@ -304,6 +304,33 @@ def host_interior_crossings(tsdf, weight, color, coords, cfg: TSDFConfig):
     return np.concatenate(pts_out), np.concatenate(col_out)
 
 
+def content_checksums(vol: TSDFVolume):
+    """A content stamp of the pool, per row, as one (6, N) int64 tensor so
+    that the host reads it in one transfer; nothing waits on the host.
+
+    - row 0, the change checksum: the sum of the raw int32 bits of ``tsdf``
+      and ``weight``, summed in int64, so it is exact and does not depend on
+      the order of the sum. Any change of bits changes it (bar a collision),
+      so a block whose weights have saturated still shows a moving surface;
+    - row 1, the monotonic sum: the sum of the integer-valued weights, which
+      only a volume reset lowers;
+    - row 2, ``n_blocks`` in every column;
+    - rows 3-5, the block coords, transposed.
+
+    The pools are updated in place (B1 writes them through raw pointers), so
+    neither a pool tensor's identity nor its version counter says whether
+    its contents changed; this stamp does. Rows 0 and 1 are zero at the
+    trash slot ``block_capacity - 1``, which B1 and :func:`allocate` use as
+    the worklist's padding row: what lands there is not volume content."""
+    n = vol.tsdf.shape[0]
+    change = vol.tsdf.view(torch.int32).sum(1) + vol.weight.view(torch.int32).sum(1)
+    mono = vol.weight.to(torch.int32).sum(1)
+    out = torch.cat([torch.stack([change, mono, vol.n_blocks.to(torch.int64).expand(n)]),
+                     vol.block_coords.T.to(torch.int64)])
+    out[:2, n - 1] = 0
+    return out
+
+
 def memory_bytes(cfg: TSDFConfig) -> int:
     """Device footprint of a volume with this config."""
     n, r3 = cfg.block_capacity, cfg.block_resolution ** 3

@@ -52,7 +52,24 @@ worklist, odometry pyramid [20, 10, 5]):
    counters zeroed just before and read just after: B1 exactly once a
    logged frame, all in the reintegration, B2 never, a loop closure, the
    optimized ATE <= the raw chain's, no overflow, the mesh read back; and
-   reintegrates 4 logged frames on the card and on the CPU, by block key.
+   reintegrates 4 logged frames on the card and on the CPU, by block key;
+9. drives relocalization, ``MonoOdometryTSDF(..., relocalize=True,
+   reloc_window=2, reloc_interval=4)``: sweep poses 0-11, 6 dark frames,
+   then the sweep resumed at pose 13, the counters zeroed just before and
+   read just after: the loss declared once, ``n_blocks`` frozen from the
+   first dark frame until the recovery, the final pose within 6 cm / 0.12
+   rad, B2 exactly once a tracked frame, B1 once a tracked frame plus the
+   first frame plus the recovery, no overflow; then a standalone
+   ``Relocalizer`` on that volume from a neighbor hint (rung 0 must
+   recover) and a garbage hint (None or a correct pose), the hint rung
+   against a CPU copy of the volume (pose <= 1e-4), the attempts' and the
+   8,192-hypothesis RANSAC's ms and memory, the warmup, and healthy
+   ms/frame with and without ``relocalize`` over the 16 mono frames;
+10. drives incremental extraction, ``IncrementalExtractor.update`` after
+   each of the 16 mono frames and after a frame with only the central
+   quarter of its depth (the compact path): every soup equal to
+   ``extract_mesh``'s (count and centroid set), with its stage times and
+   pull bytes beside the full extraction's ms.
 
 Between steps 1 and 2 it runs one 1024x1024 (WFOV unbinned) frame pair
 through ``compute_odometry_fast``: B2 on its global-memory path against
@@ -135,6 +152,19 @@ N_OFFLINE_OUT = 12  # the offline scan: 12 sweep poses out and back, 24 frames
 N_OFFLINE_CPU = 4
 # Azure Kinect WFOV unbinned depth: width, height, fx, fy, cx, cy
 WFOV = (1024, 1024, 504.0, 504.0, 511.5, 511.5)
+# relocalization: sweep poses 0-11 tracked, 6 dark frames, the sweep resumed at
+# pose 13; the first attempt that can succeed (the 4th lost frame, at
+# reloc_interval=4) sees pose 15, 4 sweep steps (0.08 rad, 2.9 cm) past the
+# frozen pose: inside the hint rung's basin
+N_RELOC_TRACK = 12
+N_RELOC_DARK = 6
+RELOC_RESUME = 13
+N_RELOC_RESUMED = 6
+RELOC_T_LIMIT_M = 0.06  # tests/test_relocalize.py's bounds after a recovery
+RELOC_R_LIMIT_RAD = 0.12
+HINT_T_LIMIT_M = 0.05  # its bounds on a direct attempt
+HINT_R_LIMIT_RAD = 0.1
+RELOC_POSE_TOL = 1e-4  # the hint rung on the card against a CPU copy of the volume
 
 
 def _log(msg: str) -> None:
@@ -1063,6 +1093,297 @@ def offline_phase(intr, cfg, cam, poses, dev, gpu: str, cpu_frames: int = N_OFFL
     return failures, counts
 
 
+def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bool = True):
+    """Relocalization, ``MonoOdometryTSDF(..., relocalize=True,
+    reloc_window=2, reloc_interval=4)``: the first ``N_RELOC_TRACK`` sweep
+    poses, ``N_RELOC_DARK`` dark frames, then the sweep resumed at pose
+    ``RELOC_RESUME``, the launch counters zeroed just before and read just
+    after: the loss declared once, nothing fused from the first dark frame
+    until the recovery, the final pose within the JAX test's bounds, B2 once
+    a tracked frame, B1 once a tracked frame plus the first frame plus each
+    recovery, no overflow. Then a standalone ``Relocalizer`` on the phase's
+    volume from a neighbor hint (rung 0 must recover) and from a garbage
+    hint (None or a correct pose), the hint rung against a CPU copy of the
+    volume (``cpu_check``), the attempts' ms, the 8,192-hypothesis RANSAC's
+    ms and memory, the warmup's s, and healthy ms/frame over
+    ``raw_healthy`` with and without ``relocalize``. Returns (failures,
+    launch counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.ops.neighbors import voxel_downsample_arrays
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tracking.ransac import global_registration
+    from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+
+    failures = []
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+    world = [np.linalg.inv(poses[0]) @ T for T in poses]
+
+    def err(T, k):
+        xi = se3.se3_log(torch.as_tensor(np.linalg.inv(world[k]) @ np.asarray(T))).numpy()
+        return float(np.linalg.norm(xi[:3])), float(np.linalg.norm(xi[3:]))
+
+    H, W = intr.height, intr.width
+    dark = (np.zeros((H, W), np.uint16), np.zeros((H, W, 3), np.uint8))
+    resumed = list(range(RELOC_RESUME, RELOC_RESUME + N_RELOC_RESUMED))
+    seq = ([_quantize(cam.render(poses[i])) for i in range(N_RELOC_TRACK)]
+           + [dark] * N_RELOC_DARK + [_quantize(cam.render(poses[i])) for i in resumed])
+    kw = dict(device=dev, worklist_size=2048)
+    pipe = MonoOdometryTSDF(intr, cfg, relocalize=True, reloc_window=2, reloc_interval=4, **kw)
+    _sync(dev)
+    build.launches.clear()
+    n_blocks, frame_ms = [], []
+    lost_at = recovered_at = None
+    stepped = 0  # frames through the step (B2 once each)
+    for j, (d, c) in enumerate(seq):
+        stepped += j > 0 and not pipe.lost
+        t0 = time.perf_counter()
+        pipe.process_frame(d, c)
+        _sync(dev)
+        frame_ms.append(ms_since(t0))
+        if pipe.lost and lost_at is None:
+            lost_at = j
+        if lost_at is not None and not pipe.lost and recovered_at is None:
+            recovered_at = j
+        n_blocks.append(int(pipe.volume.n_blocks))
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    ev = pipe.counts
+    rel = pipe._relocalizer
+    overflow = bool(pipe.volume.overflow)
+    te, re_ = err(pipe.T_world_cam, resumed[-1])
+    frozen = (recovered_at is not None
+              and len(set(n_blocks[N_RELOC_TRACK - 1:recovered_at])) == 1)
+    want_b1 = stepped + 1 + ev.get("relocalized", 0)
+    _log(f"relocalization launches: {json.dumps(counts)} over {len(seq)} frames ({stepped} "
+         f"through the step)  [{gpu}]")
+    rec_pose = (None if recovered_at is None
+                else resumed[recovered_at - N_RELOC_TRACK - N_RELOC_DARK])
+    rung = "0 (hint)" if rel is not None and rel.n_hint_success else "global"
+    rec_ms = "n/a" if recovered_at is None else f"{frame_ms[recovered_at]:.1f}"
+    first_lost_ms = ("n/a" if lost_at is None or lost_at + 1 >= len(seq)
+                     else f"{frame_ms[lost_at + 1]:.1f}")
+    _log(f"relocalization: tracked poses 0-{N_RELOC_TRACK - 1}, {N_RELOC_DARK} dark frames, "
+         f"resumed at pose {RELOC_RESUME} (the chain froze at pose {N_RELOC_TRACK - 1}); loss "
+         f"declared at frame {lost_at}, recovered at frame {recovered_at} (pose {rec_pose}) by "
+         f"rung {rung}; events {json.dumps(ev)}; n_blocks {n_blocks[N_RELOC_TRACK - 1]}, frozen "
+         f"until the recovery {frozen}, {n_blocks[-1]} at the end; final pose off by "
+         f"{te * 1e3:.3f} mm / {re_ * 1e3:.3f} mrad; overflow {overflow}; ms (host clock, "
+         f"synchronized): recovery frame {rec_ms}, first lost frame (an empty-frame attempt) "
+         f"{first_lost_ms}  [{gpu}]")
+    if not (ev.get("tracking_lost", 0) == 1 and ev.get("relocalized", 0) == 1 and frozen):
+        failures.append(f"relocalization: loss or recovery not as expected ({ev}, n_blocks "
+                        f"{n_blocks})")
+    if not (te <= RELOC_T_LIMIT_M and re_ <= RELOC_R_LIMIT_RAD):
+        failures.append(f"relocalization: final pose off by {te:.4f} m / {re_:.4f} rad")
+    if counts[odo.KERNEL] != stepped or counts[tk.KERNEL] != want_b1:
+        failures.append(f"relocalization launches {counts}: B2 not once a tracked frame "
+                        f"({stepped}) or B1 not {want_b1}")
+    if overflow:
+        failures.append("volume overflow in the relocalization phase")
+
+    # -- a standalone relocalizer on the phase's volume -----------------------------
+    vol = pipe.volume
+    probe = resumed[-1] + 2  # a pose no frame fused
+    d_probe = _decode(_quantize(cam.render(poses[probe])), cfg, dev)[0]
+    hint = world[resumed[-1]]
+    bad = hint.copy()
+    bad[:3, 3] += [0.9, -0.6, 0.8]
+    reloc = Relocalizer(intr, cfg, device=dev)
+    # what the model sample covers: the surface sampler emits at most 4x the
+    # budget, in pool order, before it thins
+    E = mc.snap_extract_blocks(int(vol.n_blocks), vol.tsdf.shape[0])
+    _, total = mc.exact_budgets(mc._survey(vol, cfg.tsdf, extract_blocks=E, colors=False), cfg.tsdf)
+    _, mm, m_ovf = mc.extract_surface_samples(vol, cfg.tsdf, reloc.model_points)
+    ms_model = _median_ms(lambda: mc.extract_surface_samples(vol, cfg.tsdf, reloc.model_points),
+                          dev)
+    _log(f"relocalizer model sample: {int(mm.sum())} points from the first "
+         f"{min(total, 4 * (reloc.model_points // 3))} of the volume's {total} triangles in "
+         f"pool order, overflow {bool(m_ovf)}; extract_surface_samples {ms_model:.3f} ms "
+         f"(synchronized, median of 5)  [{gpu}]")
+
+    def timed(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, ms_since(t0)
+
+    T_h, ms_cold = timed(lambda: reloc.attempt(vol, d_probe, T_hint=hint))
+    rung0 = reloc.n_hint_success == 1
+    _, ms_cached = timed(lambda: reloc.attempt(vol, d_probe, T_hint=hint))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    T_g, ms_garbage = timed(lambda: reloc.attempt(vol, d_probe, T_hint=bad))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    garbage_rung0 = reloc.n_hint_success != 2
+    eh = err(T_h, probe) if T_h is not None else (float("inf"),) * 2
+    eg = err(T_g, probe) if T_g is not None else None
+    garbage = ("None (" + reloc.last_reject + ")" if eg is None
+               else f"a pose off by {eg[0] * 1e3:.3f} mm / {eg[1] * 1e3:.3f} mrad")
+    _log(f"relocalizer from a neighbor hint (pose {resumed[-1]} for pose {probe}): "
+         f"{'recovered' if T_h is not None else 'rejected'} by rung "
+         f"{'0' if rung0 else 'global'}, off by {eh[0] * 1e3:.3f} mm / {eh[1] * 1e3:.3f} mrad; "
+         f"attempt {ms_cold:.1f} ms with the model extracted, {ms_cached:.1f} ms from the cached "
+         f"model; from a garbage hint: rung 0 accepted {garbage_rung0}, {garbage}, "
+         f"{ms_garbage:.1f} ms (model, rung 0, descriptors, {reloc.restarts} RANSAC restarts, "
+         f"refine), peak device memory {peak:.2f} GiB (host clock, synchronized)  [{gpu}]")
+    if not (T_h is not None and rung0 and eh[0] < HINT_T_LIMIT_M and eh[1] < HINT_R_LIMIT_RAD):
+        failures.append(f"the relocalizer did not recover by rung 0 from a neighbor hint "
+                        f"({reloc.last_reject}, {eh})")
+    if garbage_rung0 or (eg is not None and not (eg[0] < HINT_T_LIMIT_M
+                                                 and eg[1] < HINT_R_LIMIT_RAD)):
+        failures.append(f"the relocalizer returned a wrong pose from a garbage hint ({eg})")
+
+    # one 8,192-hypothesis RANSAC call on the attempt's own clouds and features
+    _, _, _, _, m_feats = reloc._model_cache
+    vox, (m_ds, m_dm, m_f) = max(m_feats.items())
+    if m_f is not None:
+        src = backproject_depth(d_probe, reloc.rays)[::reloc.stride, ::reloc.stride].reshape(-1, 3)
+        s_ds, s_dm, _, _ = voxel_downsample_arrays(src, src[:, 2] > 0, vox, reloc.feature_points)
+        s_f = reloc._enrich(s_ds, s_dm, np.zeros(3), vox)
+        reg = dataclasses.replace(cfg.registration, ransac_hypotheses=max(
+            8192, cfg.registration.ransac_hypotheses))
+        gen = torch.Generator(dev).manual_seed(1)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ms_ransac = _median_ms(lambda: global_registration(
+            s_ds, s_f, s_dm, m_ds, m_f, m_dm, reg, distance_threshold=max(0.04, 2.5 * vox),
+            generator=gen), dev, 3)
+        peak_r = (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+                  else float("nan"))
+        _log(f"global_registration ({reg.ransac_hypotheses} hypotheses, {int(s_dm.sum())} / "
+             f"{int(m_dm.sum())} frame / model points at a {vox * 1e3:.1f} mm voxel): "
+             f"{ms_ransac:.1f} ms (synchronized, median of 3), peak device memory "
+             f"{peak_r:.2f} GiB  [{gpu}]")
+
+    if cpu_check:
+        host = vol._replace(**{k: t.cpu() for k, t in vol._asdict().items()})
+        t0 = time.perf_counter()
+        rc = Relocalizer(intr, cfg, device="cpu")
+        T_c = rc.attempt(host, d_probe.cpu(), T_hint=hint)
+        d_pose = (float("inf") if T_c is None or T_h is None
+                  else float(np.abs(T_c - T_h).max()))
+        _log(f"hint rung on the card against a CPU copy of the volume: CPU "
+             f"{'rung 0' if rc.n_hint_success else 'not rung 0: ' + rc.last_reject}, max |dpose| "
+             f"{d_pose:.3g} ({ms_since(t0) / 1e3:.1f} s)")
+        if not (rc.n_hint_success == 1 and d_pose <= RELOC_POSE_TOL):
+            failures.append(f"the hint rung on the card differs from the CPU copy's ({d_pose})")
+        del host
+
+    t0 = time.perf_counter()
+    warm = Relocalizer(intr, cfg, device=dev).warmup()
+    _log(f"Relocalizer.warmup (scratch volume; both rungs once): {warm:.2f} s, "
+         f"{ms_since(t0) / 1e3:.2f} s with construction  [{gpu}]")
+    del pipe, vol
+
+    # healthy tracking with and without the latch and its checks, in turns
+    loops = {False: [], True: []}
+    for on in (False, True, True, False):
+        p = MonoOdometryTSDF(intr, cfg, relocalize=on, **kw)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for d, c in raw_healthy:
+            p.process_frame(d, c)
+        _sync(dev)
+        loops[on].append(ms_since(t0) / len(raw_healthy))
+        if on and (p.lost or p.counts):
+            failures.append(f"healthy tracking with relocalize took events {p.counts}")
+        del p
+    _log(f"healthy ms/frame over {len(raw_healthy)} frames (host clock, one sync at the end; "
+         f"off, on, on, off): relocalize=False {loops[False][0]:.3f}, {loops[False][1]:.3f}; "
+         f"relocalize=True (a check every 8 frames) {loops[True][0]:.3f}, "
+         f"{loops[True][1]:.3f}  [{gpu}]")
+    return failures, counts
+
+
+def incremental_phase(intr, cfg, raw, dev, gpu: str):
+    """Incremental extraction over the live loop: ``IncrementalExtractor``
+    ``update`` after every frame of ``raw``, then once after a frame with
+    only the central quarter of its depth, which must take the compact path
+    with 0 < touched < n_blocks. Every assembled soup must equal
+    ``extract_mesh``'s: the same count and the same centroid set at 5
+    decimals. Prints the median ms per stage, the pull bytes and the full
+    ``extract_mesh`` ms of the same volume. Returns the failures."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.tsdf.incremental import IncrementalExtractor
+
+    failures = []
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    inc = IncrementalExtractor(cfg.tsdf)
+
+    def centroids(v):
+        c = np.round(v.reshape(-1, 3, 3).mean(1), 5)
+        return c[np.lexsort(c.T)]
+
+    def check(mesh, what):
+        full = pipe.extract_mesh().compact()
+        same = (mesh.triangles.shape[0] == full.triangles.shape[0]
+                and np.array_equal(centroids(mesh.vertices), centroids(full.vertices)))
+        if not same:
+            failures.append(f"incremental soup differs from extract_mesh at {what} "
+                            f"({mesh.triangles.shape[0]} / {full.triangles.shape[0]} triangles)")
+        return full.triangles.shape[0]
+
+    stages, pulls, modes, touched = {}, [], [], []
+    for j, (d, c) in enumerate(raw):
+        pipe.process_frame(d, c)
+        _sync(dev)
+        mesh = inc.update(pipe.volume)
+        for k, v in inc.timings.items():
+            stages.setdefault(k, []).append(v * 1e3)
+        pulls.append(inc.last_pull_bytes)
+        modes.append(inc.last_mode)
+        touched.append(inc.last_touched)
+        nt = check(mesh, f"frame {j}")
+    # a frame with only the central quarter of its depth: a few blocks change
+    d, col, _ = _decode(raw[-1], cfg, dev)
+    crop = torch.zeros_like(d)
+    H, W = d.shape
+    crop[3 * H // 8: 5 * H // 8, 3 * W // 8: 5 * W // 8] = d[3 * H // 8: 5 * H // 8,
+                                                              3 * W // 8: 5 * W // 8]
+    pipe.volume = tsdf.integrate_frame(pipe.volume, crop, col, pipe.rays, pipe._T, intr, cfg.tsdf)
+    _sync(dev)
+    mesh = inc.update(pipe.volume)
+    nb = int(pipe.volume.n_blocks)
+    crop_stages = {k: round(v * 1e3, 3) for k, v in inc.timings.items()}
+    crop_mode, crop_touched, crop_pull = inc.last_mode, inc.last_touched, inc.last_pull_bytes
+    nt_crop = check(mesh, "the cropped frame")
+    full_ms = _median_ms(pipe.extract_mesh, dev)
+    med = {k: round(sorted(v)[len(v) // 2], 3) for k, v in stages.items()}
+    _log(f"incremental over {len(raw)} frames: modes {''.join(m[0] for m in modes)} "
+         f"(f full, c compact, n none), blocks re-extracted {touched}, pull MB "
+         f"{[round(p / 1e6, 2) for p in pulls]}; median stage ms (host clock; the checksum and "
+         f"extract_pull stages end in a device read) {json.dumps(med)}; {nt} triangles at the "
+         f"last frame  [{gpu}]")
+    _log(f"incremental after a cropped-depth frame: mode {crop_mode}, {crop_touched} of {nb} "
+         f"blocks re-extracted, pull {crop_pull / 1e6:.3f} MB, stage ms {json.dumps(crop_stages)} "
+         f"(sum {sum(crop_stages.values()):.3f}); {nt_crop} triangles; full extract_mesh of the "
+         f"same volume {full_ms:.3f} ms (CUDA events, median of 5, host copy included)  [{gpu}]")
+    if not (crop_mode == "compact" and 0 < crop_touched < nb):
+        failures.append(f"the cropped frame did not take the compact path ({crop_mode}, "
+                        f"{crop_touched} of {nb})")
+    if modes[0] != "full":
+        failures.append(f"the first incremental update was {modes[0]}, not full")
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -1295,6 +1616,11 @@ def main() -> int:
     for k in kernels:
         k["launches_recorder"] = rec_counts[k["name"]]
         k["launches_offline"] = off_counts[k["name"]]
+    reloc_failures, reloc_counts = reloc_phase(intr, cfg, cam, poses32, raw, dev, gpu)
+    failures += reloc_failures
+    for k in kernels:
+        k["launches_relocalize"] = reloc_counts[k["name"]]
+    failures += incremental_phase(intr, cfg, raw, dev, gpu)
     if failures:
         return _fail("; ".join(failures))
 

@@ -740,3 +740,118 @@ def test_offline_reintegrate_on_cuda_matches_cpu(dev, frames, tmp_path):
     vc = host._reintegrate(tsdf.create(CFG, "cpu"))
     assert not bool(vg.overflow) and not bool(vc.overflow)
     _assert_close_by_key(vg, vc)
+
+
+# -- relocalization and incremental extraction -------------------------------------
+
+RELOC_CFG = PipelineConfig(tsdf=CFG, odometry=OdometryConfig(pyramid_iters=(8, 8, 8)))
+
+
+@pytest.mark.parametrize("lost_in", [0.0, 1.0])
+def test_latched_step_on_cuda_matches_cpu(dev, frames, lost_in):
+    """One latched step (``integrate_rejected=False``) from the same state on
+    the card and on a CPU copy: the same ``lost``, pose <= 1e-4, the volume
+    by block key to B1's tolerances, nothing allocated or updated when
+    latched; B2 and B1 launched once each on the card."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        make_raw_slam_step,
+    )
+
+    poses, _ = frames
+    raw = _raw_frames(poses[:2])
+    cam_c = RELOC_CFG.camera
+    scal = (1.0 / cam_c.depth_scale, cam_c.depth_min, cam_c.depth_trunc)
+    pipe = MonoOdometryTSDF(INTR, RELOC_CFG, device=dev)
+    pipe.process_frame(*raw[0])
+    state = (pipe.volume, pipe._T, pipe._prev_int, pipe._prev_depth)
+    host = (_cpu_copy(state[0]),) + tuple(t.cpu() for t in state[1:])
+    before = int(host[0].n_blocks), host[0].weight.clone()
+    step = make_raw_slam_step(INTR, RELOC_CFG, integrate_rejected=False)
+    out = []
+    for d, st in ((dev, state), (torch.device("cpu"), host)):
+        t = lambda a: torch.from_numpy(a).to(d)
+        b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+        vol, T, fit, _, _, lost = step(*st, t(raw[1][0]), t(raw[1][1]), pixel_rays(INTR, d),
+                                       *scal, torch.full((), lost_in, device=d))
+        n = 1 if d.type == "cuda" else 0
+        assert (build.launches[tk.KERNEL] - b1, build.launches[odo.KERNEL] - b2) == (n, n)
+        out.append((vol, T.cpu(), float(fit), float(lost)))
+    (vg, Tg, fg, lg), (vc, Tc, fc, lc) = out
+    assert lg == lc == lost_in and fc > 0.3 and abs(fg - fc) <= 1e-3
+    np.testing.assert_allclose(Tg.numpy(), Tc.numpy(), atol=1e-4, rtol=0)
+    if lost_in:
+        assert int(vg.n_blocks) == int(vc.n_blocks) == before[0]
+        assert torch.equal(vg.weight.cpu(), before[1]) and torch.equal(vc.weight, before[1])
+    else:
+        assert int(vg.n_blocks) > before[0]
+        _assert_close_by_key(vg, vc, edge_share=1e-4)
+
+
+def test_content_checksums_on_cuda_equal_cpu(dev, frames):
+    """The pool's content stamp of a card volume equals the CPU copy's to
+    the bit, with values in the trash slot too."""
+    _, fr = frames
+    rays = pixel_rays(INTR, dev)
+    vol = tsdf.create(CFG, dev)
+    for T, z, c in fr[:3]:
+        vol = tsdf.integrate_frame(vol, z, c, rays, T, INTR, CFG)
+    vol.tsdf[-1] = 0.25
+    vol.weight[-1] = 7.0
+    got = tsdf.content_checksums(vol)
+    want = tsdf.content_checksums(_cpu_copy(vol))
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    assert int(want[0, -1]) == int(want[1, -1]) == 0 and int(want[2, 0]) == int(vol.n_blocks)
+
+
+def test_reloc_model_cache_misses_after_b1_refusion(dev, frames):
+    """B1 updates the pools through raw pointers: after a re-fusion into the
+    same blocks the pool tensor, its address and its version counter are
+    all unchanged, yet the relocalizer's model cache must miss; the same
+    volume again hits."""
+    from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
+
+    _, fr = frames
+    T, z, c = fr[0]
+    rays = pixel_rays(INTR, dev)
+    vol = tsdf.integrate_frame(tsdf.create(CFG, dev), z, c, rays, T, INTR, CFG)
+    reloc = Relocalizer(INTR, RELOC_CFG, device=dev, min_inliers=500, model_points=16384,
+                        restarts=1)
+    hint = T.cpu().numpy().astype(np.float64)
+    reloc.attempt(vol, z, T_hint=hint)
+    key1 = reloc._model_cache[0]
+    ptr, version, nb = vol.tsdf.data_ptr(), vol.tsdf._version, int(vol.n_blocks)
+    b1 = build.launches[tk.KERNEL]
+    vol2 = tsdf.integrate_frame(vol, z, c, rays, T, INTR, CFG)
+    assert build.launches[tk.KERNEL] == b1 + 1
+    assert vol2.tsdf is vol.tsdf and vol2.tsdf.data_ptr() == ptr
+    assert vol2.tsdf._version == version and int(vol2.n_blocks) == nb
+    reloc.attempt(vol2, z, T_hint=hint)
+    assert reloc._model_cache[0] != key1, "B1's in-place update must miss the model cache"
+    key2, model = reloc._model_cache[0], reloc._model_cache[1]
+    reloc.attempt(vol2, z, T_hint=hint)
+    assert reloc._model_cache[0] == key2 and reloc._model_cache[1] is model
+
+
+def test_relocalize_loop_syncs_only_at_check_frames(dev, frames):
+    """``MonoOdometryTSDF(relocalize=True)`` while tracking is healthy: every
+    frame but the check frames (each ``reloc_interval``-th) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    synchronization; B2 once and B1 once a tracked frame."""
+    poses = orbit_trajectory(9, radius=0.3, angle_span=0.6)
+    raw = _raw_frames(poses)
+    pipe = MonoOdometryTSDF(INTR, RELOC_CFG, device=dev, relocalize=True, reloc_interval=4)
+    pipe.process_frame(*raw[0])
+    torch.cuda.synchronize()
+    b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+    checks = 0
+    for d, c in raw[1:]:
+        check = (pipe.frame_index + 1) % pipe.reloc_interval == 0
+        checks += check
+        torch.cuda.set_sync_debug_mode(0 if check else "error")
+        try:
+            pipe.process_frame(d, c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert checks == 2
+    assert build.launches[tk.KERNEL] - b1 == build.launches[odo.KERNEL] - b2 == len(raw) - 1
+    assert not pipe.lost and pipe.counts == {} and pipe.odometry_failures == 0
