@@ -1,5 +1,6 @@
-"""Frame container, the raw-sensor decode shared by every entry point, and
-the mesh and point-cloud containers of extraction and saving."""
+"""Frame container, the raw-sensor decode shared by every entry point, the
+fixed-capacity point cloud, and the mesh and point-cloud containers of
+extraction and saving."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from azurekinect3dreconstruction_tpu_torch.core.device import resolve_device
 
 
 def _f32(x) -> float:
@@ -69,6 +72,56 @@ def _host(a) -> Optional[np.ndarray]:
     if a is None or isinstance(a, np.ndarray):
         return a
     return a.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class PointCloud:
+    """Fixed-capacity point cloud on one device: points (N, 3) f32, mask
+    (N,) bool, colors / normals (N, 3) f32 or None."""
+
+    points: torch.Tensor
+    mask: torch.Tensor
+    colors: Optional[torch.Tensor] = None
+    normals: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """Live points, an int32 0-d tensor on the cloud's device."""
+        return self.mask.to(torch.int32).sum(dtype=torch.int32)
+
+    def compact(self) -> "PointCloudHost":
+        """Host-side dense copy with the masked-off rows dropped."""
+        m = _host(self.mask).astype(bool)
+        cut = lambda a: None if a is None else _host(a)[m]
+        return PointCloudHost(points=cut(self.points), colors=cut(self.colors),
+                              normals=cut(self.normals))
+
+    @staticmethod
+    def from_numpy(points, colors=None, normals=None, capacity: Optional[int] = None, *,
+                   device="cuda") -> "PointCloud":
+        """Host arrays -> a cloud on ``device``, zero-padded to ``capacity``
+        rows (default: the point count; ``ValueError`` if it is smaller)."""
+        dev = resolve_device(device)
+        points = np.asarray(points, dtype=np.float32)
+        n = points.shape[0]
+        cap = capacity or n
+        if cap < n:
+            raise ValueError(f"capacity {cap} < point count {n}")
+
+        def pad(a):
+            if a is None:
+                return None
+            out = np.zeros((cap, np.shape(a)[1]), dtype=np.float32)
+            out[:n] = a
+            return torch.from_numpy(out).to(dev)
+
+        mask = np.zeros((cap,), dtype=bool)
+        mask[:n] = True
+        return PointCloud(points=pad(points), mask=torch.from_numpy(mask).to(dev),
+                          colors=pad(colors), normals=pad(normals))
 
 
 @dataclasses.dataclass

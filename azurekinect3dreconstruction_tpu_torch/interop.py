@@ -3,11 +3,11 @@
 There are no weights to convert; what crosses is state: a TSDF volume (so
 both packages can continue from the same pool, slot by slot), intrinsics, a
 device calibration, pipeline configs, poses and rig extrinsics, an
-extracted mesh, a frame-to-model tracking model (its points and mask), and
-an unorganized cloud with its neighbor and feature outputs (points, mask,
-normals, FPFH), so that each registration stage can be compared from the
-same inputs. Nothing here imports jax: the JAX side hands over ``numpy``
-arrays and plain dataclasses.
+extracted mesh, a fixed-capacity ``PointCloud``, a frame-to-model tracking
+model (its points and mask), and an unorganized cloud with its neighbor and
+feature outputs (points, mask, normals, FPFH), so that each registration
+stage can be compared from the same inputs. Nothing here imports jax: the
+JAX side hands over ``numpy`` arrays and plain dataclasses.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from azurekinect3dreconstruction_tpu_torch.core.camera import (
     Distortion,
     Intrinsics,
 )
-from azurekinect3dreconstruction_tpu_torch.core.types import TriangleMesh
+from azurekinect3dreconstruction_tpu_torch.core.types import PointCloud, TriangleMesh
 from azurekinect3dreconstruction_tpu_torch.tsdf.volume import TSDFVolume
 
 _LANES = 128  # the JAX pool's trailing (R^3/128, 128) layout
@@ -100,6 +100,14 @@ def mesh_from(obj) -> TriangleMesh:
                         num_triangles=np.int32(obj.num_triangles),
                         vertex_colors=arr(obj.vertex_colors),
                         vertex_normals=arr(getattr(obj, "vertex_normals", None)))
+
+
+def point_cloud_from(obj, device) -> PointCloud:
+    """Any ``PointCloud``-shaped object (e.g. the JAX one) -> the port's, on
+    ``device``."""
+    t = lambda a, dt: None if a is None else torch.from_numpy(np.array(a, dt)).to(device)
+    return PointCloud(points=t(obj.points, np.float32), mask=t(obj.mask, np.bool_),
+                      colors=t(obj.colors, np.float32), normals=t(obj.normals, np.float32))
 
 
 def model_to_torch(points, mask, device):

@@ -2,7 +2,9 @@
 
 The counterparts of the JAX package's ``ops/backproject.py``: the organized
 ``(H, W, ...)`` layout is kept, since projective ICP and image-space normals
-rely on it. Out-of-bounds samples are invalid (masked), not clamped.
+rely on it; ``flatten_organized`` turns it into the fixed-capacity
+:class:`..core.types.PointCloud`. Out-of-bounds samples are invalid
+(masked), not clamped.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from azurekinect3dreconstruction_tpu_torch.core.camera import Distortion, Intrinsics, pixel_rays
 from azurekinect3dreconstruction_tpu_torch.core.fmath import fma
+from azurekinect3dreconstruction_tpu_torch.core.types import PointCloud
 
 
 def backproject_depth(depth, rays):
@@ -24,6 +27,14 @@ def backproject_depth(depth, rays):
 def backproject_intrinsics(depth, intr: Intrinsics, distortion: Optional[Distortion] = None):
     """:func:`backproject_depth` with the ray table built on the fly."""
     return backproject_depth(depth, pixel_rays(intr, depth.device, distortion))
+
+
+def flatten_organized(points, mask, colors=None, normals=None) -> PointCloud:
+    """(H, W, 3) organized maps -> fixed-capacity flat cloud (N = H*W)."""
+    h, w = points.shape[:2]
+    flat = lambda a: None if a is None else a.reshape(h * w, -1)
+    return PointCloud(points=flat(points), mask=mask.reshape(h * w), colors=flat(colors),
+                      normals=flat(normals))
 
 
 def project_points(points, intr: Intrinsics):

@@ -41,17 +41,26 @@ def organized_normals(points, max_edge: float = 0.1):
     return n
 
 
+# neighborhoods per batched ``eigh`` call: cuSOLVER's batched 3x3 solver
+# refused batches of 32,768 and 184,320 (CUSOLVER_STATUS_INVALID_VALUE on an
+# H100, torch 2.11 / CUDA 12.8) and took 16,384
+_EIGH_BATCH = 1 << 13
+
+
 def pca_normal(neighbors, mask):
     """Normal of each (..., K, 3) neighborhood under its (..., K) mask: the
     eigenvector of the smallest eigenvalue of the masked covariance (a
-    batched 3x3 ``eigh``), defined up to sign. The covariance is summed
-    elementwise, so no TF32 product enters on any card."""
+    batched 3x3 ``eigh``, in batches of ``_EIGH_BATCH``), defined up to
+    sign. The covariance is summed elementwise, so no TF32 product enters on
+    any card."""
     w = mask.to(torch.float32)[..., None]
     cnt = torch.clamp_min(w.sum(dim=-2), 1.0)  # (..., 1)
     mean = (neighbors * w).sum(dim=-2, keepdim=True) / cnt[..., None, :]
     d = (neighbors - mean) * w
     cov = (d[..., :, :, None] * d[..., :, None, :]).sum(dim=-3) / cnt[..., None]
-    return torch.linalg.eigh(cov)[1][..., 0]  # eigenvalues ascend
+    vecs = [torch.linalg.eigh(c)[1][..., 0]  # eigenvalues ascend
+            for c in cov.reshape(-1, 3, 3).split(_EIGH_BATCH)]
+    return torch.cat(vecs).reshape(cov.shape[:-1])
 
 
 def orient_normals_consistent(points, normals, mask, radius: float, k: int = 16):

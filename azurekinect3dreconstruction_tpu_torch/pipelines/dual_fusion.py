@@ -11,7 +11,8 @@ raw uploads, one pose upload and the enqueue of :func:`make_raw_dual_step`
 each camera), with no host synchronization: the extrinsics and the
 camera-1 gate are tensor data, so a recalibration or a moving rig changes
 the data, not the step. Display and recalibration decode the last pair on
-demand; ``save_current_state`` writes the merged cloud and the TSDF mesh.
+demand; ``save_current_state`` writes the merged cloud and the TSDF mesh (and
+a Poisson mesh of the cloud on request).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from azurekinect3dreconstruction_tpu_torch.core.types import (
     RGBDFrame,
     decode_raw_frame,
 )
+from azurekinect3dreconstruction_tpu_torch.meshing.poisson import poisson_mesh_from_cloud
 from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
 from azurekinect3dreconstruction_tpu_torch.ops.image import depth_gradient_colors
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.tsdf_kernels import integrate_step
@@ -68,19 +70,19 @@ _UNIFORM_COLORS = ((0.9, 0.4, 0.2), (0.2, 0.5, 0.9))
 class DualCameraFusion:
     """Feed synchronized raw (depth_u16, color_u8) pairs from two cameras.
 
-    ``device`` is ``"cuda"`` (kernel B1 on the card) or ``"cpu"`` (its
-    plain version); ``"cuda"`` without a card raises. Camera 0 defines the
+    ``device`` is ``"cuda"``, the default (kernel B1 on the card) or ``"cpu"``
+    (its plain version); ``"cuda"`` without a card raises. Camera 0 defines the
     world frame: ``extrinsics[i]`` is camera i's camera-to-world pose (host
     float64), camera 1's ``None`` until calibrated. ``colored_calibration``
     refines with colored ICP instead of point-to-plane. RANSAC draws from
     ``generator``, a ``torch.Generator`` on the device seeded with 7.
-    ``calib_stage_ms`` holds the last calibration's stage times, each
-    closed by a device synchronization."""
+    ``calib_stage_ms`` holds the last calibration's stage times, each closed by
+    a device synchronization."""
 
     COLOR_MODES = ("rgb", "depth_gradient", "uniform")
 
     def __init__(self, intrinsics: Tuple[Intrinsics, Intrinsics],
-                 config: Optional[PipelineConfig] = None, *, device,
+                 config: Optional[PipelineConfig] = None, *, device="cuda",
                  output_dir: str = "results", colored_calibration: bool = False):
         self.device = resolve_device(device)
         self.intr = list(intrinsics)
@@ -277,9 +279,11 @@ class DualCameraFusion:
         """The volume meshing runs on."""
         return self.volume
 
-    def save_current_state(self) -> dict:
+    def save_current_state(self, poisson: bool = False) -> dict:
         """'S' key: the merged cloud as PLY and the welded TSDF mesh as OBJ
-        (timestamped and ``latest_*``). Returns {"pointcloud", "mesh"} paths."""
+        (timestamped and ``latest_*``); with ``poisson`` and Open3D
+        installed, also a Poisson mesh of the merged cloud as OBJ. Returns
+        {"pointcloud", "mesh"[, "poisson"]} paths."""
         paths = {}
         cloud = self.merged_cloud()
         if len(cloud):
@@ -287,6 +291,10 @@ class DualCameraFusion:
         mesh = mc.weld_vertices(mc.extract_mesh(self.extraction_volume(), self.cfg.tsdf).compact())
         mesh.compute_vertex_normals()
         paths["mesh"] = self.saver.save_mesh(mesh, kind="mesh", obj=True)
+        if poisson:
+            pmesh = poisson_mesh_from_cloud(cloud)
+            if pmesh is not None:
+                paths["poisson"] = self.saver.save_mesh(pmesh, kind="poisson_mesh", obj=True)
         log.info("saved: %s", paths)
         return paths
 

@@ -61,8 +61,8 @@ def integration_reach(cfg: PipelineConfig) -> float:
 class MonoOdometryTSDF:
     """Feed raw (depth_u16, color_u8) frames; poses accumulate from odometry.
 
-    ``device`` is ``"cuda"`` (the hand-written kernels) or ``"cpu"`` (their
-    plain PyTorch versions); ``"cuda"`` without a card raises.
+    ``device`` is ``"cuda"``, the default (the hand-written kernels) or
+    ``"cpu"`` (their plain PyTorch versions); ``"cuda"`` without a card raises.
 
     ``tracking``: ``"frame_to_frame"`` chains odometry; ``"frame_to_model"``
     lets odometry predict and projective ICP against ``model_points``
@@ -88,7 +88,7 @@ class MonoOdometryTSDF:
     REFRESH_MARGIN = 0.25  # metres the camera may move before the next refresh
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
-                 device, tracking: str = "frame_to_frame", model_refine_interval: int = 5,
+                 device="cuda", tracking: str = "frame_to_frame", model_refine_interval: int = 5,
                  model_points: int = 32768, model_sample_blocks: int = 256,
                  model_min_inliers: int = 3000, worklist_size: int = 2048,
                  relocalize: bool = False, reloc_window: int = 3, reloc_interval: int = 8,

@@ -53,14 +53,14 @@ from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 class OfflineBundle:
     """Feed raw (depth_u16, color_u8) frames, then ``finalize``.
 
-    ``device`` is ``"cuda"`` (kernel B1 on the card in the reintegration)
-    or ``"cpu"`` (its plain version); ``"cuda"`` without a card raises.
-    ``last_finalize_stats`` holds the last finalize's stage wall times
+    ``device`` is ``"cuda"``, the default (kernel B1 on the card in the
+    reintegration) or ``"cpu"`` (its plain version); ``"cuda"`` without a card
+    raises. ``last_finalize_stats`` holds the last finalize's stage wall times
     (``loops_s``, ``optimize_s``, ``reintegrate_s``, ``extract_s``) and
     ``n_frames``; ``volume`` is its reintegrated volume."""
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
-                 device, output_dir: str = "reconstruction_output", loop_radius: float = 0.5,
+                 device="cuda", output_dir: str = "reconstruction_output", loop_radius: float = 0.5,
                  loop_min_gap: int = 20, loop_check_interval: int = 10,
                  checkpoint_interval: int = 100):
         self.device = resolve_device(device)

@@ -73,20 +73,20 @@ class Recorder:
     """Feed raw (depth_u16, color_u8) frames; ``toggle_recording`` starts
     and stops recording.
 
-    ``device`` is ``"cuda"`` (kernel B1 on the card) or ``"cpu"`` (its
-    plain version); ``"cuda"`` without a card raises. ``worklist_size``
-    defaults to the whole pool (the JAX package's 2,048 rows overflow once
-    the interval frames' held poses have smeared the model over more
-    visible blocks; B1 bounds itself by the live row count on the device,
-    so the whole pool costs what a compacted worklist does). RANSAC draws
-    from ``generator``, a ``torch.Generator`` on the device seeded with 0.
+    ``device`` is ``"cuda"``, the default (kernel B1 on the card) or ``"cpu"``
+    (its plain version); ``"cuda"`` without a card raises. ``worklist_size``
+    defaults to the whole pool (the JAX package's 2,048 rows overflow once the
+    interval frames' held poses have smeared the model over more visible
+    blocks; B1 bounds itself by the live row count on the device, so the whole
+    pool costs what a compacted worklist does). RANSAC draws from
+    ``generator``, a ``torch.Generator`` on the device seeded with 0.
     ``telemetry`` counts the ladder's events (``colored_icp_ok``,
     ``colored_icp_reject``, ``fallback_icp_ok``, ``fallback_reject``,
     ``global_reject``, ``fallback_rebase``) and times the host side of each
     step (``keyframe``, ``integrate``, ``fallback``)."""
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
-                 device, output_dir: str = "results", worklist_size: Optional[int] = None,
+                 device="cuda", output_dir: str = "results", worklist_size: Optional[int] = None,
                  fallback_check_keyframes: int = 1):
         self.device = resolve_device(device)
         self.intr = intrinsics

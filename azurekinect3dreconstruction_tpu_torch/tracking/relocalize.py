@@ -66,7 +66,7 @@ from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
 class Relocalizer:
     """Recover a world pose for one RGB-D frame from the fused model.
 
-    ``device`` is where the attempts run (``"cuda"`` without a card
+    ``device`` is where the attempts run (default ``"cuda"``; without a card
     raises). The feature constants are the recorder ladder's: a 1.5 cm
     start voxel, normals at 2x and FPFH at 4x the fitted voxel. The pixel
     ``stride`` bounds the frame cloud at about 32k points (4 at 640x576).
@@ -74,7 +74,7 @@ class Relocalizer:
     recoveries (the last by rung 0); ``last_reject`` says why the last
     attempt failed."""
 
-    def __init__(self, intr: Intrinsics, cfg: Optional[PipelineConfig] = None, *, device,
+    def __init__(self, intr: Intrinsics, cfg: Optional[PipelineConfig] = None, *, device="cuda",
                  rays=None, model_points: int = 32768, feature_points: int = 8192,
                  downsample_voxel: float = 0.015, min_inliers: int = 2000,
                  min_depth_pixels: int = 2000, restarts: int = 4, stride: Optional[int] = None,

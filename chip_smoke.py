@@ -69,7 +69,26 @@ worklist, odometry pyramid [20, 10, 5]):
    each of the 16 mono frames and after a frame with only the central
    quarter of its depth (the compact path): every soup equal to
    ``extract_mesh``'s (count and centroid set), with its stage times and
-   pull bytes beside the full extraction's ms.
+   pull bytes beside the full extraction's ms;
+11. drives the fragment pipeline, ``FragmentPipeline(..., device="cuda")``,
+   on sweep poses 0, 4, 8 and 12: make fragments (each meshed from its own
+   whole-pool volume at 10 mm voxels, 100k mesh samples), register, then
+   integrate the scene, each stage timed, the counters zeroed just before
+   and read just after: B1 exactly twice a captured frame, B2 never, every
+   fragment pose within 3 cm of the true relative motion, a scene mesh, the
+   peak device memory; and the scene volume against a CPU copy integrated
+   at the card's poses, by block key;
+12. drives the point-cloud accumulator, ``CloudAccumulator(...,
+   device="cuda")``, every frame a keyframe (the JAX bench's
+   configuration), over the first 8 sweep frames: keyframes/s with one sync
+   at the end and the synchronized ms per keyframe, B1 and B2 never, the
+   chain's ATE; the large-motion pair of ``tests/test_pipelines.py``
+   recovered by the coarse FPFH + RANSAC seed (6 cm / 0.10 rad); the save
+   read back; ``mesh_with_fallback`` on the model cloud (the SDF mesher:
+   no Open3D, over 60k points) with its ms; the model's splat against a CPU
+   copy by block key (weights within 1e-5 relative, tsdf and color within
+   1e-5: float32 atomics on the card); the first 2 keyframes' poses against
+   a CPU accumulator within 1e-4.
 
 Between steps 1 and 2 it runs one 1024x1024 (WFOV unbinned) frame pair
 through ``compute_odometry_fast``: B2 on its global-memory path against
@@ -77,7 +96,8 @@ the plain version on the card, with its device time and bound.
 
 Prints the card's name and power limit, the build time, the launch counts,
 per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
-results, one JSON line of per-kernel results, and, as the last line,
+results and each later phase's, one JSON line of per-kernel results (with
+each path's launches), and, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, on
 any failure or when no CUDA device is available. Needs no jax.
 
@@ -104,6 +124,7 @@ with the bound and its bytes (null for a version without
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -165,6 +186,18 @@ RELOC_R_LIMIT_RAD = 0.12
 HINT_T_LIMIT_M = 0.05  # its bounds on a direct attempt
 HINT_R_LIMIT_RAD = 0.1
 RELOC_POSE_TOL = 1e-4  # the hint rung on the card against a CPU copy of the volume
+# the fragment pipeline: sweep poses 0, 4, 8, 12; JAX's 3 cm bound on each fragment pose
+FRAGMENT_POSES = (0, 4, 8, 12)
+FRAGMENT_T_LIMIT_M = 0.03
+# the cloud accumulator (bench.py's configuration: every frame a keyframe, 8 keyframes);
+# its large-motion pair within tests/test_pipelines.py's bounds
+N_CLOUD_KF = 8
+COARSE_T_LIMIT_M = 0.06
+COARSE_R_LIMIT_RAD = 0.10
+CLOUD_POSE_TOL = 1e-4  # the accumulator on the card against a CPU copy
+# the SDF splat's sums are float32 atomics in no fixed order on the card: weights
+# within 1e-5 relative, tsdf and color within 1e-5 of the CPU's
+SPLAT_TOL = 1e-5
 
 
 def _log(msg: str) -> None:
@@ -580,24 +613,34 @@ def bench_rig():
     return rig
 
 
-def _volumes_by_key(vg, vc):
-    """Two volumes' blocks matched by key: (same key set, weights equal
-    fraction, max |dtsdf|, max |dcolor| where the weights agree)."""
-    import numpy as np
-
+def _matched_rows(vg, vc):
+    """Two volumes' pool rows matched by block key: None unless both hold
+    the same non-empty key set, else ``rows(field) -> (g rows, c rows)`` as
+    host arrays in one key order."""
     def keyed(v):
         n = int(v.n_blocks)
         return {tuple(k): s for s, k in enumerate(v.block_coords[:n].cpu().numpy().tolist())}
 
     kg, kc = keyed(vg), keyed(vc)
     if kg.keys() != kc.keys() or not kg:
-        return False, 0.0, float("inf"), float("inf")
+        return None
     keys = sorted(kg)
-    rows = lambda v, k, f: getattr(v, f)[[k[x] for x in keys]].cpu().numpy()
-    wg, wc = rows(vg, kg, "weight"), rows(vc, kc, "weight")
+    return lambda f: tuple(getattr(v, f)[[k[x] for x in keys]].cpu().numpy()
+                           for v, k in ((vg, kg), (vc, kc)))
+
+
+def _volumes_by_key(vg, vc):
+    """Two volumes' blocks matched by key: (same key set, weights equal
+    fraction, max |dtsdf|, max |dcolor| where the weights agree)."""
+    import numpy as np
+
+    rows = _matched_rows(vg, vc)
+    if rows is None:
+        return False, 0.0, float("inf"), float("inf")
+    wg, wc = rows("weight")
     agree = wg == wc
-    err_t = float(np.abs(rows(vg, kg, "tsdf") - rows(vc, kc, "tsdf"))[agree].max())
-    dcol = np.abs(rows(vg, kg, "color") - rows(vc, kc, "color"))
+    err_t = float(np.abs(np.subtract(*rows("tsdf")))[agree].max())
+    dcol = np.abs(np.subtract(*rows("color")))
     err_c = float(dcol[np.broadcast_to(agree[:, None], dcol.shape)].max())
     return True, float(agree.mean()), err_t, err_c
 
@@ -1384,6 +1427,289 @@ def incremental_phase(intr, cfg, raw, dev, gpu: str):
     return failures
 
 
+def fragments_phase(intr, cfg, cam, dev, gpu: str, cpu_check: bool = True):
+    """The fragment pipeline, ``FragmentPipeline(..., device=dev)``, on
+    ``FRAGMENT_POSES`` of the bench sweep: capture, then make fragments
+    (each meshed from its own whole-pool volume at 10 mm), register and
+    integrate the scene, each stage synchronized and timed, the launch
+    counters zeroed just before and read just after: B1 exactly twice a
+    captured frame, B2 never; every fragment pose within 3 cm of the true
+    relative motion; a scene mesh; no overflow; peak device memory. Then
+    the scene volume against a CPU copy integrated at the card's poses, by
+    block key with B1's tolerances. Returns (failures, launch counts)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.fragments import FragmentPipeline
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+
+    failures = []
+    sweep = orbit_trajectory(64, radius=0.35, angle_span=1.3)
+    poses = [sweep[i] for i in FRAGMENT_POSES]
+    raw = [_quantize(cam.render(T)) for T in poses]
+    pipe = FragmentPipeline(intr, cfg, device=dev)
+    for d, c in raw:
+        pipe.capture(d, c)
+    _sync(dev)
+    gc.collect()  # earlier phases' dropped volumes
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    stage_ms = {}
+    for name, stage in (("make", pipe.make_fragments), ("register", pipe.register_fragments),
+                        ("integrate", pipe.integrate_scene)):
+        t0 = time.perf_counter()
+        out = stage()
+        _sync(dev)
+        stage_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if dev.type == "cuda" else 0.0
+    errs = []
+    for frag, T in zip(pipe.fragments, poses):
+        e = se3.se3_log(torch.as_tensor(np.linalg.inv(np.linalg.inv(poses[0]) @ T) @ frag.pose))
+        errs.append((float(e[:3].norm()), float(e[3:].norm())))
+    overflow = bool(pipe.volume.overflow)
+    _log(f"fragments launches: {json.dumps(counts)} over {len(raw)} captured frames  [{gpu}]")
+    _log(f"fragments over sweep poses {list(FRAGMENT_POSES)}: stage ms (host clock, synchronized "
+         f"after each) {json.dumps(stage_ms)}; fragment pose error vs the true relative motion "
+         f"mm/mrad {[(round(t * 1e3, 3), round(r * 1e3, 3)) for t, r in errs]}; scene mesh "
+         f"{out.triangles.shape[0]} triangles, n_blocks {int(pipe.volume.n_blocks)}, overflow "
+         f"{overflow}; peak device memory {peak:.3f} GiB above the {base / 2**30:.3f} GiB held "
+         f"before the first stage  [{gpu}]")
+    if counts[tk.KERNEL] != 2 * len(raw) or counts[odo.KERNEL] != 0:
+        failures.append(f"fragments launches {counts}: B1 not twice a captured frame or B2 run")
+    if not all(t < FRAGMENT_T_LIMIT_M for t, _ in errs):
+        failures.append(f"a fragment pose is {max(t for t, _ in errs):.4f} m off")
+    if out.triangles.shape[0] < 10000 or overflow:
+        failures.append("the fragment scene mesh is empty or the volume overflowed")
+
+    if cpu_check:
+        cpu = torch.device("cpu")
+        host = FragmentPipeline(intr, cfg, device=cpu, mesh_fragments=False)
+        for d, c in raw:
+            host.capture(d, c)
+        t0 = time.perf_counter()
+        vol = tsdf.create(cfg.tsdf, cpu)
+        for f, frag in zip(host.captured, pipe.fragments):
+            vol = tsdf.integrate_frame(vol, f.depth, f.color, host.rays,
+                                       torch.as_tensor(frag.pose, dtype=torch.float32), intr,
+                                       cfg.tsdf)
+        same_keys, frac, err_t, err_c = _volumes_by_key(pipe.volume, vol)
+        _log(f"fragments scene card vs CPU at the card's poses: same block keys {same_keys} "
+             f"({int(vol.n_blocks)} blocks), weights equal on {frac:.6%}, max |dtsdf| "
+             f"{err_t:.3g}, max |dcolor| {err_c:.3g} where they agree "
+             f"({time.perf_counter() - t0:.1f} s)")
+        if not (same_keys and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
+                and err_c <= B1_VALUE_TOL):
+            failures.append("the fragment scene volume on the card differs from the CPU's")
+        del vol
+    del pipe
+    return failures, counts
+
+
+def _splat_by_key(vg, vc):
+    """Two splat volumes' blocks matched by key: (same key set, max relative
+    weight difference, max |dtsdf|, max |dcolor|)."""
+    import numpy as np
+
+    rows = _matched_rows(vg, vc)
+    if rows is None:
+        return False, float("inf"), float("inf"), float("inf")
+    wg, wc = rows("weight")
+    rel_w = float((np.abs(wg - wc) / np.maximum(wc, 1e-30))[wc > 0].max())
+    err = lambda f: float(np.abs(np.subtract(*rows(f))).max())
+    return True, rel_w, err("tsdf"), err("color")
+
+
+def cloud_phase(intr, cfg, cam, raw, gt, dev, gpu: str, cpu_check: bool = True):
+    """The point-cloud accumulator, ``CloudAccumulator(..., device=dev)``,
+    every frame a keyframe, over the first ``N_CLOUD_KF`` frames of ``raw``:
+    keyframes/s with one sync at the end, the launch counters zeroed just
+    before and read just after (B1 and B2 never); then again synchronized
+    after each keyframe (median ms); the chain's ATE against ``gt``, the
+    coarse and rejected keyframes; the large-motion pair of
+    tests/test_pipelines.py with ``coarse=True`` (within 6 cm / 0.10 rad, the
+    coarse seed wins); ``save_model()`` read back; ``mesh_with_fallback`` on
+    the model cloud (the SDF mesher: no Open3D, over 60k points) with its
+    ms; the model's splat against a CPU copy by key (``SPLAT_TOL``); the
+    first 2 keyframes' poses against a CPU accumulator. Returns (failures,
+    launch counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.meshing.poisson import (
+        BALL_PIVOT_MAX_POINTS,
+        mesh_with_fallback,
+    )
+    from azurekinect3dreconstruction_tpu_torch.meshing.sdf_mesh import splat_cloud
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.cloud_accumulator import CloudAccumulator
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import TargetMaps, icp_point_to_plane
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_geometry
+
+    failures = []
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+    tmp = tempfile.TemporaryDirectory()
+    ca_cfg = dataclasses.replace(cfg, keyframe_interval=1)
+    frames = raw[:N_CLOUD_KF]
+    acc = lambda device=dev, **kw: CloudAccumulator(intr, ca_cfg, device=device,
+                                                    output_dir=tmp.name, **kw)
+    warm = acc()
+    for d, c in frames[:2]:  # first-call set-up stays out of the timing
+        warm.process_frame(d, c)
+    del warm
+    ca = acc()
+    _sync(dev)
+    build.launches.clear()
+    t0 = time.perf_counter()
+    traj = []
+    for d, c in frames:
+        ca.process_frame(d, c)
+        traj.append(ca.T_world_cam.copy())
+    _sync(dev)
+    kf_fps = len(frames) / (ms_since(t0) / 1e3)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    per_kf = []
+    ca2 = acc()
+    for d, c in frames:
+        t0 = time.perf_counter()
+        ca2.process_frame(d, c)
+        _sync(dev)
+        per_kf.append(ms_since(t0))
+    # the stages of the last keyframe, synchronized: its projective ICP against
+    # the previous keyframe's maps, and the maps it leaves for the next one
+    reg = ca_cfg.registration
+    dl, cl, _ = _decode(frames[-1], cfg, dev)
+    flat = backproject_depth(dl, ca2.rays)[::4, ::4].reshape(-1, 3)
+    maps = ca2.prev_maps
+    stages = {
+        f"icp_point_to_plane ({reg.icp_max_iters} iterations, eager)": lambda: (
+            icp_point_to_plane(flat, flat[:, 2] > 0, maps, intr, cfg=reg)),
+        "target maps": lambda: TargetMaps.from_depth(dl, ca2.rays),
+    }
+    stage_ms = {k: round(_median_ms(fn, dev), 3) for k, fn in stages.items()}
+    del ca2
+    gt_np = [g.cpu().numpy().astype(np.float64) for g in gt[:len(frames)]]
+    a = ate(traj, gt_np, align=False)
+    ev = ca.telemetry.counters
+    n_coarse = len(ca.telemetry._timers.get("coarse", []))
+    steady = sorted(per_kf[1:])
+    _log(f"cloud accumulator launches: {json.dumps(counts)} over {len(frames)} keyframes  [{gpu}]")
+    _log(f"cloud accumulator over {len(frames)} keyframes (every frame a keyframe): "
+         f"{kf_fps:.3f} keyframes/s (host clock, one sync at the end); synchronized per keyframe "
+         f"median {steady[len(steady) // 2]:.3f} ms (min {steady[0]:.3f}, max {steady[-1]:.3f}); "
+         f"ATE rmse {a['rmse'] * 1e3:.3f} mm (max {a['max'] * 1e3:.3f} mm); coarse stage ran on "
+         f"{n_coarse}, events {json.dumps(ev)}; model {len(ca.model_points)} points  [{gpu}]")
+    _log(f"cloud accumulator keyframe stage ms (synchronized after each, median of 5): "
+         f"{json.dumps(stage_ms)}  [{gpu}]")
+    if counts[tk.KERNEL] or counts[odo.KERNEL]:
+        failures.append(f"cloud accumulator launches {counts}: a kernel ran")
+    if not a["rmse"] <= ATE_LIMIT_M or ev.get("reg_fail", 0):
+        failures.append(f"cloud accumulator ATE {a['rmse']:.4f} m or rejections {ev}")
+
+    # the large-motion pair, coarse-seeded
+    big = orbit_trajectory(2, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    cb = acc(coarse=True)
+    t0 = time.perf_counter()
+    for T in big:
+        cb.process_frame(*_quantize(cam.render(T)))
+    big_ms = ms_since(t0)
+    e = se3.se3_log(torch.as_tensor(np.linalg.inv(np.linalg.inv(big[0]) @ big[1])
+                                    @ cb.T_world_cam))
+    et, er = float(e[:3].norm()), float(e[3:].norm())
+    evb = cb.telemetry.counters
+    _log(f"cloud accumulator large-motion pair (orbit(2, 0.45, 1.3)): pose off by "
+         f"{et * 1e3:.3f} mm / {er * 1e3:.3f} mrad, events {json.dumps(evb)}, coarse stage "
+         f"{cb.telemetry.mean_time_ms('coarse'):.1f} ms, both keyframes {big_ms:.1f} ms "
+         f"(host clock)  [{gpu}]")
+    if not (et < COARSE_T_LIMIT_M and er < COARSE_R_LIMIT_RAD and evb.get("coarse_won", 0) == 1):
+        failures.append(f"the large-motion pair was not recovered by the coarse seed: "
+                        f"{et:.4f} m / {er:.4f} rad, {evb}")
+    del cb
+
+    # the save, read back; the model cloud meshed through the fallback chain
+    t0 = time.perf_counter()
+    paths = ca.save_model()
+    save_ms = ms_since(t0)
+    v, cols, _ = read_geometry(paths["pointcloud"])
+    cloud = ca.model_cloud()
+    ok_save = (len(v) == len(ca.model_points) > 10000 and np.isfinite(v).all()
+               and cols is not None and cloud.normals is not None)
+    t0 = time.perf_counter()
+    mesh = mesh_with_fallback(cloud, voxel=0.01, device=dev)
+    mesh_ms = ms_since(t0)
+    rung = ("the SDF mesher" if len(cloud) > BALL_PIVOT_MAX_POINTS else "ball pivoting")
+    _log(f"cloud accumulator save: {len(v)} points read back, save_model {save_ms:.1f} ms; "
+         f"mesh_with_fallback (no Open3D, {len(cloud)} points: {rung}) "
+         f"{mesh_ms:.1f} ms, {0 if mesh is None else mesh.triangles.shape[0]} triangles "
+         f"(host clock)  [{gpu}]")
+    if not ok_save:
+        failures.append("the accumulator's save did not read back whole and finite")
+    if mesh is None or mesh.triangles.shape[0] < 10000:
+        failures.append("mesh_with_fallback gave no mesh of the model cloud")
+
+    # the model's splat (sdf_mesh_from_cloud's configuration) on the card and on the CPU
+    scfg = TSDFConfig(voxel_size=0.01, sdf_trunc=0.015, block_resolution=8, block_capacity=8192,
+                      hash_capacity=32768)
+    cpu = torch.device("cpu")
+    vols, splat_ms, splat_peak = [], None, 0.0
+    for device in ((dev, cpu) if cpu_check else (dev,)):
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+        call = lambda: splat_cloud(t(cloud.points), t(cloud.normals), t(cloud.colors),
+                                   torch.ones(len(cloud), dtype=torch.bool, device=device), scfg,
+                                   torch.tensor(0.01, device=device),
+                                   torch.tensor(0.015, device=device))
+        if device.type == "cuda":
+            _sync(device)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        vols.append(call())
+        if device == dev:
+            if dev.type == "cuda":
+                splat_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            splat_ms = _median_ms(call, dev)
+    overflow = bool(vols[0].overflow)
+    _log(f"splat of the model cloud ({len(cloud)} points, 10 mm voxels): {splat_ms:.3f} ms "
+         f"(synchronized, median of 5), {int(vols[0].n_blocks)} blocks, overflow {overflow}, "
+         f"peak device memory {splat_peak:.1f} MiB above the call's inputs  [{gpu}]")
+    if overflow:
+        failures.append("the model cloud's splat overflowed its pool")
+    if cpu_check:
+        same_keys, rel_w, err_t, err_c = _splat_by_key(*vols)
+        _log(f"splat card vs CPU: same block keys {same_keys}, max relative |dweight| "
+             f"{rel_w:.3g}, max |dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g} (float32 atomics "
+             f"on the card; tolerance {SPLAT_TOL})")
+        if not (same_keys and rel_w <= SPLAT_TOL and err_t <= SPLAT_TOL and err_c <= SPLAT_TOL):
+            failures.append("the splat on the card differs from the CPU's")
+
+        # the first 2 keyframes on a CPU accumulator
+        ch = acc(cpu)
+        for d, c in frames[:2]:
+            ch.process_frame(d, c)
+        dpose = float(np.abs(ch.T_world_cam - traj[1]).max())
+        _log(f"cloud accumulator card vs CPU over 2 keyframes: max |dpose| {dpose:.3g}")
+        if not dpose <= CLOUD_POSE_TOL:
+            failures.append(f"the accumulator's pose on the card is {dpose:.3g} off the CPU's")
+    del vols, ca
+    tmp.cleanup()
+    return failures, counts
+
+
 def main() -> int:
     import torch
 
@@ -1621,6 +1947,13 @@ def main() -> int:
     for k in kernels:
         k["launches_relocalize"] = reloc_counts[k["name"]]
     failures += incremental_phase(intr, cfg, raw, dev, gpu)
+    frag_failures, frag_counts = fragments_phase(intr, cfg, cam, dev, gpu)
+    failures += frag_failures
+    cloud_failures, cloud_counts = cloud_phase(intr, cfg, cam, raw, gt, dev, gpu)
+    failures += cloud_failures
+    for k in kernels:
+        k["launches_fragments"] = frag_counts[k["name"]]
+        k["launches_cloud"] = cloud_counts[k["name"]]
     if failures:
         return _fail("; ".join(failures))
 

@@ -1,0 +1,458 @@
+"""The port's point-cloud pipelines against the JAX package: the
+``CloudAccumulator`` (per-keyframe registration, the model, the exact
+feature cache, the coarse FPFH + RANSAC seed with JAX's drawn samples, the
+large-motion recovery, the downsample that fits its voxel instead of
+dropping cells, the Poisson save) and the ``FragmentPipeline`` (fragment
+clouds and meshes, registration on JAX's mesh samples, the pipeline end to
+end, the scene volume); the two-camera save's Poisson option; the default
+device of every entry point. Quarter resolution, the SMALL_CFG of
+tests/test_pipelines.py; JAX's fragment TSDFs run ``backend="xla"``. Each
+tolerance is stated where it is used."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+from azurekinect3dreconstruction_tpu import config as jcfg
+from azurekinect3dreconstruction_tpu.core import camera as jcamera
+from azurekinect3dreconstruction_tpu.core import types as jtypes
+from azurekinect3dreconstruction_tpu.io.synthetic import SyntheticCamera as JCamera
+from azurekinect3dreconstruction_tpu.io.synthetic import orbit_trajectory
+from azurekinect3dreconstruction_tpu.meshing import poisson as jpoisson
+from azurekinect3dreconstruction_tpu.pipelines.cloud_accumulator import (
+    CloudAccumulator as JAccumulator,
+)
+from azurekinect3dreconstruction_tpu.pipelines.fragments import FragmentPipeline as JFragments
+from azurekinect3dreconstruction_tpu.tracking import ransac as jransac
+from azurekinect3dreconstruction_tpu.tsdf import marching_cubes as jmc
+from azurekinect3dreconstruction_tpu.tsdf import volume as jtsdf
+from azurekinect3dreconstruction_tpu_torch import interop
+from azurekinect3dreconstruction_tpu_torch.core import se3
+from azurekinect3dreconstruction_tpu_torch.core.types import TriangleMeshHost
+from azurekinect3dreconstruction_tpu_torch.pipelines import cloud_accumulator, dual_fusion
+from azurekinect3dreconstruction_tpu_torch.pipelines.cloud_accumulator import CloudAccumulator
+from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+from azurekinect3dreconstruction_tpu_torch.pipelines.fragments import FragmentPipeline
+from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import MonoOdometryTSDF
+from azurekinect3dreconstruction_tpu_torch.pipelines.offline_bundle import OfflineBundle
+from azurekinect3dreconstruction_tpu_torch.pipelines.recorder import Recorder
+from azurekinect3dreconstruction_tpu_torch.tracking import ransac
+from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
+from azurekinect3dreconstruction_tpu_torch.viz.savers import read_geometry, read_obj
+
+torch.set_num_threads(1)
+
+JINTR = jcamera.Intrinsics.azure_kinect_depth_nfov().scaled(0.25)
+INTR = interop.intrinsics_from(JINTR)
+# the SMALL_CFG of tests/test_pipelines.py
+JCFG = jcfg.PipelineConfig(
+    tsdf=jcfg.TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=8,
+                         block_capacity=2048, hash_capacity=8192),
+    odometry=jcfg.OdometryConfig(pyramid_iters=(8, 8, 8)),
+    registration=jcfg.RegistrationConfig(ransac_hypotheses=1024, icp_max_iters=20,
+                                         colored_icp_max_iters=30),
+    keyframe_interval=1,
+    vis_update_interval=2,
+)
+CFG = interop.pipeline_config_from(JCFG)
+POSE_TOL = 1e-4  # test_torch_registration's ICP tolerance: sums in another order
+POINT_TOL = 1e-5  # model points: one float32 transform of the same points
+FEATURE_TOL = 1e-5  # PCA normals and FPFH (test_torch_registration's FPFH tolerance)
+FRAG_SAMPLES = 4000  # mesh samples a fragment at quarter resolution (100k at full)
+
+
+@pytest.fixture(scope="module")
+def cam():
+    return JCamera(intrinsics=JINTR)
+
+
+def _pose_err(T_est, T_true):
+    d = se3.se3_log(torch.as_tensor(np.linalg.inv(T_true) @ T_est, dtype=torch.float32))
+    return float(torch.linalg.vector_norm(d[:3])), float(torch.linalg.vector_norm(d[3:]))
+
+
+# -- the cloud accumulator -------------------------------------------------------------
+
+
+def test_cloud_accumulator_matches_jax(cam, tmp_path):
+    """test_cloud_accumulator's 4 keyframes: the pose after each within
+    1e-4 of JAX's, the model's points within 1e-5 in the same order, its
+    colors equal; the mirror's bounds (over 2,000 points, the save on disk)
+    and the saved cloud read back with normals."""
+    want = JAccumulator(JINTR, JCFG, output_dir=str(tmp_path / "jax"))
+    got = CloudAccumulator(INTR, CFG, device="cpu", output_dir=str(tmp_path / "port"))
+    for T in orbit_trajectory(4, radius=0.2, angle_span=0.3):
+        d, c = cam.capture(T)
+        want.process_frame(d, c)
+        got.process_frame(d, c)
+        np.testing.assert_allclose(got.T_world_cam, want.T_world_cam, rtol=0, atol=POSE_TOL)
+    assert got.telemetry.counters == dict(want.telemetry._counters)
+    assert got.model_points.shape == want.model_points.shape and len(got.model_points) > 2000
+    np.testing.assert_allclose(got.model_points, want.model_points, rtol=0, atol=POINT_TOL)
+    np.testing.assert_array_equal(got.model_colors, want.model_colors)
+    paths = got.save_model()
+    assert os.path.exists(paths["pointcloud"]) and "mesh" not in paths
+    pts, cols, _ = read_geometry(paths["pointcloud"])
+    np.testing.assert_array_equal(pts, got.model_points)
+    assert cols is not None
+
+
+@pytest.fixture(scope="module")
+def coarse_pair(cam, tmp_path_factory):
+    """Two keyframes with the coarse stage forced (``coarse_skip_fitness``
+    1.1) in both packages, the port drawing from its own generator; JAX's
+    seed recorded, with the feature tuples it came from. Then the port's
+    4 restarts on JAX's feature tuples, with JAX's mutual matches and JAX's
+    drawn ranks (the four subkeys JAX's accumulator splits from
+    ``PRNGKey(3)``): FPFH of this smooth scene has near-ties, on which the
+    two matchers' float32 sums pick differently (55 of 1,440 rows here),
+    and a different match shifts every rank, so both are carried across,
+    as tests/test_torch_registration.py does."""
+    out = tmp_path_factory.mktemp("coarse")
+    frames = [cam.capture(T) for T in orbit_trajectory(2, radius=0.2, angle_span=0.3)]
+    want = JAccumulator(JINTR, JCFG, coarse=True, output_dir=str(out))
+    got = CloudAccumulator(INTR, CFG, device="cpu", coarse=True, output_dir=str(out))
+    want.coarse_skip_fitness = got.coarse_skip_fitness = 1.1
+    jax_seeds = []
+    inner = want._coarse_seed
+    want._coarse_seed = lambda *a: jax_seeds.append(inner(*a)) or jax_seeds[-1]
+    for d, c in frames:
+        for pipe in (want, got):
+            if pipe is want and pipe.prev_maps is not None:
+                jax_target = want._target_features()
+            pipe.process_frame(d, c)
+    key, subs = jax.random.PRNGKey(3), []
+    for _ in range(4):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    draws = iter(subs)
+
+    def jax_draw(n_corr, hypotheses, n, generator):
+        r = jax.random.randint(next(draws), (hypotheses, n), 0, max(int(n_corr), 1))
+        return torch.from_numpy(np.array(r)).to(torch.int64)
+
+    def jax_match(fs, ft, ms, mt, mutual=True):
+        corr = jransac.match_features(fs.numpy(), ft.numpy(), ms.numpy(), mt.numpy(), mutual)
+        return torch.from_numpy(np.array(corr)).to(torch.int64)
+
+    carry = lambda feats: tuple(torch.from_numpy(np.array(a)) for a in feats)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ransac, "draw_samples", jax_draw)
+        mp.setattr(ransac, "match_features", jax_match)
+        seed = got._ransac_seed(carry(want._feat_cache), carry(jax_target))
+    return dict(want=want, got=got, jax_seeds=jax_seeds, port_seed_on_jax=seed)
+
+
+def test_cloud_accumulator_feature_cache_is_exact(coarse_pair):
+    """Mirror: the cached source tuple of the last keyframe equals, byte for
+    byte, the target features recomputed from ``prev_maps``."""
+    got = coarse_pair["got"]
+    assert got._feat_cache is not None
+    for a, b in zip(got._feat_cache, got._target_features()):
+        assert torch.equal(a, b)
+
+
+def test_coarse_features_match_jax(coarse_pair):
+    """The coarse stage's source features at the second keyframe: the same
+    downsampled points and mask, row for row (no cell collides in the hash
+    here), normals and FPFH within 1e-5."""
+    want, got = coarse_pair["want"]._feat_cache, coarse_pair["got"]._feat_cache
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].sum() > 500
+    for a, b in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=FEATURE_TOL)
+
+
+def test_coarse_seed_with_jax_samples_matches_jax(coarse_pair):
+    """From JAX's feature tuples, matches and RANSAC ranks, the seed of the
+    4 restarts ranked by overlap is within 1e-4 of JAX's."""
+    (want,), got = coarse_pair["jax_seeds"], coarse_pair["port_seed_on_jax"]
+    assert want is not None and got is not None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=POSE_TOL)
+
+
+def test_cloud_accumulator_coarse_recovers_large_motion(cam, tmp_path):
+    """Mirror of test_pipelines.py's (slow there): un-seeded projective ICP
+    fails on a large orbit step; the coarse-seeded ladder, drawing from the
+    port's own generator, recovers it within 6 cm / 0.10 rad, and the seed
+    wins."""
+    poses = orbit_trajectory(2, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    frames = [cam.capture(T) for T in poses]
+    T_true = np.linalg.inv(poses[0]) @ poses[1]
+
+    def run(coarse):
+        pipe = CloudAccumulator(INTR, CFG, device="cpu", coarse=coarse, output_dir=str(tmp_path))
+        for d, c in frames:
+            pipe.process_frame(d, c)
+        return pipe
+
+    p_icp, p_coarse = run(False), run(True)
+    et, er = _pose_err(p_coarse.T_world_cam, T_true)
+    assert et < 0.06 and er < 0.10, (et, er)
+    assert p_coarse.telemetry.counters.get("coarse_won", 0) == 1
+    e_icp = np.linalg.norm(_pose_err(p_icp.T_world_cam, T_true))
+    assert e_icp > 3 * np.linalg.norm((et, er))
+
+
+def test_coarse_recovery_does_not_depend_on_the_draw(cam, tmp_path):
+    """The large-motion pair from a generator seed whose first draw fails
+    (the reference's one-round stage then rejects the keyframe): the coarse
+    stage draws again while the result would be rejected, and recovers
+    within 6 cm / 0.10 rad."""
+    poses = orbit_trajectory(2, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    pipe = CloudAccumulator(INTR, CFG, device="cpu", output_dir=str(tmp_path))
+    pipe.generator.manual_seed(1)
+    for T in poses:
+        pipe.process_frame(*cam.capture(T))
+    et, er = _pose_err(pipe.T_world_cam, np.linalg.inv(poses[0]) @ poses[1])
+    assert et < 0.06 and er < 0.10, (et, er)
+    ev = pipe.telemetry.counters
+    assert ev.get("coarse_retry", 0) >= 1 and ev.get("coarse_won") == 1 and "reg_fail" not in ev
+
+
+def _patch(shape=(1.2, 0.6), spacing=0.005):
+    """A planar patch at 1 m, on a 5 mm grid, gray."""
+    g = [np.arange(0.0, s, spacing) for s in shape]
+    xy = np.stack(np.meshgrid(*g, indexing="ij"), -1).reshape(-1, 2) - np.float32(shape) / 2
+    pts = np.concatenate([xy, np.ones((len(xy), 1))], 1).astype(np.float32)
+    return pts, np.full_like(pts, 0.5)
+
+
+def _redownsampled(cls, intr, cfg, capacity, pts, cols, **kw):
+    pipe = cls(intr, cfg, model_capacity=capacity, output_dir="unused", **kw)
+    pipe.model_points, pipe.model_colors = pts.copy(), cols.copy()
+    pipe._redownsample()
+    return pipe
+
+
+def test_redownsample_keeps_every_cell_where_jax_drops_them():
+    """A model over its capacity: 7,200 occupied 1 cm cells into 2,000.
+    JAX's downsample fills the capacity and drops the rest of the cells,
+    leaving holes over 4 cm wide; the port coarsens the voxel (1 -> 1.5 ->
+    2.25 cm, two steps counted) until every occupied cell fits, so every
+    input point keeps a model point within its cell's reach."""
+    pts, cols = _patch()
+    want = _redownsampled(JAccumulator, JINTR, jcfg.PipelineConfig(), 2000, pts, cols)
+    got = _redownsampled(CloudAccumulator, INTR, interop.pipeline_config_from(
+        jcfg.PipelineConfig()), 2000, pts, cols, device="cpu")
+    hole = lambda m: float(cKDTree(m).query(pts)[0].max())
+    assert len(want.model_points) == 2000 and hole(want.model_points) > 0.04
+    assert got.telemetry.counters == {"model_coarsened": 2}
+    assert 0 < len(got.model_points) <= 2000
+    # the half diagonal of a 2.25 cm cell in the plane
+    assert hole(got.model_points) <= 0.0225 * np.sqrt(2) / 2 + 1e-6
+    np.testing.assert_allclose(got.model_colors, 0.5, rtol=0, atol=1e-6)
+
+
+def test_redownsample_matches_jax_below_capacity():
+    """Where the reference does not saturate, the same model as JAX's (the
+    same cell centroids and colors, as sets) and no coarsening."""
+    pts, cols = _patch()
+    cols = cols * np.float32([0.4, 0.8, 1.2])
+    want = _redownsampled(JAccumulator, JINTR, jcfg.PipelineConfig(), 10000, pts, cols)
+    got = _redownsampled(CloudAccumulator, INTR, interop.pipeline_config_from(
+        jcfg.PipelineConfig()), 10000, pts, cols, device="cpu")
+    assert got.telemetry.counters == {}
+    order = lambda p: np.lexsort(p.T[::-1])
+    ow, og = order(want.model_points), order(got.model_points)
+    np.testing.assert_array_equal(got.model_points[og], want.model_points[ow])
+    np.testing.assert_array_equal(got.model_colors[og], want.model_colors[ow])
+
+
+def _fake_poisson(cloud, *a, **k):
+    """A Poisson stand-in: a triangle fan over the first 300 cloud points,
+    without colors."""
+    n = min(300, len(cloud))
+    tris = np.stack([np.zeros(n - 2), np.arange(1, n - 1), np.arange(2, n)], 1).astype(np.int32)
+    return TriangleMeshHost(vertices=np.asarray(cloud.points[:n], np.float32) + 0.001,
+                            triangles=tris)
+
+
+def _jfake_poisson(cloud, *a, **k):
+    m = _fake_poisson(cloud)
+    return jtypes.TriangleMeshHost(vertices=m.vertices, triangles=m.triangles)
+
+
+def test_cloud_accumulator_poisson_save_paints_as_jax(cam, tmp_path, monkeypatch):
+    """``save_model(poisson=True)`` with Poisson patched in (Open3D is not
+    installed): the mesh is painted from the model cloud, with the colors
+    JAX's save gives it; without the patch no mesh is written, as in JAX."""
+    monkeypatch.setattr(cloud_accumulator, "poisson_mesh_from_cloud", _fake_poisson)
+    monkeypatch.setattr(jpoisson, "poisson_mesh_from_cloud", _jfake_poisson)
+    want = JAccumulator(JINTR, JCFG, output_dir=str(tmp_path / "jax"))
+    got = CloudAccumulator(INTR, CFG, device="cpu", output_dir=str(tmp_path / "port"))
+    for T in orbit_trajectory(2, radius=0.2, angle_span=0.3):
+        for pipe in (want, got):
+            pipe.process_frame(*cam.capture(T))
+    pw, pg = want.save_model(poisson=True), got.save_model(poisson=True)
+    assert sorted(pw) == sorted(pg) == ["mesh", "pointcloud"]
+    vw, cw, fw = read_geometry(pw["mesh"])
+    vg, cg, fg = read_geometry(pg["mesh"])
+    np.testing.assert_array_equal(fg, fw)
+    np.testing.assert_allclose(vg, vw, rtol=0, atol=POINT_TOL)
+    np.testing.assert_array_equal(cg, cw)
+    monkeypatch.undo()
+    assert "mesh" not in got.save_model(poisson=True)
+
+
+# -- the fragment pipeline ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fragments(cam):
+    """test_fragment_pipeline's 3 captured frames, fragments made in both
+    packages (``FRAG_SAMPLES`` mesh samples each)."""
+    poses = orbit_trajectory(3, radius=0.15, angle_span=0.25)
+    want = JFragments(JINTR, JCFG, backend="xla", sample_points=FRAG_SAMPLES)
+    got = FragmentPipeline(INTR, CFG, device="cpu", sample_points=FRAG_SAMPLES)
+    for T in poses:
+        d, c = cam.capture(T)
+        want.capture(d, c)
+        got.capture(d, c)
+    want.make_fragments()
+    got.make_fragments()
+    return dict(poses=poses, want=want, got=got, want_poses=want.register_fragments())
+
+
+def test_fragment_clouds_match_jax(fragments):
+    """Each fragment's downsampled cloud and mask equal JAX's, row for row;
+    normals within 1e-5."""
+    for fw, fg in zip(fragments["want"].fragments, fragments["got"].fragments):
+        np.testing.assert_array_equal(fg.points.numpy(), np.asarray(fw.points))
+        np.testing.assert_array_equal(fg.mask.numpy(), np.asarray(fw.mask))
+        np.testing.assert_allclose(fg.normals.numpy(), np.asarray(fw.normals), rtol=0,
+                                   atol=FEATURE_TOL)
+
+
+def _soup(mesh):
+    """A mesh as its sorted triangle soup: (T, 9) rows of vertex coords."""
+    tri = np.asarray(mesh.vertices)[np.asarray(mesh.triangles)].reshape(-1, 9)
+    return tri[np.lexsort(tri.T[::-1])]
+
+
+def test_fragment_meshes_match_jax(fragments):
+    """Each fragment's single-frame mesh (the volume at the larger of the
+    TSDF voxel and half the downsample voxel, B1's plain version), as a
+    sorted soup, equals the one JAX's ``_mesh_fragment`` builds."""
+    want, got = fragments["want"], fragments["got"]
+    fcfg = dataclasses.replace(JCFG.tsdf, voxel_size=max(JCFG.tsdf.voxel_size,
+                                                         want.downsample / 2),
+                               sdf_trunc=max(JCFG.tsdf.sdf_trunc, want.downsample))
+    for fw, fg in zip(want.fragments, got.fragments):
+        vol = jtsdf.integrate_frame(jtsdf.create(fcfg), fw.frame.depth, fw.frame.color,
+                                    want.rays, np.eye(4, dtype=np.float32), JINTR, fcfg,
+                                    backend="xla")
+        mw = jmc.weld_vertices(jmc.extract_mesh(vol, fcfg).compact())
+        mg = got._fragment_mesh(fg.frame)
+        assert mw.triangles.shape[0] > 500 and mg.vertex_normals is not None
+        np.testing.assert_array_equal(_soup(mg), _soup(mw))
+
+
+def test_register_fragments_on_jax_samples_matches_jax(fragments):
+    """With JAX's mesh samples and their normals carried across (sampling
+    picks triangles by index, so independently built meshes could sample
+    differently), point-to-point then point-to-plane ICP give poses within
+    1e-4 of JAX's."""
+    want, got = fragments["want"], fragments["got"]
+    for fw, fg in zip(want.fragments, got.fragments):
+        fg.samples = torch.from_numpy(np.array(fw.samples))
+        fg.sample_normals = torch.from_numpy(np.array(fw.sample_normals))
+    for Tg, Tw in zip(got.register_fragments(), fragments["want_poses"]):
+        np.testing.assert_allclose(Tg, Tw, rtol=0, atol=POSE_TOL)
+
+
+def test_integrate_scene_matches_jax(fragments):
+    """At JAX's fragment poses, the scene volume equals JAX's by block key,
+    to the bit, and so does its mesh as a sorted soup."""
+    want, got = fragments["want"], fragments["got"]
+    for fg, T in zip(got.fragments, fragments["want_poses"]):
+        fg.pose = T
+    mw, mg = want.integrate_scene(), got.integrate_scene()
+    vw = {k: np.asarray(v) for k, v in want.volume._asdict().items()}
+    vg = interop.volume_to_numpy(got.volume)
+
+    def keyed(f):
+        n = int(f["n_blocks"])
+        return {tuple(k): s for s, k in enumerate(f["block_coords"][:n].tolist())}
+
+    kw, kg = keyed(vw), keyed(vg)
+    assert kw.keys() == kg.keys() and len(kw) > 100
+    keys = sorted(kw)
+    for f in ("tsdf", "weight", "color"):
+        np.testing.assert_array_equal(np.stack([vg[f][kg[k]] for k in keys]),
+                                      np.stack([vw[f][kw[k]] for k in keys]))
+    np.testing.assert_array_equal(_soup(mg), _soup(mw))
+
+
+def test_fragment_pipeline_end_to_end(fragments):
+    """Mirror of test_pipelines.py's (slow there): ``run()`` on the port's
+    own samples, every fragment pose within JAX's 3 cm of the true relative
+    motion, and a mesh."""
+    got, poses = fragments["got"], fragments["poses"]
+    mesh = got.run()
+    assert mesh.triangles.shape[0] > 200 and mesh.vertex_normals is not None
+    for frag, T in zip(got.fragments, poses):
+        et, _ = _pose_err(frag.pose, np.linalg.inv(poses[0]) @ T)
+        assert et < 0.03
+
+
+# -- the two-camera save's Poisson option ------------------------------------------------
+
+
+def test_dual_save_current_state_poisson(cam, tmp_path, monkeypatch):
+    """``save_current_state(poisson=True)``: without Open3D no "poisson"
+    entry (as in JAX); with Poisson patched in, its mesh of the merged cloud
+    is written as OBJ and reads back."""
+    pipe = DualCameraFusion((INTR, INTR), CFG, device="cpu", output_dir=str(tmp_path))
+    pipe.calibrated = True
+    rig = np.eye(4)
+    rig[:3, 3] = [-0.1, 0.0, 0.0]
+    pipe.extrinsics = [np.eye(4), rig]
+    pipe.process_frames((cam.capture(np.eye(4)), cam.capture(rig)))
+    assert sorted(pipe.save_current_state(poisson=True)) == ["mesh", "pointcloud"]
+    monkeypatch.setattr(dual_fusion, "poisson_mesh_from_cloud", _fake_poisson)
+    paths = pipe.save_current_state(poisson=True)
+    assert sorted(paths) == ["mesh", "pointcloud", "poisson"]
+    v, _, f = read_obj(paths["poisson"])
+    assert len(f) == 298 and np.isfinite(v).all()
+
+
+# -- every entry point ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("entry", [FragmentPipeline, CloudAccumulator, MonoOdometryTSDF,
+                                   DualCameraFusion, Recorder, OfflineBundle, Relocalizer])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Called without ``device``, each entry point asks for the card, and
+    raises ``RuntimeError`` where there is none; nothing falls back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    intr = (INTR, INTR) if entry is DualCameraFusion else INTR
+    with pytest.raises(RuntimeError):
+        entry(intr, CFG)
+
+
+def test_slice_modules_import_without_jax():
+    """With jax made unimportable, the slice's modules import and pull in no
+    jax."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mods = ["core.types", "ops.backproject", "interop", "meshing.sampling", "meshing.ball_pivot",
+            "meshing.sdf_mesh", "meshing.poisson", "pipelines.fragments",
+            "pipelines.cloud_accumulator", "pipelines.dual_fusion"]
+    code = ("import sys, importlib\nsys.modules['jax'] = None\n"
+            + "".join(f"importlib.import_module('azurekinect3dreconstruction_tpu_torch.{m}')\n"
+                      for m in mods)
+            + "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k]]\n"
+            + "assert 'azurekinect3dreconstruction_tpu' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -855,3 +855,117 @@ def test_relocalize_loop_syncs_only_at_check_frames(dev, frames):
     assert checks == 2
     assert build.launches[tk.KERNEL] - b1 == build.launches[odo.KERNEL] - b2 == len(raw) - 1
     assert not pipe.lost and pipe.counts == {} and pipe.odometry_failures == 0
+
+
+# -- the cloud meshers and the point-cloud pipelines ---------------------------------
+
+# the splat's sums on the card are float32 atomics in no fixed order: weights
+# within 1e-5 relative, tsdf and color within 1e-5
+SPLAT_TOL = 1e-5
+
+
+def _sphere(n=20000, r=0.15):
+    rng = np.random.RandomState(0)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return ((d * r + [0.0, 0.0, 0.5]).astype(np.float32), d.astype(np.float32),
+            (d * 0.5 + 0.5).astype(np.float32))
+
+
+def test_splat_on_cuda_matches_cpu(dev):
+    """The SDF splat of one oriented, colored cloud on the card and on the
+    CPU: the same block keys and overflow flag, weights within 1e-5
+    relative, tsdf and color within 1e-5."""
+    from azurekinect3dreconstruction_tpu_torch.meshing.sdf_mesh import splat_cloud
+
+    pts, nrm, cols = _sphere()
+    cfg = TSDFConfig(voxel_size=0.01, sdf_trunc=0.015, block_resolution=8, block_capacity=8192,
+                     hash_capacity=32768)
+    vols = []
+    for d in (dev, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(d)
+        vols.append(splat_cloud(t(pts), t(nrm), t(cols), torch.ones(len(pts), dtype=torch.bool,
+                                                                   device=d), cfg,
+                                torch.tensor(0.01, device=d), torch.tensor(0.015, device=d)))
+    vg, vc = vols
+    assert not bool(vg.overflow) and not bool(vc.overflow)
+
+    def keyed(v):
+        n = int(v.n_blocks)
+        return {tuple(k): s for s, k in enumerate(v.block_coords[:n].cpu().tolist())}
+
+    kg, kc = keyed(vg), keyed(vc)
+    assert kg.keys() == kc.keys() and len(kg) > 50
+    keys = sorted(kg)
+    rows = lambda v, k, f: getattr(v, f)[[k[x] for x in keys]].cpu()
+    wg, wc = rows(vg, kg, "weight"), rows(vc, kc, "weight")
+    assert ((wg - wc).abs() <= SPLAT_TOL * wc).all()
+    for f in ("tsdf", "color"):
+        assert float((rows(vg, kg, f) - rows(vc, kc, f)).abs().max()) <= SPLAT_TOL
+
+
+def test_fragment_pipeline_on_cuda_launches_b1_twice_a_frame(dev, frames):
+    """``FragmentPipeline(device="cuda")`` over 3 captured frames: B1 twice
+    a frame (the fragment meshes, then the scene), B2 never; the scene
+    volume equals a CPU copy integrated at the card's poses, by block key
+    to B1's tolerances."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.fragments import FragmentPipeline
+
+    poses, _ = frames
+    raw = _raw_frames(poses[:3])
+    pipe = FragmentPipeline(INTR, REC_CFG, device=dev, sample_points=4000)
+    host = FragmentPipeline(INTR, REC_CFG, device="cpu", mesh_fragments=False)
+    for p in (pipe, host):
+        for d, c in raw:
+            p.capture(d, c)
+    b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+    mesh = pipe.run()
+    assert build.launches[tk.KERNEL] - b1 == 2 * len(raw)
+    assert build.launches[odo.KERNEL] == b2
+    assert mesh.triangles.shape[0] > 200
+    host.make_fragments()
+    for fh, fg in zip(host.fragments, pipe.fragments):
+        fh.pose = fg.pose
+    host.integrate_scene()
+    assert not bool(pipe.volume.overflow) and not bool(host.volume.overflow)
+    _assert_close_by_key(pipe.volume, host.volume)
+
+
+def test_cloud_accumulator_keyframes_on_cuda_match_cpu(dev, frames, tmp_path):
+    """Three ``CloudAccumulator`` keyframes on the card and on the CPU: each
+    pose within 1e-4, the model's points within 1e-5 in the same order; no
+    kernel launched."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.cloud_accumulator import (
+        CloudAccumulator,
+    )
+
+    poses, _ = frames
+    raw = _raw_frames(poses[:3])
+    pg = CloudAccumulator(INTR, REC_CFG, device=dev, coarse=False, output_dir=str(tmp_path))
+    pc = CloudAccumulator(INTR, REC_CFG, device="cpu", coarse=False, output_dir=str(tmp_path))
+    b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+    for d, c in raw:
+        pg.process_frame(d, c)
+        pc.process_frame(d, c)
+        np.testing.assert_allclose(pg.T_world_cam, pc.T_world_cam, atol=1e-4, rtol=0)
+    assert build.launches[tk.KERNEL] == b1 and build.launches[odo.KERNEL] == b2
+    assert pg.telemetry.counters == pc.telemetry.counters == {}
+    np.testing.assert_allclose(pg.model_points, pc.model_points, atol=1e-5, rtol=0)
+
+
+def test_pca_normals_on_cuda_take_large_batches(dev):
+    """``pca_normal`` over 200,000 neighborhoods (a model cloud's
+    ``estimate_normals_knn``): cuSOLVER's batched 3x3 ``eigh`` refuses such
+    a batch whole, so it runs in batches; the normals agree with the CPU's
+    up to sign (|cos| >= 1 - 1e-5) on near-planar neighborhoods."""
+    from azurekinect3dreconstruction_tpu_torch.ops.normals import pca_normal
+
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(-1.0, 1.0, (200_000, 12, 2))
+    z = 0.3 * xy[..., 0] - 0.2 * xy[..., 1] + rng.normal(0.0, 1e-3, xy.shape[:2])
+    nb = torch.from_numpy(np.concatenate([xy, z[..., None]], -1).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=xy.shape[:2]) > 0.1)
+    ng = pca_normal(nb.to(dev), mask.to(dev)).cpu()
+    nc = pca_normal(nb, mask)
+    assert ng.shape == nc.shape == (200_000, 3)
+    assert float((ng * nc).sum(dim=1).abs().min()) >= 1 - 1e-5
