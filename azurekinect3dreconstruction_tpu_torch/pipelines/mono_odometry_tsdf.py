@@ -9,7 +9,9 @@ odometry pose before the frame is fused (:func:`make_raw_f2m_step`), which
 bounds frame-to-frame drift; the sample is refreshed every few frames. With
 ``relocalize`` the step carries a device-side fusion latch
 (:func:`apply_lost_latch`), and a lost pose is recovered against the fused
-model (:class:`tracking.relocalize.Relocalizer`).
+model (:class:`tracking.relocalize.Relocalizer`). With ``streaming`` the
+volume is the pool of a :class:`tsdf.streaming.StreamingTSDF`, which moves
+far blocks to host memory and back, so a scan of any extent fits the pool.
 
 The pose, the gates and the trajectory stay on the device; the host only
 enqueues work. The host views (``T_world_cam``, ``trajectory``,
@@ -43,19 +45,13 @@ from azurekinect3dreconstruction_tpu_torch.tracking.icp import GraphedICP, Targe
 from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF, integration_reach
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
 
 __all__ = ["MonoOdometryTSDF", "apply_lost_latch", "apply_odometry_gate", "decode_raw_frame",
            "integration_reach", "make_raw_batch_fn", "make_raw_f2m_step", "make_raw_slam_step"]
 
 TRACKING_MODES = ("frame_to_frame", "frame_to_model")
-
-
-def integration_reach(cfg: PipelineConfig) -> float:
-    """Farthest block center a frame can touch: max depth times the
-    diagonal-FOV secant (~1.45 for the Kinect NFOV corner rays), plus the
-    truncation band, plus one block diagonal."""
-    return 1.45 * cfg.camera.depth_trunc + cfg.tsdf.sdf_trunc + 1.8 * cfg.tsdf.block_size
 
 
 class MonoOdometryTSDF:
@@ -82,7 +78,16 @@ class MonoOdometryTSDF:
     frame against the fused model, with the stale pose as its hint, until it
     recovers. ``reloc_warmup`` runs :meth:`Relocalizer.warmup` at
     construction. ``counts`` gains ``tracking_lost``, ``relocalized``,
-    ``reloc_failed`` and ``fusion_paused_frames``."""
+    ``reloc_failed`` and ``fusion_paused_frames``.
+
+    ``streaming``: a :class:`tsdf.streaming.StreamingTSDF` with the
+    pipeline's ``TSDFConfig`` on its device (``ValueError`` otherwise). The
+    pipeline adopts its pool as its one volume and hands the volume to its
+    policy after every frame (:meth:`StreamingTSDF.maybe_tick`, which waits
+    on the device only at the interval frame), adopting the pool a tick
+    replaced; lost frames keep ticking at the stale pose, so geometry near
+    the loss can stream back for the relocalizer. ``extract_mesh`` and
+    ``extract_point_cloud`` then assemble live and streamed geometry."""
 
     MIN_FITNESS = 0.3  # odometry acceptance gate
     REFRESH_MARGIN = 0.25  # metres the camera may move before the next refresh
@@ -91,6 +96,7 @@ class MonoOdometryTSDF:
                  device="cuda", tracking: str = "frame_to_frame", model_refine_interval: int = 5,
                  model_points: int = 32768, model_sample_blocks: int = 256,
                  model_min_inliers: int = 3000, worklist_size: int = 2048,
+                 streaming: Optional[StreamingTSDF] = None,
                  relocalize: bool = False, reloc_window: int = 3, reloc_interval: int = 8,
                  reloc_min_inliers: int = 2000, reloc_warmup: bool = False):
         if tracking not in TRACKING_MODES:
@@ -101,6 +107,13 @@ class MonoOdometryTSDF:
         self.device = resolve_device(device)
         self.intr = intrinsics
         self.cfg = config or PipelineConfig()
+        if streaming is not None:
+            if streaming.cfg != self.cfg.tsdf:
+                raise ValueError("the streaming manager must share the pipeline's TSDFConfig")
+            if streaming.vol.tsdf.device.type != self.device.type:
+                raise ValueError(f"the streaming pool is on {streaming.vol.tsdf.device}, "
+                                 f"the pipeline on {self.device}")
+        self.streaming = streaming
         self.tracking = tracking
         self.model_refine_interval = model_refine_interval
         self.model_points = model_points
@@ -123,14 +136,21 @@ class MonoOdometryTSDF:
         m = 3 * max(model_points // 3, 1)  # the sampled model's size
         self._no_model = (torch.zeros((m, 3), dtype=torch.float32, device=self.device),
                           torch.zeros((m,), dtype=torch.bool, device=self.device))
-        self.reset()
+        self._reset_state()
         if relocalize and reloc_warmup:
             self._get_relocalizer().warmup()
 
     def reset(self) -> None:
-        """Drop the volume, the trajectory, the previous frame, the model and
-        the tracking-loss state."""
-        self.volume = tsdf.create(self.cfg.tsdf, self.device)
+        """Drop the volume (with ``streaming``, the manager's pool, store and
+        caches), the trajectory, the previous frame, the model and the
+        tracking-loss state."""
+        if self.streaming is not None:
+            self.streaming.reset_state()
+        self._reset_state()
+
+    def _reset_state(self) -> None:
+        self.volume = (tsdf.create(self.cfg.tsdf, self.device) if self.streaming is None
+                       else self.streaming.vol)
         self._T = torch.eye(4, dtype=torch.float32, device=self.device)
         self._traj = [self._T]
         self._fits = []  # device fitness scalars, one per tracked frame
@@ -249,9 +269,21 @@ class MonoOdometryTSDF:
         self.frame_index += 1
         if self.relocalize and self.frame_index % self.reloc_interval == 0:
             self._check_tracking()
+        if not self.lost:
+            self._stream()
         if self.tracking == "frame_to_model":
             self._maybe_refresh_model()
         return self._T
+
+    def _stream(self) -> None:
+        """Hand the volume to the streaming policy (one frame of its
+        interval) and adopt the pool a tick may have replaced: the kernels
+        write the pools in place, so the pipeline must never keep a pool the
+        manager dropped."""
+        if self.streaming is not None:
+            self.streaming.vol = self.volume
+            if self.streaming.maybe_tick(lambda: self._T):
+                self.volume = self.streaming.vol
 
     def _model_reach(self) -> float:
         """Radius of the view-local model sample: the integration reach plus
@@ -346,6 +378,11 @@ class MonoOdometryTSDF:
         tracking and clears every latch. A lost frame records fitness -1, the
         recovered one +1."""
         cam = self.cfg.camera
+        # keep streaming at the stale pose, the loss site: the relocalizer's
+        # model is built from resident blocks only, so geometry evicted near
+        # the loss must be able to stream back (fusion is paused, so at most
+        # one eviction runs while lost)
+        self._stream()
         recovered = False
         if self._lost_frames % self.reloc_interval == 0:
             frame = RGBDFrame.from_raw(upload(depth_raw, self.device),
@@ -378,12 +415,30 @@ class MonoOdometryTSDF:
 
     def extract_mesh(self, **kw):
         """Scene mesh (:func:`tsdf.marching_cubes.extract_mesh`; budgets and
-        ``auto_grow`` pass through)."""
-        return mc.extract_mesh(self.volume, self.cfg.tsdf, **kw)
+        ``auto_grow`` pass through). With ``streaming`` the manager
+        assembles live and frozen geometry into a host soup and takes only
+        ``max_cells`` / ``max_tris`` (floors that only grow; ``ValueError``
+        for anything else: a truncated extraction would break the frozen
+        soups' exactness)."""
+        if self.streaming is None:
+            return mc.extract_mesh(self.volume, self.cfg.tsdf, **kw)
+        extra = set(kw) - {"max_cells", "max_tris"}
+        if extra:
+            raise ValueError(f"unsupported with streaming: {sorted(extra)} (budgets only grow; "
+                             "a truncated extraction would break the frozen soups)")
+        self.streaming.vol = self.volume
+        mesh = self.streaming.extract_mesh(max_cells=kw.get("max_cells"),
+                                           max_tris=kw.get("max_tris"))
+        self.volume = self.streaming.vol  # the refresh may have reloaded
+        return mesh
 
     def extract_point_cloud(self, **kw):
-        """Surface point samples of the whole volume (host numpy)."""
-        return tsdf.extract_point_cloud(self.volume, self.cfg.tsdf, **kw)
+        """Surface point samples of the whole volume (host numpy); with
+        ``streaming`` the stored blocks' points are included."""
+        if self.streaming is None:
+            return tsdf.extract_point_cloud(self.volume, self.cfg.tsdf, **kw)
+        self.streaming.vol = self.volume
+        return self.streaming.extract_point_cloud(**kw)
 
 
 def apply_odometry_gate(T_prev, res, min_fitness: float):

@@ -68,6 +68,8 @@ from azurekinect3dreconstruction_tpu_torch.utils.telemetry import (
 )
 from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 
+_FALLBACK_ROUNDS = 8  # seed rounds the fallback ladder draws at most, while rejected
+
 
 class Recorder:
     """Feed raw (depth_u16, color_u8) frames; ``toggle_recording`` starts
@@ -82,8 +84,8 @@ class Recorder:
     ``generator``, a ``torch.Generator`` on the device seeded with 0.
     ``telemetry`` counts the ladder's events (``colored_icp_ok``,
     ``colored_icp_reject``, ``fallback_icp_ok``, ``fallback_reject``,
-    ``global_reject``, ``fallback_rebase``) and times the host side of each
-    step (``keyframe``, ``integrate``, ``fallback``)."""
+    ``global_reject``, ``fallback_retry``, ``fallback_rebase``) and times
+    the host side of each step (``keyframe``, ``integrate``, ``fallback``)."""
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
                  device="cuda", output_dir: str = "results", worklist_size: Optional[int] = None,
@@ -228,7 +230,12 @@ class Recorder:
         """The expensive rungs on the saved raw frames of a rejected
         keyframe: global FPFH + RANSAC registration, then point-to-plane ICP.
         Returns T (this camera -> previous keyframe camera, host float64) or
-        None."""
+        None. One round (4 RANSAC restarts, the best refined) is the
+        reference's whole ladder; its seed lands in ICP's basin only on some
+        draws (and on the card every run is a new draw: the downsample's and
+        FPFH's scatter-adds are atomics), so while the refinement is
+        rejected, another round draws fresh seeds, at most
+        ``_FALLBACK_ROUNDS`` in all."""
         cam = self.cfg.camera
         reg = self.cfg.registration
         # the recovery stage gets the full hypothesis pool
@@ -248,30 +255,32 @@ class Recorder:
         n_t = estimate_normals_knn(dt, dtm, radius=2 * vox, k=12, orient_to=np.zeros(3))
         f_s = compute_fpfh(ds, n_s, dm, radius=4 * vox, k=16)
         f_t = compute_fpfh(dt, n_t, dtm, radius=4 * vox, k=16)
-        # restarts ranked by cloud overlap: RANSAC's own inlier share is gamed
-        # by smooth or ambiguous geometry
-        best_T, best_fit = None, -1.0
-        for _ in range(4):
-            g = global_registration(ds, f_s, dm, dt, f_t, dtm, reg_full, distance_threshold=0.04,
-                                    generator=self.generator)
-            if not se3.is_valid_transform(g.T.cpu().numpy()):
-                continue
-            fit, _ = evaluate_registration(ds, dm, dt, dtm, g.T, dist_thr=0.05)
-            if float(fit) > best_fit:
-                best_fit, best_T = float(fit), g.T
-        # RANSAC only seeds: the refinement below pulls a seed several cm
-        # off into the basin, and its gate is the one that decides
-        if best_T is None:
-            self.telemetry.count("global_reject")
-            return None
         wide = dataclasses.replace(reg, icp_distance_threshold=3 * reg.icp_distance_threshold)
-        r1 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=best_T, cfg=wide)
-        res = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=r1.T, cfg=reg)
-        T = res.T.cpu().numpy().astype(np.float64)
-        if float(res.fitness) >= reg.min_fitness_icp and se3.is_valid_transform(T):
-            self.telemetry.count("fallback_icp_ok")
-            return T
-        self.telemetry.count("fallback_reject")
+        for k in range(_FALLBACK_ROUNDS):
+            if k:
+                self.telemetry.count("fallback_retry")
+            # restarts ranked by cloud overlap: RANSAC's own inlier share is
+            # gamed by smooth or ambiguous geometry
+            best_T, best_fit = None, -1.0
+            for _ in range(4):
+                g = global_registration(ds, f_s, dm, dt, f_t, dtm, reg_full,
+                                        distance_threshold=0.04, generator=self.generator)
+                if not se3.is_valid_transform(g.T.cpu().numpy()):
+                    continue
+                fit, _ = evaluate_registration(ds, dm, dt, dtm, g.T, dist_thr=0.05)
+                if float(fit) > best_fit:
+                    best_fit, best_T = float(fit), g.T
+            if best_T is None:
+                continue
+            # RANSAC only seeds: the refinement pulls a seed several cm off
+            # into the basin, and its gate is the one that decides
+            r1 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=best_T, cfg=wide)
+            res = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=r1.T, cfg=reg)
+            T = res.T.cpu().numpy().astype(np.float64)
+            if float(res.fitness) >= reg.min_fitness_icp and se3.is_valid_transform(T):
+                self.telemetry.count("fallback_icp_ok")
+                return T
+        self.telemetry.count("global_reject" if best_T is None else "fallback_reject")
         return None
 
     # -- persistence ----------------------------------------------------------

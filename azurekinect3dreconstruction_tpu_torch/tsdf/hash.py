@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 EMPTY_KEY = -1
@@ -47,6 +48,23 @@ def unpack_key(keys):
     return torch.stack([(k & _COORD_MASK) - _COORD_OFFSET,
                         ((k >> _COORD_BITS) & _COORD_MASK) - _COORD_OFFSET,
                         ((k >> (2 * _COORD_BITS)) & _COORD_MASK) - _COORD_OFFSET], dim=-1)
+
+
+def pack_key_np(coords) -> np.ndarray:
+    """Host twin of :func:`pack_key`: (..., 3) integer coords -> int32 keys,
+    the same 10-bit packing, for bookkeeping on the host."""
+    c = np.asarray(coords).astype(np.int64) + _COORD_OFFSET
+    return (c[..., 0] | (c[..., 1] << _COORD_BITS)
+            | (c[..., 2] << (2 * _COORD_BITS))).astype(np.int32)
+
+
+def unpack_key_np(keys) -> np.ndarray:
+    """Host twin of :func:`unpack_key`: int32 keys -> (..., 3) int32 coords."""
+    k = np.asarray(keys).astype(np.int64)
+    return np.stack([(k & _COORD_MASK) - _COORD_OFFSET,
+                     ((k >> _COORD_BITS) & _COORD_MASK) - _COORD_OFFSET,
+                     ((k >> (2 * _COORD_BITS)) & _COORD_MASK) - _COORD_OFFSET],
+                    axis=-1).astype(np.int32)
 
 
 def _mul_u32(h, c: int):
@@ -160,3 +178,27 @@ def insert(table: HashTable, counter, new_keys, capacity_limit: int, max_probes:
         pending = pending & ~resolved
     overflowed = dropped | torch.any(pending)
     return HashTable(keys_arr, vals_arr), counter, out_vals, overflowed
+
+
+def build_table(keys, slot_vals, capacity: int, max_probes: int = 16
+                ) -> Tuple[HashTable, torch.Tensor]:
+    """A fresh table mapping unique ``keys[i] -> slot_vals[i]``: explicit
+    values instead of the counter's allocation, for a pool whose layout
+    already exists (a compacted pool). The same scatter-claim rounds as
+    :func:`insert`; lanes with ``keys == EMPTY_KEY`` are inert. Returns
+    (table, ok_all), ``ok_all`` a bool 0-d tensor that is false when some
+    key found no slot within ``max_probes`` rounds."""
+    q = keys.to(torch.int32)
+    v = slot_vals.to(torch.int32)
+    # row ``capacity`` is a trash row that absorbs the non-claimants
+    keys_arr = torch.full((capacity + 1,), EMPTY_KEY, dtype=torch.int32, device=q.device)
+    vals_arr = torch.full((capacity + 1,), MISS, dtype=torch.int32, device=q.device)
+    pending = q != EMPTY_KEY
+    for r in range(max_probes):
+        slots = _probe_slot(q, r, capacity)
+        want = pending & (keys_arr[slots] == EMPTY_KEY)
+        keys_arr.scatter_(0, torch.where(want, slots, capacity), q)
+        won = pending & (keys_arr[slots] == q)
+        vals_arr.scatter_(0, torch.where(won, slots, capacity), v)
+        pending = pending & ~won
+    return HashTable(keys_arr[:capacity], vals_arr[:capacity]), ~torch.any(pending)

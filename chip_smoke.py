@@ -88,9 +88,26 @@ worklist, odometry pyramid [20, 10, 5]):
    no Open3D, over 60k points) with its ms; the model's splat against a CPU
    copy by block key (weights within 1e-5 relative, tsdf and color within
    1e-5: float32 atomics on the card); the first 2 keyframes' poses against
-   a CPU accumulator within 1e-4.
+   a CPU accumulator within 1e-4;
+13. drives host streaming at the JAX bench's streaming configuration
+   (``bench.py``'s corridor: a checkered wall at 0.55 m and 33 spheres;
+   5 mm voxels, 16^3 blocks, a 1,024-block pool, ``depth_trunc`` 0.7 m):
+   ``MonoOdometryTSDF(..., streaming=StreamingTSDF.for_pipeline(cfg,
+   check_interval=8, margin=...))`` over 120 frames at 640x576 every
+   0.045 m (margin 0.4) and 240 at quarter resolution every 0.04 m (margin
+   0.3), each warm and then timed with the counters zeroed just before and
+   read just after, and the same frames into a plain 4,096-block pool:
+   no overflow, evictions, B1 exactly once a frame and B2 once a tracked
+   frame, the trajectory and the sorted ``extract_mesh`` soup equal to the
+   plain pass's to the bit, the point cloud's rows equal; frames/s of both,
+   tick ms by stage, the host store's bytes; then
+   ``python -m azurekinect3dreconstruction_tpu_torch.cli.live_mono --source
+   synthetic --frames 24 --streaming`` in a subprocess must save a mesh, a
+   cloud and a trajectory.
 
-Between steps 1 and 2 it runs one 1024x1024 (WFOV unbinned) frame pair
+After step 4 it times ``tsdf.streaming._compact`` over the main path's
+volume (the identity permutation) beside its bound. Between steps 1 and 2
+it runs one 1024x1024 (WFOV unbinned) frame pair
 through ``compute_odometry_fast``: B2 on its global-memory path against
 the plain version on the card, with its device time and bound.
 
@@ -198,6 +215,12 @@ CLOUD_POSE_TOL = 1e-4  # the accumulator on the card against a CPU copy
 # the SDF splat's sums are float32 atomics in no fixed order on the card: weights
 # within 1e-5 relative, tsdf and color within 1e-5 of the CPU's
 SPLAT_TOL = 1e-5
+# host streaming, bench.py's corridor runs: (image scale, frames, metres a frame, margin)
+# into its 1,024-block pool (5 mm voxels, depth_trunc 0.7 m, a tick every 8 frames); the
+# plain comparators take the same frames into a 4,096-block pool
+STREAM_RUNS = ((1.0, 120, 0.045, 0.4), (0.25, 240, 0.04, 0.3))
+STREAM_PLAIN_BLOCKS = 4096
+N_CLI_FRAMES = 24
 
 
 def _log(msg: str) -> None:
@@ -1710,9 +1733,186 @@ def cloud_phase(intr, cfg, cam, raw, gt, dev, gpu: str, cpu_check: bool = True):
     return failures, counts
 
 
+def compact_timing(vol, tcfg, dev, gpu: str) -> list:
+    """``tsdf.streaming._compact`` over ``vol``'s alive prefix (the identity
+    permutation, as an eviction that keeps every block): ms by CUDA events
+    (median of 5) beside its bound, the bytes it must move: the alive rows
+    gathered and written, the free rows' weights zeroed, the rebuilt table
+    and coords written. Returns the failures."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import _compact
+
+    n = int(vol.n_blocks)
+    cap = vol.tsdf.shape[0]
+    perm = np.arange(cap)
+    out = _compact(vol, perm, n)
+    same = bool((out.block_coords[:n] == vol.block_coords[:n]).all()) and not bool(out.overflow)
+    del out
+    ms = _median_ms(lambda: _compact(vol, perm, n), dev)
+    r3 = tcfg.block_resolution ** 3
+    row = 5 * 4 * r3 + 12  # tsdf, weight, 3 colors, coords
+    n_bytes = 2 * n * row + (cap - n) * 4 * r3 + 8 * tcfg.hash_capacity
+    bound, by = _bound(n_bytes, 0.0)
+    _log(f"_compact of the headline volume ({n} alive of {cap} blocks, identity permutation): "
+         f"{ms:.4f} ms (CUDA events, median of 5) against a bound of {bound:.4f} ms ({by}: "
+         f"{n_bytes / 1e6:.1f} MB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); the same blocks after it: "
+         f"{same}  [{gpu}]")
+    return [] if same else ["_compact with the identity permutation changed the volume"]
+
+
+def _corridor_scene():
+    """bench.py's streaming corridor: a checkered wall 0.55 m ahead and 33
+    spheres along +x."""
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Plane, Scene, Sphere
+
+    return Scene(
+        planes=(Plane((0.0, 0.0, 0.55), (0.0, 0.0, -1.0), (0.7, 0.65, 0.6), checker=0.1),),
+        spheres=tuple(Sphere((0.3 * k, 0.1 * (-1) ** k, 0.5), 0.05,
+                             (0.3 + 0.5 * (k % 2), 0.4, 0.8 - 0.5 * (k % 2))) for k in range(33)))
+
+
+def _soup_rows(mesh):
+    """A triangle soup as (9 xyz + 9 rgb) rows in canonical (lexsorted)
+    order: slot order differs between pools."""
+    import numpy as np
+
+    t = np.concatenate([np.asarray(mesh.vertices).reshape(-1, 9),
+                        np.asarray(mesh.vertex_colors).reshape(-1, 9)], axis=1)
+    return t[np.lexsort(t.T[::-1])]
+
+
+def _corridor_pass(intr, cfg, raw, dev, streaming):
+    """``raw`` through ``MonoOdometryTSDF(..., worklist_size=2048,
+    streaming=streaming)`` with one sync at the end: (pipeline, seconds)."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048, streaming=streaming)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for d, c in raw:
+        pipe.process_frame(d, c)
+    _sync(dev)
+    return pipe, time.perf_counter() - t0
+
+
+def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
+    """Host streaming on bench.py's corridor runs (``STREAM_RUNS``):
+    ``MonoOdometryTSDF(..., streaming=StreamingTSDF.for_pipeline(cfg,
+    check_interval=8, margin=...))`` into the 1,024-block pool, one warm
+    pass and one timed pass with the launch counters zeroed just before and
+    read just after, then the same frames (warm, timed) into a plain
+    4,096-block pool. Checks: no overflow and at least one eviction; B1
+    exactly once a frame and B2 once a tracked frame; the trajectory equal
+    to the comparator's to the bit; the assembled ``extract_mesh`` soup,
+    sorted, equal to the comparator's to the bit; ``extract_point_cloud``
+    with the comparator's row count. Prints frames/s of both and their
+    ratio, tick ms by stage, the host store's bytes. Then, with ``cli``,
+    runs the port's ``live_mono`` entry point with ``--streaming`` in a
+    subprocess. Returns (failures, launch counts of each timed streamed
+    pass)."""
+    import dataclasses
+
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    failures, all_counts = [], []
+    scfg = dataclasses.replace(
+        cfg, tsdf=TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16,
+                             block_capacity=1024, hash_capacity=8192),
+        camera=cfg.camera.replace(depth_trunc=0.7))
+    pcfg = dataclasses.replace(scfg, tsdf=scfg.tsdf.replace(
+        block_capacity=STREAM_PLAIN_BLOCKS, hash_capacity=4 * STREAM_PLAIN_BLOCKS))
+    scene = _corridor_scene()
+    for scale, n, step, margin in runs:
+        intr = Intrinsics.azure_kinect_depth_nfov().scaled(scale)
+        cam = SyntheticCamera(scene=scene, intrinsics=intr, device=dev)
+        poses = [np.eye(4) for _ in range(n)]
+        for i, T in enumerate(poses):
+            T[0, 3] = step * i
+        raw = [_quantize(cam.render(T)) for T in poses]
+        manager = lambda: StreamingTSDF.for_pipeline(scfg, check_interval=8, margin=margin,
+                                                     device=dev)
+        what = f"streaming {intr.width}x{intr.height}, {n} frames at {step} m"
+        _corridor_pass(intr, scfg, raw, dev, manager())  # warm: set-up, the eviction path
+        build.launches.clear()
+        sp, s_sec = _corridor_pass(intr, scfg, raw, dev, manager())
+        counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+        all_counts.append(counts)
+        _corridor_pass(intr, pcfg, raw, dev, None)
+        pp, p_sec = _corridor_pass(intr, pcfg, raw, dev, None)
+        sv = sp.streaming
+        t0 = time.perf_counter()
+        ms_, mp = sp.extract_mesh(), pp.extract_mesh().compact()
+        soups = _soup_rows(ms_), _soup_rows(mp)
+        s_extract = time.perf_counter() - t0
+        (sp_pts, _), (pp_pts, _) = sp.extract_point_cloud(), pp.extract_point_cloud()
+        same_traj = np.array_equal(np.stack(sp.trajectory), np.stack(pp.trajectory))
+        same_soup = soups[0].shape == soups[1].shape and np.array_equal(*soups)
+        overflow = bool(sp.volume.overflow) or bool(pp.volume.overflow)
+        ticks = max(sv.n_ticks, 1)
+        stage = {k: round(v / ticks, 3)
+                 for k, v in sorted(sv.tick_ms.items(), key=lambda kv: -kv[1])}
+        _log(f"{what} launches: {json.dumps(counts)} (the timed streamed pass)  [{gpu}]")
+        _log(f"{what}: streamed {n / s_sec:.3f} frames/s, plain ({STREAM_PLAIN_BLOCKS}-block "
+             f"pool) {n / p_sec:.3f} frames/s, ratio {p_sec / s_sec:.4f} (host clock, one sync "
+             f"at the end, warm passes first); reload<{sv.reload_dist:.3f} m, "
+             f"evict>{sv.evict_dist:.3f} m, high water {sv.high_water}; {sv.n_ticks} ticks, "
+             f"{sv.n_evictions} evictions, {sv.n_reloads} reloads, {sv.n_stored} blocks stored, "
+             f"{sv.n_frozen} frozen, {int(sp.volume.n_blocks)} live (plain "
+             f"{int(pp.volume.n_blocks)}); host store {sv.pinned_bytes / 2**20:.3f} MiB "
+             f"({'page-locked' if dev.type == 'cuda' else 'CPU memory'}); gate rejections "
+             f"{sp.odometry_failures}  [{gpu}]")
+        _log(f"{what}: tick ms per tick by stage (host clock, {sv.n_ticks} ticks) "
+             f"{json.dumps(stage)}  [{gpu}]")
+        _log(f"{what}: trajectory equal to the plain pass's to the bit: {same_traj}; sorted soup "
+             f"equal to the bit: {same_soup} ({soups[0].shape[0]} / {soups[1].shape[0]} "
+             f"triangles; both extractions {s_extract * 1e3:.1f} ms); point cloud rows "
+             f"{sp_pts.shape[0]} / {pp_pts.shape[0]}; overflow {overflow}")
+        if overflow or sv.n_evictions == 0:
+            failures.append(f"{what}: overflow {overflow}, {sv.n_evictions} evictions")
+        if counts[tk.KERNEL] != n or counts[odo.KERNEL] != n - 1:
+            failures.append(f"{what}: launches {counts}, not B1 once a frame and B2 once a "
+                            "tracked frame")
+        if not (same_traj and same_soup and sp_pts.shape[0] == pp_pts.shape[0]):
+            failures.append(f"{what}: the streamed pass differs from the plain pass "
+                            f"(trajectory {same_traj}, soup {same_soup}, cloud rows "
+                            f"{sp_pts.shape[0]} / {pp_pts.shape[0]})")
+        del sp, pp, sv, raw
+    if cli:
+        with tempfile.TemporaryDirectory() as out:
+            args = ["--source", "synthetic", "--frames", str(N_CLI_FRAMES), "--streaming",
+                    "--output", out]
+            if dev.type != "cuda":
+                args += ["--device", "cpu", "--scale", "0.25"]
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", f"{PKG}.cli.live_mono", *args],
+                               capture_output=True, text=True, timeout=600, cwd=REPO)
+            names = sorted(os.listdir(out))
+            saved = all(any(k in f for f in names) for k in ("mesh", "volume_pcd", "trajectory"))
+            tail = [ln for ln in r.stdout.splitlines() if "streaming:" in ln or "frames," in ln]
+            _log(f"cli.live_mono --streaming over {N_CLI_FRAMES} frames: rc {r.returncode}, "
+                 f"{time.perf_counter() - t0:.1f} s (host clock, process start included), wrote "
+                 f"{names}; {' | '.join(tail)}")
+            if r.returncode != 0 or not saved:
+                failures.append(f"cli.live_mono --streaming: rc {r.returncode}, wrote {names}; "
+                                f"{r.stderr[-1500:]}")
+    return failures, all_counts
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     why = _port_beside()
     if why:
         return _fail(why)
@@ -1922,6 +2122,7 @@ def main() -> int:
 
     # -- the save path and frame-to-model tracking -----------------------------
     failures += mesh_phase(pipe, tcfg, dev, gpu)
+    failures += compact_timing(pipe.volume, tcfg, dev, gpu)
     del pipe
     poses32 = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_F2M_FRAMES]
     raw32 = raw + [_quantize(cam.render(T)) for T in poses32[N_FRAMES:]]
@@ -1954,6 +2155,12 @@ def main() -> int:
     for k in kernels:
         k["launches_fragments"] = frag_counts[k["name"]]
         k["launches_cloud"] = cloud_counts[k["name"]]
+    stream_failures, stream_counts = streaming_phase(cfg, dev, gpu)
+    failures += stream_failures
+    for k in kernels:
+        k["launches_streaming"] = stream_counts[0][k["name"]]
+        k["launches_streaming_quarter"] = stream_counts[1][k["name"]]
+    _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))
 

@@ -969,3 +969,144 @@ def test_pca_normals_on_cuda_take_large_batches(dev):
     nc = pca_normal(nb, mask)
     assert ng.shape == nc.shape == (200_000, 3)
     assert float((ng * nc).sum(dim=1).abs().min()) >= 1 - 1e-5
+
+
+# -- host streaming ----------------------------------------------------------------
+
+# tests/test_streaming.py's small pool and its manager
+STREAM_CFG = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=8, block_capacity=256,
+                        hash_capacity=1024)
+STREAM_KW = dict(evict_dist=1.4, reload_dist=1.1, high_water=0.75, check_interval=4)
+
+
+def _corridor(x_cam, device):
+    """tests/test_streaming.py's corridor frame at camera x: (depth, color,
+    pose) tensors on ``device``."""
+    yy, xx = np.meshgrid(np.arange(INTR.height), np.arange(INTR.width), indexing="ij")
+    d = 0.6 + 0.03 * np.sin(0.2 * (xx + 37.0 * x_cam)) * np.sin(0.15 * yy)
+    c = np.stack([0.5 + 0.5 * np.sin(0.05 * xx + x_cam), np.full_like(d, 0.3),
+                  0.5 + 0.5 * np.cos(0.07 * yy)], axis=-1)
+    T = np.eye(4)
+    T[0, 3] = x_cam
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (d, c, T))
+
+
+def _soup(mesh):
+    v = np.concatenate([np.asarray(mesh.vertices).reshape(-1, 9),
+                        np.asarray(mesh.vertex_colors).reshape(-1, 9)], axis=1)
+    return v[np.lexsort(v.T[::-1])]
+
+
+def test_streaming_pinned_store_round_trips_to_the_bit(dev):
+    """Evicted payloads land in page-locked host tensors and equal the
+    pool's rows to the bit; reloaded, the pool's rows equal them again."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    sv = StreamingTSDF(STREAM_CFG, device=dev, **STREAM_KW)
+    rays = pixel_rays(INTR, dev)
+    for i in range(4):
+        d, c, T = _corridor(0.04 * i, dev)
+        sv.integrate_frame(d, c, rays, T, INTR)
+    before = {tuple(k): (sv.vol.tsdf[s].clone(), sv.vol.weight[s].clone(), sv.vol.color[s].clone())
+              for s, k in enumerate(sv.vol.block_coords[:int(sv.vol.n_blocks)].tolist())}
+    sv.high_water = 0
+    sv.tick(np.array([5.0, 0.0, 0.0]))  # every block is farther than evict_dist
+    assert sv.n_evictions == 1 and int(sv.vol.n_blocks) == 0 and sv.n_stored == len(before)
+    b = next(iter(sv._pbatch.values()))
+    assert b.tsdf.is_pinned() and b.weight.is_pinned() and b.color.is_pinned()
+    assert sv.pinned_bytes >= len(before) * 5 * 4 * STREAM_CFG.block_resolution ** 3
+    for key in list(sv.store):
+        t, w, c, crd = sv._stored_payload(key)
+        bt, bw, bc = before[tuple(crd.tolist())]
+        assert np.array_equal(t, bt.cpu().numpy()) and np.array_equal(w, bw.cpu().numpy())
+        assert np.array_equal(c, bc.cpu().numpy())
+    sv.tick(np.array([0.06, 0.0, 0.6]))  # amid the blocks: everything reloads
+    assert sv.n_stored == 0 and int(sv.vol.n_blocks) == len(before)
+    for s, k in enumerate(sv.vol.block_coords[:len(before)].tolist()):
+        bt, bw, bc = before[tuple(k)]
+        assert torch.equal(sv.vol.tsdf[s], bt) and torch.equal(sv.vol.weight[s], bw)
+        assert torch.equal(sv.vol.color[s], bc)
+
+
+def test_compact_then_b1_matches_cpu(dev, frames):
+    """A shuffling compaction on the card and on a CPU copy, then one
+    ``integrate_step`` (B1 on the card, its plain version on the CPU): the
+    same block keys and B1's tolerances, and B1 launched once."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import _compact
+
+    _, fr = frames
+    rays = pixel_rays(INTR, dev)
+    vol = tsdf.create(CFG, dev)
+    for T, z, c in fr[:2]:
+        vol = tsdf.integrate_frame(vol, z, c, rays, T, INTR, CFG)
+    n = int(vol.n_blocks)
+    perm = np.zeros(CFG.block_capacity, np.int64)
+    perm[: n - 7] = np.random.RandomState(5).permutation(n)[: n - 7]  # and drop 7 blocks
+    vg = _compact(vol, perm, n - 7)
+    vc = _compact(_cpu_copy(vol), perm, n - 7)
+    assert not bool(vg.overflow) and torch.equal(vg.block_coords.cpu(), vc.block_coords)
+    T, z, c = fr[2]
+    b1 = build.launches[tk.KERNEL]
+    vg = tk.integrate_step(vg, z, c, T, rays, INTR, CFG, 2048)
+    vc = tk.integrate_step(vc, z.cpu(), c.cpu(), T.cpu(), rays.cpu(), INTR, CFG, 2048)
+    assert build.launches[tk.KERNEL] - b1 == 1
+    _assert_close_by_key(vg, vc)
+
+
+def test_streamed_corridor_on_cuda_matches_cpu_and_is_exact(dev):
+    """60 corridor frames through the manager on the card and on the CPU:
+    the same evictions and stored keys, the live volumes equal by block key
+    within B1's tolerances; on the card, the streamed soup equals the soup
+    of an infinite pool that saw the same frames to the bit."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    big = STREAM_CFG.replace(block_capacity=4096, hash_capacity=16384)
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        sv = StreamingTSDF(STREAM_CFG, device=device, **STREAM_KW)
+        rays = pixel_rays(INTR, device)
+        ref = tsdf.create(big, device)
+        b1 = build.launches[tk.KERNEL]
+        for i in range(60):
+            d, c, T = _corridor(0.04 * i, device)
+            sv.integrate_frame(d, c, rays, T, INTR)
+            ref = tsdf.integrate_frame(ref, d, c, rays, T, INTR, big)
+        runs[device.type] = (sv, ref, build.launches[tk.KERNEL] - b1)
+    sg, refg, launches = runs["cuda"]
+    sc, _, _ = runs["cpu"]
+    assert launches == 120  # B1 once a frame in each pool
+    assert sg.n_evictions == sc.n_evictions > 0 and not bool(sg.vol.overflow)
+    assert set(sg.store) == set(sc.store) and set(sg.soups) == set(sc.soups)
+    _assert_close_by_key(sg.vol, sc.vol)
+    got, want = _soup(sg.extract_mesh()), _soup(mc.extract_mesh(refg, big))
+    assert got.shape == want.shape and got.shape[0] > 1000
+    assert np.array_equal(got, want)
+
+
+def test_streamed_loop_syncs_only_at_tick_frames(dev):
+    """``MonoOdometryTSDF(streaming=...)``: every frame but the tick frames
+    (each ``check_interval``-th) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, the frame that copies the
+    tick's state ahead included; B2 once and B1 once a tracked frame."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    pcfg = PipelineConfig(tsdf=CFG, odometry=OdometryConfig(pyramid_iters=(8, 8, 8)))
+    sv = StreamingTSDF(CFG, evict_dist=9.0, reload_dist=7.0, check_interval=4, device=dev)
+    pipe = MonoOdometryTSDF(INTR, pcfg, device=dev, streaming=sv)
+    raw = _raw_frames(orbit_trajectory(10, radius=0.3, angle_span=0.6))
+    pipe.process_frame(*raw[0])
+    torch.cuda.synchronize()
+    b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+    ticks = 0
+    for d, c in raw[1:]:
+        tick = sv._since_check + 1 == sv.check_interval
+        ticks += tick
+        torch.cuda.set_sync_debug_mode(0 if tick else "error")
+        try:
+            pipe.process_frame(d, c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert ticks == sv.n_ticks == 2
+    assert build.launches[tk.KERNEL] - b1 == build.launches[odo.KERNEL] - b2 == len(raw) - 1
+    assert pipe.volume.tsdf is sv.vol.tsdf and pipe.odometry_failures == 0

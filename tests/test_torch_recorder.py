@@ -341,6 +341,26 @@ def test_recorder_deferred_fallback_rebases_pose(cam, tmp_path):
     assert os.path.exists(os.path.join(str(tmp_path), "latest_mesh.ply"))
 
 
+def test_fallback_recovery_does_not_depend_on_the_draw(cam, tmp_path):
+    """The keyframe jump from a generator seed whose first ladder round
+    fails (the reference's one-round ladder then keeps the wrong pose): the
+    ladder draws fresh seeds while the refinement is rejected, and rebases
+    within the JAX test's bounds."""
+    pipe = Recorder(INTR, CFG, device="cpu", output_dir=str(tmp_path))
+    pipe.generator.manual_seed(3)
+    pipe.toggle_recording()
+    orbit = orbit_trajectory(8, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    poses = orbit[:3] + [orbit[7]]
+    for T in poses:
+        pipe.process_frame(*cam.capture(T))
+    pipe._check_keyframes(force=True)
+    snap = dict(pipe.telemetry._counters)
+    assert snap.get("fallback_retry", 0) >= 1 and snap.get("fallback_rebase", 0) == 1, snap
+    err = np.asarray(jse3.se3_log(np.linalg.inv(np.linalg.inv(poses[0]) @ poses[-1])
+                                  @ pipe.T_world_cam))
+    assert np.linalg.norm(err[:3]) < 0.06 and np.linalg.norm(err[3:]) < 0.08, err
+
+
 def test_recorder_interval_frames_take_the_interval_step(cam, tmp_path):
     """keyframe_interval 3: frames 0 and 3 are keyframes, the others take
     the interval step; the trajectory holds the pose each frame used."""
