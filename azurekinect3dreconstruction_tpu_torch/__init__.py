@@ -15,7 +15,10 @@ integration and per-level Gauss-Newton odometry; mesh extraction (full and
 incremental) and saving; two-camera fusion with its FPFH + RANSAC + ICP
 calibration (:class:`.pipelines.dual_fusion.DualCameraFusion`); the
 recorder, the offline bundle, the fragment pipeline and the point-cloud
-accumulator; the cloud meshers of :mod:`.meshing`.
+accumulator; the cloud meshers of :mod:`.meshing`; host streaming; the
+(cam x blk) sharded volume of :mod:`.parallel.sharded_volume`, which
+``DualCameraFusion(sharded=True)`` runs on; and a headless entry point for
+each pipeline under :mod:`.cli`.
 """
 
 __version__ = "0.1.0"

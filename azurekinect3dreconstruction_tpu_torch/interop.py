@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port, through numpy.
 
 There are no weights to convert; what crosses is state: a TSDF volume (so
-both packages can continue from the same pool, slot by slot), intrinsics, a
+both packages can continue from the same pool, slot by slot) or a sharded
+one, intrinsics, a
 device calibration, pipeline configs, poses and rig extrinsics, an
 extracted mesh, a fixed-capacity ``PointCloud``, a frame-to-model tracking
 model (its points and mask), and an unorganized cloud with its neighbor and
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -26,6 +28,9 @@ from azurekinect3dreconstruction_tpu_torch.core.camera import (
 )
 from azurekinect3dreconstruction_tpu_torch.core.types import PointCloud, TriangleMesh
 from azurekinect3dreconstruction_tpu_torch.tsdf.volume import TSDFVolume
+
+if TYPE_CHECKING:
+    from azurekinect3dreconstruction_tpu_torch.parallel.sharded_volume import ShardedTSDF
 
 _LANES = 128  # the JAX pool's trailing (R^3/128, 128) layout
 
@@ -61,6 +66,31 @@ def volume_to_numpy(vol: TSDFVolume) -> dict:
     out["weight"] = out["weight"].reshape(n, -1, _LANES)
     out["color"] = out["color"].reshape(n, 3, -1, _LANES)
     return out
+
+
+def sharded_volume_from_jax_arrays(arrays: dict, mesh) -> ShardedTSDF:
+    """A JAX sharded volume (``parallel.sharded_volume``) given as ``{field:
+    numpy array}`` -> the port's :class:`ShardedTSDF` on ``mesh``: each
+    axis-0 array holds ``n_blk`` shards' rows one after the other, and
+    ``n_blocks`` / ``overflow`` one entry a shard. Shard ``b`` goes to
+    ``mesh[0, b]`` through :func:`volume_from_jax_arrays`."""
+    from azurekinect3dreconstruction_tpu_torch.parallel.sharded_volume import ShardedTSDF
+
+    n_blk = mesh.shape["blk"]
+    rows = lambda name, b: np.split(np.asarray(arrays[name]), n_blk)[b]
+    return ShardedTSDF(tuple(
+        volume_from_jax_arrays({k: np.asarray(v)[b] if k in ("n_blocks", "overflow")
+                                else rows(k, b) for k, v in arrays.items()},
+                               mesh.blk_device(b))
+        for b in range(n_blk)))
+
+
+def sharded_volume_to_numpy(vol: ShardedTSDF) -> dict:
+    """The port's sharded volume -> ``{field: numpy array}`` in the JAX
+    sharded layout (the shards' rows concatenated on axis 0)."""
+    parts = [volume_to_numpy(s) for s in vol.shards]
+    return {k: (np.stack if k in ("n_blocks", "overflow") else np.concatenate)(
+        [p[k] for p in parts]) for k in parts[0]}
 
 
 def intrinsics_from(obj) -> Intrinsics:

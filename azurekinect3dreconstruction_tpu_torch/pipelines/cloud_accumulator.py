@@ -4,8 +4,11 @@ package's ``pipelines/cloud_accumulator.py``).
 Every ``keyframe_interval``-th frame is registered to the previous keyframe
 by projective point-to-plane ICP; where its fitness is low, an FPFH +
 RANSAC seed (4 restarts ranked by cloud overlap) is refined coarse to fine
-and kept if it fits better, and while the result would be rejected a fresh
-seed is drawn, up to 4 in all (the reference draws once). The keyframe's points join the host model in
+and kept if it fits better; a fresh seed is drawn, up to 4 in all (the
+reference draws once), while the result would be rejected, and also while
+no seed has beaten the un-seeded result or refined to the same pose (an
+accepted un-seeded result can be a wrong minimum that no single losing seed
+disproves). The keyframe's points join the host model in
 the world frame, and a model over ``model_capacity`` points is voxel
 downsampled. The save orients the model's normals toward the nearest
 trajectory position, repairs them for consistency, writes the cloud and,
@@ -54,7 +57,15 @@ from azurekinect3dreconstruction_tpu_torch.utils.telemetry import Telemetry, log
 from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 
 _COARSE_VOXEL = 0.015  # the coarse stage's grid; normals at 2x, FPFH at 4x
-_COARSE_ROUNDS = 4  # seeds a coarse stage draws at most, while the result is rejected
+_COARSE_ROUNDS = 4  # seeds a coarse stage draws at most, while the result is unconfirmed
+
+
+def _same_pose(T_a, T_b, tol: float) -> bool:
+    """Whether two poses lie within ``tol`` of each other, in metres of
+    translation and radians of rotation (a radian moves a point at the
+    scene's ~1 m depth by ~1 m)."""
+    d = se3.se3_log(se3.inverse(T_a) @ T_b)
+    return bool((torch.linalg.vector_norm(d[:3]) < tol) & (torch.linalg.vector_norm(d[3:]) < tol))
 
 
 class CloudAccumulator:
@@ -135,14 +146,17 @@ class CloudAccumulator:
         result replaces ``res`` where it fits better. That round is the
         reference's whole stage. On a hard pair most mutual FPFH matches are
         wrong and one round's seed lands in ICP's basin only on some draws,
-        so while the result would still be rejected (fitness under
-        ``min_fitness_icp``), another round draws a fresh seed, at most
-        ``_COARSE_ROUNDS`` in all."""
+        so another round draws a fresh seed, at most ``_COARSE_ROUNDS`` in
+        all, while the result would still be rejected (fitness under
+        ``min_fitness_icp``) or is not yet confirmed: no seed has won, and
+        none refined to within ``icp_distance_threshold`` of the un-seeded
+        pose (on the card a wrong un-seeded minimum 0.44 m off passed the
+        gate while the one seed drawn lost)."""
         reg = self.cfg.registration
         wide = dataclasses.replace(reg, icp_distance_threshold=3 * reg.icp_distance_threshold)
         self._feat_next = self._features(flat, mask)
         tgt = self._feat_cache if self._feat_cache is not None else self._target_features()
-        won = False
+        won = confirmed = False
         for k in range(_COARSE_ROUNDS):
             if k:
                 self.telemetry.count("coarse_retry")
@@ -154,7 +168,9 @@ class CloudAccumulator:
                                         cfg=reg)
                 if float(r2.fitness) > float(res.fitness):
                     res, won = r2, True
-            if float(res.fitness) >= reg.min_fitness_icp:
+                elif not won:
+                    confirmed = confirmed or _same_pose(r2.T, res.T, reg.icp_distance_threshold)
+            if float(res.fitness) >= reg.min_fitness_icp and (won or confirmed):
                 break
         if won:
             self.telemetry.count("coarse_won")

@@ -12,7 +12,9 @@ each camera), with no host synchronization: the extrinsics and the
 camera-1 gate are tensor data, so a recalibration or a moving rig changes
 the data, not the step. Display and recalibration decode the last pair on
 demand; ``save_current_state`` writes the merged cloud and the TSDF mesh (and
-a Poisson mesh of the cloud on request).
+a Poisson mesh of the cloud on request). In sharded mode the volume is a
+(cam x blk) :class:`parallel.sharded_volume.ShardedTSDF` fed by its raw
+step (B1 once a camera a shard), and meshing runs on the shards combined.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
     remove_statistical_outliers,
     voxel_downsample_arrays,
 )
+from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
 from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
 from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
     TargetMaps,
@@ -77,13 +80,22 @@ class DualCameraFusion:
     refines with colored ICP instead of point-to-plane. RANSAC draws from
     ``generator``, a ``torch.Generator`` on the device seeded with 7.
     ``calib_stage_ms`` holds the last calibration's stage times, each closed by
-    a device synchronization."""
+    a device synchronization.
+
+    ``sharded``: camera ``c`` on row ``c`` of a ``2 x n // 2`` grid of
+    ``devices`` (default: every visible card on ``"cuda"``, ``[device]`` on
+    the CPU; a device may repeat), the volume block-sharded over its
+    columns (``parallel.sharded_volume.make_sharded_raw_step``, stride 2).
+    With fewer than 2 devices, or different intrinsics for the two
+    cameras, it logs a warning and runs unsharded; ``self.sharded`` says
+    which."""
 
     COLOR_MODES = ("rgb", "depth_gradient", "uniform")
 
     def __init__(self, intrinsics: Tuple[Intrinsics, Intrinsics],
                  config: Optional[PipelineConfig] = None, *, device="cuda",
-                 output_dir: str = "results", colored_calibration: bool = False):
+                 output_dir: str = "results", colored_calibration: bool = False,
+                 sharded: bool = False, devices=None):
         self.device = resolve_device(device)
         self.intr = list(intrinsics)
         self.cfg = config or PipelineConfig()
@@ -100,8 +112,28 @@ class DualCameraFusion:
         self._last_frames: List[Optional[RGBDFrame]] = [None, None]
         self._last_raw = [None, None]  # device (depth_raw, color_raw) of the last pair
         self._frames_stale = False  # _last_frames behind _last_raw
-        self._step = make_raw_dual_step(self.intr[0], self.intr[1], self.cfg.tsdf)
-        self.volume = tsdf.create(self.cfg.tsdf, self.device)
+        self.sharded = False
+        if sharded:
+            if devices is None:
+                devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                           if self.device.type == "cuda" else [self.device])
+            n_dev = len(devices)
+            if n_dev < 2:
+                log.warning("sharded dual fusion needs >= 2 devices, have %d; falling back to "
+                            "single-device", n_dev)
+            elif self.intr[0] != self.intr[1]:
+                log.warning("sharded dual fusion requires identical camera intrinsics; falling "
+                            "back to single-device")
+            else:
+                self.mesh = sv.make_mesh(2, n_dev // 2, devices)
+                self.volume = sv.create_sharded(self.cfg.tsdf, self.mesh)
+                self._sharded_step = sv.make_sharded_raw_step(self.mesh, self.intr[0],
+                                                              self.cfg.tsdf, stride=2)
+                self.sharded = True
+                log.info("sharded dual fusion: mesh cam=2 x blk=%d", n_dev // 2)
+        if not self.sharded:
+            self._step = make_raw_dual_step(self.intr[0], self.intr[1], self.cfg.tsdf)
+            self.volume = tsdf.create(self.cfg.tsdf, self.device)
 
     @property
     def counts(self) -> dict:
@@ -232,12 +264,17 @@ class DualCameraFusion:
             self.calibrate(tuple(self._decoded_frames()), colored=self.colored_calibration)
         T1 = self.extrinsics[1] if self.calibrated else np.eye(4)
         host = np.concatenate([np.asarray(self.extrinsics[0]).reshape(-1),
-                               np.asarray(T1).reshape(-1), [float(self.calibrated)]])
-        dev = upload(host.astype(np.float32), self.device)  # T0, T1, cam1_on in one transfer
+                               np.asarray(T1).reshape(-1), [1.0, float(self.calibrated)]])
+        # T0, T1, cam0_on and cam1_on in one transfer
+        dev = upload(host.astype(np.float32), self.device)
         (d0r, c0r), (d1r, c1r) = self._last_raw
-        self.volume = self._step(self.volume, d0r, c0r, d1r, c1r, self.rays[0], self.rays[1],
-                                 dev[:16].view(4, 4), dev[16:32].view(4, 4),
-                                 1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc, dev[32])
+        scal = (1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc)
+        if self.sharded:
+            self.volume = self._sharded_step(self.volume, (d0r, d1r), (c0r, c1r),
+                                             dev[:32].view(2, 4, 4), self.rays[0], dev[32:], *scal)
+        else:
+            self.volume = self._step(self.volume, d0r, c0r, d1r, c1r, self.rays[0], self.rays[1],
+                                     dev[:16].view(4, 4), dev[16:32].view(4, 4), *scal, dev[33])
         self.frame_index += 1
 
     def merged_cloud(self, max_points: int = 200000) -> PointCloudHost:
@@ -276,7 +313,11 @@ class DualCameraFusion:
         return self.color_mode
 
     def extraction_volume(self):
-        """The volume meshing runs on."""
+        """The volume meshing runs on: in sharded mode the shards combined
+        (``parallel.sharded_volume.combine_shards``), so that cells on a
+        shard boundary see their neighbors on other shards."""
+        if self.sharded:
+            return sv.combine_shards(self.volume, self.cfg.tsdf, self.mesh.shape["blk"])
         return self.volume
 
     def save_current_state(self, poisson: bool = False) -> dict:

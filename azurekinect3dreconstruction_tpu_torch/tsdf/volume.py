@@ -82,10 +82,22 @@ def allocate(vol: TSDFVolume, depth, rays, T_world_cam, cfg: TSDFConfig,
 
     depth: (H, W) meters (0 = invalid); rays: (H, W, 2) from pixel_rays.
     Candidate keys are sorted and deduplicated to at most ``dedup_budget``
-    unique keys before the insert. Keys past the budget are simply allocated
-    by a later frame (surfaces are seen by many pixels over many frames), so
-    that does not set the sticky ``overflow`` flag; a full pool does.
+    unique keys before the insert (:func:`candidate_keys`). Keys past the
+    budget are simply allocated by a later frame (surfaces are seen by many
+    pixels over many frames), so that does not set the sticky ``overflow``
+    flag; a full pool does. 6 probe rounds suffice at the load factors the
+    config enforces (unresolved keys retry on the next frame).
     """
+    keys = candidate_keys(depth, rays, T_world_cam, cfg, stride, samples, dedup_budget)
+    return insert_keys(vol, keys, cfg, max_probes=6)
+
+
+def candidate_keys(depth, rays, T_world_cam, cfg: TSDFConfig, stride: int = 2, samples: int = 3,
+                   dedup_budget: int = 2048):
+    """The block keys along one frame's truncation bands, ``samples`` points
+    a ray on every ``stride``-th pixel, sorted and deduplicated: int32
+    ``(dedup_budget,)``, the first unique keys in ascending order, then
+    ``EMPTY_KEY``. Fixed shape; nothing waits on the host."""
     d = depth[::stride, ::stride]
     r = rays[::stride, ::stride]
     T = T_world_cam.to(torch.float32)
@@ -110,19 +122,22 @@ def allocate(vol: TSDFVolume, depth, rays, T_world_cam, cfg: TSDFConfig,
                        (skeys[1:] != skeys[:-1]) & (skeys[1:] != vhash.EMPTY_KEY)])
     order = torch.cumsum(first.to(torch.int32), 0) - 1
     dst = torch.where(first & (order < dedup_budget), order, dedup_budget).to(torch.int64)
-    ukeys = torch.full((dedup_budget + 1,), vhash.EMPTY_KEY, dtype=torch.int32,
-                       device=dev).scatter_(0, dst, skeys)[:dedup_budget]
+    return torch.full((dedup_budget + 1,), vhash.EMPTY_KEY, dtype=torch.int32,
+                      device=dev).scatter_(0, dst, skeys)[:dedup_budget]
 
-    # the last pool row is reserved as the worklist's trash slot; 6 probe
-    # rounds suffice at the load factors the config enforces (unresolved
-    # keys retry on the next frame)
+
+def insert_keys(vol: TSDFVolume, keys, cfg: TSDFConfig, max_probes: int) -> TSDFVolume:
+    """Insert-or-get block ``keys`` (int32, ``EMPTY_KEY`` lanes inert) in
+    ``max_probes`` rounds and record the coords of their slots. The last
+    pool row is reserved as the worklist's trash slot; a full pool or an
+    unresolved key sets the sticky ``overflow`` flag."""
     table, counter, vals, overflowed = vhash.insert(
-        vol.table, vol.n_blocks, ukeys, cfg.block_capacity - 1, max_probes=6)
+        vol.table, vol.n_blocks, keys, cfg.block_capacity - 1, max_probes=max_probes)
     # record coords of (possibly fresh) slots; a MISS lands in the extra row
     n = cfg.block_capacity
     idx = torch.where(vals >= 0, vals, n).to(torch.int64)
     block_coords = torch.cat([vol.block_coords, vol.block_coords.new_zeros((1, 3))])
-    block_coords[idx] = vhash.unpack_key(ukeys)
+    block_coords[idx] = vhash.unpack_key(keys)
     return vol._replace(
         table_keys=table.keys,
         table_vals=table.vals,

@@ -103,7 +103,19 @@ worklist, odometry pyramid [20, 10, 5]):
    tick ms by stage, the host store's bytes; then
    ``python -m azurekinect3dreconstruction_tpu_torch.cli.live_mono --source
    synthetic --frames 24 --streaming`` in a subprocess must save a mesh, a
-   cloud and a trajectory.
+   cloud and a trajectory;
+14. drives the sharded volume (``parallel.sharded_volume``): the JAX
+   bench's cell, ``make_sharded_slam_batch`` on a 1 x 1 mesh over the 16
+   mono frames (the trajectory equal to the mono loop's, B1 and B2 15
+   each, ``sharded_slam_fps`` by ``bench.py``'s method); a 2 x 2 grid on
+   ``[cuda:0] * 4`` with two mounts tracking 16 frames each (B2 30, B1 60,
+   poses against ``compute_odometry_fast`` chains, disjoint shards, the
+   combined mesh against a single volume's, 2 steps against a CPU grid by
+   block key); ``DualCameraFusion(sharded=True, devices=[cuda:0] * 4)``
+   over 8 bench-rig pairs beside the unsharded pipeline (B1 4 a pair,
+   ms/pair, the meshes, the save read back), each with the counters zeroed
+   just before and read just after; then ``cli.dual_fusion --sharded`` in a
+   subprocess must save a mesh and a cloud.
 
 After step 4 it times ``tsdf.streaming._compact`` over the main path's
 volume (the identity permutation) beside its bound. Between steps 1 and 2
@@ -221,6 +233,19 @@ SPLAT_TOL = 1e-5
 STREAM_RUNS = ((1.0, 120, 0.045, 0.4), (0.25, 240, 0.04, 0.3))
 STREAM_PLAIN_BLOCKS = 4096
 N_CLI_FRAMES = 24
+# the sharded volume: the dual pipeline's pairs; the 1 x 1 batch's trajectory against the
+# mono loop's (the same arithmetic: to the bit expected); the 2 x 2 grid's poses against
+# compute_odometry_fast chains; tests/test_sharded_volume.py's share of rounded centroids
+N_SHARDED_DUAL_PAIRS = 8
+SHARDED_TRAJ_TOL = 1e-5
+SHARDED_POSE_TOL = 1e-4
+# (the unsharded dual step allocates and integrates camera 0 before camera 1 allocates, so
+# where both cameras see a voxel of a block camera 1 allocated, the two pipelines mix their
+# observations one apart: on the card at 640x576 the sharded dual mesh shares 0.99999 of the
+# unsharded one's centroids, but only 0.992 in a CPU rehearsal at quarter resolution, which
+# thus fails that check as well as the launch checks; the sharded order is held to the bit
+# against a single volume fed in that order)
+SHARDED_CENTROID_MIN = 0.999
 
 
 def _log(msg: str) -> None:
@@ -1909,6 +1934,316 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
     return failures, all_counts
 
 
+def _centroid_set(soup):
+    """A host triangle soup's triangle centroids rounded to 0.1 mm, as a set
+    (tests/test_sharded_volume.py's parity measure)."""
+    import numpy as np
+
+    c = np.asarray(soup.vertices).reshape(-1, 3, 3).mean(1)
+    return {tuple(x) for x in np.round(c, 4).tolist()}
+
+
+def _meshes_match(a, b):
+    """tests/test_sharded_volume.py's bounds on two host soups, ``b`` the
+    reference: (ok, triangles of a, of b, share of b's rounded centroids
+    that a holds)."""
+    na, nb = a.triangles.shape[0], b.triangles.shape[0]
+    ca, cb = _centroid_set(a), _centroid_set(b)
+    overlap = len(ca & cb) / max(len(cb), 1)
+    ok = nb > 0 and abs(na - nb) <= max(2, nb // 1000) and overlap > SHARDED_CENTROID_MIN
+    return ok, na, nb, overlap
+
+
+def sharded_phase(intr, cfg, cam, raw, mono_traj, mono_ms, dev, gpu: str,
+                  dual_pairs: int = N_SHARDED_DUAL_PAIRS, cli: bool = True):
+    """The sharded volume, ``parallel.sharded_volume``, in three parts.
+
+    (a) The JAX bench's cell (``bench.py:224-255``): ``make_sharded_slam_batch``
+    on a 1 x 1 mesh over the main path's frames, the launch counters zeroed
+    just before and read just after: every fit > 0.3, the trajectory equal
+    to the mono loop's (``mono_traj``) within 1e-5 (to the bit expected),
+    no overflow, B1 and B2 exactly once a tracked frame; then
+    ``sharded_slam_fps`` and ``sharded_slam_frame_ms`` by the bench's method
+    (3 batches less 1, over 2 x 15 frames) beside the mono loop's ms/frame.
+    (b) A 2 x 2 grid on ``dev``: two mounts, each tracking its own stream of
+    the main sweep's relative motion, the counters zeroed just before and
+    read just after: B2 once a camera a tracked frame, B1 once a camera a
+    shard a tracked frame; each camera's poses against a
+    ``compute_odometry_fast`` chain within 1e-4; disjoint shards;
+    ``combine_shards`` extraction against a single volume fed the same
+    frames at the same poses (triangle counts within max(2, n // 1000),
+    rounded centroids shared > 0.999); then 2 sharded steps on the card
+    against a CPU grid, shard by shard by block key with B1's tolerances.
+    (c) ``DualCameraFusion(sharded=True, devices=[dev] * 4)`` over the
+    first ``dual_pairs`` pairs of the bench rig's moving pass, beside the
+    unsharded pipeline: B1 exactly 4 a pair, ms/pair synchronized per pair
+    and with one sync; the combined volume against a single volume fed in
+    the sharded order (both cameras allocate, then both integrate), by key
+    and by mesh, and the unsharded pipeline's mesh, at the bounds of (b);
+    the save read back; then, with ``cli``,
+    ``cli.dual_fusion --sharded`` in a subprocess (one card: the fallback's
+    warning) must save a mesh and a cloud. Returns (failures, the launch
+    counts of each part)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_obj, read_ply
+
+    failures, counts = [], {}
+    t_phase = time.perf_counter()
+    tcfg = cfg.tsdf
+    rays = pixel_rays(intr, dev)
+    launched = lambda: {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    gc.collect()  # earlier phases' dropped volumes
+
+    # -- a. the bench's cell: the SLAM batch on a 1 x 1 mesh --------------------------
+    dec = [_decode(r, cfg, dev) for r in raw]
+    n = len(dec)
+    stack = lambda k: torch.stack([f[k] for f in dec])[None]
+    depths, colors, intens = stack(0), stack(1), stack(2)
+    eye = torch.eye(4, device=dev)[None]
+    m11 = sv.make_mesh(1, 1, [dev])
+    batch = sv.make_sharded_slam_batch(m11, intr, cfg, stride=2, worklist_size=2048)
+    run = lambda v: batch(v, eye, intens, depths, colors, rays)
+    run(sv.create_sharded(tcfg, m11))
+    _sync(dev)
+    build.launches.clear()
+    vol, poses, fits = run(sv.create_sharded(tcfg, m11))
+    _sync(dev)
+    counts["sharded"] = launched()
+    fit = fits.cpu().numpy()[0]
+    dtraj = float(np.abs(poses.cpu().numpy()[0].astype(np.float64) - np.stack(mono_traj)).max())
+    overflow = bool(vol.overflow.any())
+    del vol
+
+    def sharded_run(k):
+        t0 = time.perf_counter()
+        v = sv.create_sharded(tcfg, m11)
+        for _ in range(k):
+            v, _, _ = run(v)
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    sh1 = min(sharded_run(1) for _ in range(2))
+    sh3 = min(sharded_run(3) for _ in range(2))
+    frame_ms = (sh3 - sh1) / (2 * (n - 1)) * 1e3
+    _log(f"sharded 1x1 SLAM batch launches: {json.dumps(counts['sharded'])} over {n} frames  "
+         f"[{gpu}]")
+    _log(f"sharded 1x1 SLAM batch (bench.py's cell): min fit {fit.min():.4f}, trajectory vs the "
+         f"mono loop max |dpose| {dtraj:.3g} (equal to the bit: {dtraj == 0.0}), overflow "
+         f"{overflow}; sharded_slam_fps {1e3 / frame_ms:.3f}, sharded_slam_frame_ms "
+         f"{frame_ms:.3f} (bench.py's method: 3 batches less 1 over 2 x {n - 1} frames, host "
+         f"clock, min of 2) beside the mono loop's {mono_ms:.3f} ms/frame (one sync)  [{gpu}]")
+    if not (fit > 0.3).all():
+        failures.append(f"sharded 1x1: a fit under 0.3 ({fit.min():.4f})")
+    if not dtraj <= SHARDED_TRAJ_TOL:
+        failures.append(f"sharded 1x1: trajectory {dtraj:.3g} off the mono loop's")
+    if overflow:
+        failures.append("sharded 1x1: volume overflow")
+    if counts["sharded"] != {tk.KERNEL: n - 1, odo.KERNEL: n - 1}:
+        failures.append(f"sharded 1x1 launches {counts['sharded']}, not B1 and B2 once a "
+                        "tracked frame")
+    del depths, colors, intens, dec
+
+    # -- b. a 2 x 2 grid on one device: two mounts, each its own stream -----------------
+    sweep = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n]
+    mounts = orbit_trajectory(2, radius=0.25, angle_span=0.5)
+    rel = [np.linalg.inv(sweep[0]) @ T for T in sweep]
+    streams = [[_decode(_quantize(cam.render(M @ R)), cfg, dev) for R in rel] for M in mounts]
+    grid = lambda k: torch.stack([torch.stack([f[k] for f in s]) for s in streams])
+    D2, C2, I2 = grid(0), grid(1), grid(2)
+    del streams
+    T0 = torch.as_tensor(np.stack(mounts), dtype=torch.float32, device=dev)
+    m22 = sv.make_mesh(2, 2, [dev] * 4)
+    batch22 = sv.make_sharded_slam_batch(m22, intr, cfg, stride=2, worklist_size=2048)
+    vol22 = sv.create_sharded(tcfg, m22)
+    _sync(dev)
+    build.launches.clear()
+    t0 = time.perf_counter()
+    vol22, poses22, fits22 = batch22(vol22, T0, I2, D2, C2, rays)
+    _sync(dev)
+    grid_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    counts["grid"] = launched()
+    errs = []
+    for c in range(2):
+        T = mounts[c].astype(np.float64)
+        for f in range(1, n):
+            res = odo.compute_odometry_fast(I2[c, f - 1], D2[c, f - 1], I2[c, f], D2[c, f], intr,
+                                            cfg.odometry)
+            T = T @ np.linalg.inv(res.T_target_source.cpu().numpy().astype(np.float64))
+            d = se3.se3_log(torch.as_tensor(np.linalg.inv(T) @ poses22[c, f - 1].cpu().numpy()))
+            errs.append(float(d.norm()))
+    keys = [set(map(tuple, s.block_coords[:int(s.n_blocks)].cpu().tolist()))
+            for s in vol22.shards]
+    disjoint = not (keys[0] & keys[1])
+    single = tsdf.create(tcfg, dev)
+    for f in range(1, n):
+        for c in range(2):
+            single = tsdf.allocate(single, D2[c, f], rays, poses22[c, f - 1], tcfg, stride=2)
+        for c in range(2):
+            single = tk.integrate_worklist(single, D2[c, f], C2[c, f], poses22[c, f - 1], intr,
+                                           tcfg, 2048)
+    combined = sv.combine_shards(vol22, tcfg, 2)
+    same_keys, frac, err_t, err_c = _volumes_by_key(combined, single)
+    t0 = time.perf_counter()
+    mesh_c = mc.extract_mesh(combined, tcfg).compact()
+    combine_extract_ms = (time.perf_counter() - t0) * 1e3
+    ok_mesh, nt_c, nt_s, overlap = _meshes_match(mesh_c, mc.extract_mesh(single, tcfg).compact())
+    overflow = bool(vol22.overflow.any()) or bool(single.overflow)
+    fit22 = fits22.cpu().numpy()
+    _log(f"sharded 2x2 grid launches: {json.dumps(counts['grid'])} over 2 cameras x {n} frames  "
+         f"[{gpu}]")
+    _log(f"sharded 2x2 grid (two mounts on one device): {grid_ms:.3f} ms a frame of both cameras "
+         f"(host clock, one sync); min fit {fit22.min():.4f}; poses vs compute_odometry_fast "
+         f"chains max |se3 log| {max(errs):.3g}; shard blocks {[len(k) for k in keys]}, disjoint "
+         f"{disjoint}; combined vs a single volume fed the same frames: same keys {same_keys}, "
+         f"weights equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g}; "
+         f"meshes {nt_c} / {nt_s} triangles, centroids shared {overlap:.6f}; combine_shards + "
+         f"extract_mesh {combine_extract_ms:.1f} ms (host clock); overflow {overflow}  [{gpu}]")
+    if counts["grid"] != {tk.KERNEL: 4 * (n - 1), odo.KERNEL: 2 * (n - 1)}:
+        failures.append(f"sharded 2x2 launches {counts['grid']}, not B1 4 and B2 2 a frame")
+    if not ((fit22 > 0.3).all() and max(errs) < SHARDED_POSE_TOL):
+        failures.append(f"sharded 2x2: tracking off (min fit {fit22.min():.4f}, pose "
+                        f"{max(errs):.3g})")
+    if not (disjoint and ok_mesh and not overflow):
+        failures.append(f"sharded 2x2: disjoint {disjoint}, meshes {nt_c} / {nt_s} with "
+                        f"{overlap:.6f} shared, overflow {overflow}")
+    del single, combined, mesh_c, vol22
+
+    cpu = torch.device("cpu")
+    mcpu = sv.make_mesh(2, 2, [cpu] * 4)
+    vg, vc = sv.create_sharded(tcfg, m22), sv.create_sharded(tcfg, mcpu)
+    step_g = sv.make_sharded_step(m22, intr, tcfg, stride=2, worklist_size=2048)
+    step_c = sv.make_sharded_step(mcpu, intr, tcfg, stride=2, worklist_size=2048)
+    t0 = time.perf_counter()
+    for f in (1, 2):
+        vg = step_g(vg, D2[:, f], C2[:, f], poses22[:, f - 1], rays)
+        vc = step_c(vc, D2[:, f].cpu(), C2[:, f].cpu(), poses22[:, f - 1].cpu(), rays.cpu())
+    by_key = [_volumes_by_key(a, b) for a, b in zip(vg.shards, vc.shards)]
+    _log(f"sharded 2x2 steps card vs CPU grid over 2 frames, by shard: same keys / weights equal "
+         f"/ max |dtsdf| / max |dcolor| {[(k, round(w, 6), t, c) for k, w, t, c in by_key]} "
+         f"({time.perf_counter() - t0:.1f} s)")
+    if not all(k and w >= B1_WEIGHT_EQUAL_MIN and t <= B1_VALUE_TOL and c <= B1_VALUE_TOL
+               for k, w, t, c in by_key):
+        failures.append("sharded 2x2 steps on the card differ from the CPU grid")
+    del vg, vc, D2, C2, I2
+
+    # -- c. the dual pipeline, sharded on [dev] * 4 beside unsharded ---------------------
+    rig = bench_rig()
+    moving = [((cam.capture(T), cam.capture(T @ rig)), T, T @ rig) for T in sweep[:dual_pairs]]
+    tmp = tempfile.TemporaryDirectory()
+
+    def dual(sharded):
+        p = DualCameraFusion((intr, intr), cfg, device=dev, output_dir=tmp.name, sharded=sharded,
+                             devices=[dev] * 4 if sharded else None)
+        p.calibrated = True
+        return p
+
+    def fuse(p, each):
+        ms = []
+        t0 = t_all = time.perf_counter()
+        for pr, A, B in moving:
+            p.extrinsics = [A, B]
+            p.process_frames(pr)
+            if each:
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+        _sync(dev)
+        return ms if each else (time.perf_counter() - t_all) * 1e3 / len(moving)
+
+    med = lambda a: sorted(a)[len(a) // 2]
+    ps = dual(True)
+    _sync(dev)
+    build.launches.clear()
+    ms_s = fuse(ps, True)
+    counts["dual"] = launched()
+    one_s = fuse(dual(True), False)
+    pu = dual(False)
+    ms_u = fuse(pu, True)
+    one_u = fuse(dual(False), False)
+    # the sharded step's order on one volume: both cameras allocate, then both integrate
+    ref = tsdf.create(tcfg, dev)
+    for pr, A, B in moving:
+        dec2 = [_decode(r, cfg, dev) for r in pr]
+        Ts = [torch.as_tensor(T, dtype=torch.float32, device=dev) for T in (A, B)]
+        for (d, _, _), T in zip(dec2, Ts):
+            ref = tsdf.allocate(ref, d, rays, T, tcfg, stride=2)
+        for (d, c, _), T in zip(dec2, Ts):
+            ref = tk.integrate_worklist(ref, d, c, T, intr, tcfg, 2048)
+    combined = ps.extraction_volume()
+    same_keys, frac, err_t, err_c = _volumes_by_key(combined, ref)
+    mesh_s = mc.extract_mesh(combined, tcfg).compact()
+    ok_ref, _, nt_r, overlap_r = _meshes_match(mesh_s, mc.extract_mesh(ref, tcfg).compact())
+    _, nt_s, nt_u, overlap = _meshes_match(mesh_s, mc.extract_mesh(pu.volume, tcfg).compact())
+    ok_unsharded = abs(nt_s - nt_u) <= max(2, nt_u // 1000) and overlap > SHARDED_CENTROID_MIN
+    del combined, ref, mesh_s
+    overflow = bool(ps.volume.overflow.any()) or bool(pu.volume.overflow)
+    t0 = time.perf_counter()
+    paths = ps.save_current_state()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    cv, ccol, _ = read_ply(paths["pointcloud"]) if "pointcloud" in paths else (None,) * 3
+    mv, _, mf = read_obj(paths["mesh"])
+    ok_save = (cv is not None and len(cv) > 1000 and np.isfinite(cv).all() and ccol is not None
+               and mf is not None and len(mf) > 1000 and np.isfinite(mv).all()
+               and mf.max() < len(mv))
+    _log(f"sharded dual launches: {json.dumps(counts['dual'])} over {dual_pairs} pairs  [{gpu}]")
+    _log(f"sharded dual ({ps.mesh.shape}, the bench rig's moving pass): ms/pair synchronized per "
+         f"pair median {med(ms_s):.3f} (min {min(ms_s):.3f}, max {max(ms_s):.3f}), one sync "
+         f"{one_s:.3f}; unsharded median {med(ms_u):.3f} (min {min(ms_u):.3f}, max "
+         f"{max(ms_u):.3f}), one sync {one_u:.3f} (host clock); combined vs a single volume "
+         f"in the sharded order: same keys {same_keys}, weights equal on {frac:.6%}, max "
+         f"|dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g}, meshes {nt_s} / {nt_r} triangles, "
+         f"centroids shared {overlap_r:.6f}; vs unsharded {nt_s} / {nt_u}, centroids shared "
+         f"{overlap:.6f}; save {save_ms:.1f} ms (host) read back "
+         f"{ok_save} ({0 if cv is None else len(cv)} points, {0 if mf is None else len(mf)} "
+         f"triangles); overflow {overflow}  [{gpu}]")
+    if counts["dual"] != {tk.KERNEL: 4 * dual_pairs, odo.KERNEL: 0}:
+        failures.append(f"sharded dual launches {counts['dual']}, not B1 4 a pair")
+    same_voxels = (same_keys and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
+                   and err_c <= B1_VALUE_TOL)
+    if not (ps.sharded and same_voxels and ok_ref and ok_unsharded and ok_save and not overflow):
+        failures.append(f"sharded dual: sharded {ps.sharded}, same voxels {same_voxels}, meshes "
+                        f"{nt_s} / {nt_r} ({overlap_r:.6f} shared) / {nt_u} unsharded "
+                        f"({overlap:.6f}), save {ok_save}, overflow {overflow}")
+    del ps, pu
+    tmp.cleanup()
+
+    if cli:
+        with tempfile.TemporaryDirectory() as out:
+            args = ["--source", "synthetic", "--frames", str(dual_pairs), "--sharded",
+                    "--output", out]
+            if dev.type != "cuda":
+                args += ["--device", "cpu", "--scale", "0.25"]
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", f"{PKG}.cli.dual_fusion", *args],
+                               capture_output=True, text=True, timeout=600, cwd=REPO)
+            names = sorted(os.listdir(out))
+            saved = "latest_mesh.obj" in names and "latest_merged.ply" in names
+            said = r.stdout + r.stderr
+            fallback = "falling back to single-device" in said
+            tail = [ln for ln in said.splitlines() if "pairs," in ln or "sharded" in ln]
+            _log(f"cli.dual_fusion --sharded over {dual_pairs} pairs: rc {r.returncode}, "
+                 f"{time.perf_counter() - t0:.1f} s (host clock, process start included), wrote "
+                 f"{names}; {' | '.join(tail)}")
+            one_card = dev.type != "cuda" or torch.cuda.device_count() < 2
+            if r.returncode != 0 or not saved or fallback != one_card:
+                failures.append(f"cli.dual_fusion --sharded: rc {r.returncode}, wrote {names}, "
+                                f"fallback {fallback}; {r.stderr[-1500:]}")
+    _log(f"sharded phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  [{gpu}]")
+    return failures, counts
+
+
 def main() -> int:
     import torch
 
@@ -2109,8 +2444,8 @@ def main() -> int:
          f"max {steady[-1]:.3f}  [{gpu}]")
     # the live loop's own pace: the same frames again, one sync at the end
     pipe.reset()
-    _log(f"ms/frame (host clock, one sync after {N_FRAMES} frames): "
-         f"{_run_frames(pipe, raw, False):.3f}  [{gpu}]")
+    mono_ms = _run_frames(pipe, raw, False)
+    _log(f"ms/frame (host clock, one sync after {N_FRAMES} frames): {mono_ms:.3f}  [{gpu}]")
     if n_rejected or len(fit) != N_FRAMES - 1:
         failures.append(f"{n_rejected} frame(s) rejected by the fitness gate")
     if overflow:
@@ -2160,6 +2495,13 @@ def main() -> int:
     for k in kernels:
         k["launches_streaming"] = stream_counts[0][k["name"]]
         k["launches_streaming_quarter"] = stream_counts[1][k["name"]]
+    sharded_failures, sharded_counts = sharded_phase(intr, cfg, cam, raw, traj[1:], mono_ms, dev,
+                                                     gpu)
+    failures += sharded_failures
+    for k in kernels:
+        for part, key in (("sharded", "launches_sharded"), ("grid", "launches_sharded_grid"),
+                          ("dual", "launches_sharded_dual")):
+            k[key] = sharded_counts[part][k["name"]]
     _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))

@@ -218,6 +218,43 @@ def test_coarse_recovery_does_not_depend_on_the_draw(cam, tmp_path):
     assert ev.get("coarse_retry", 0) >= 1 and ev.get("coarse_won") == 1 and "reg_fail" not in ev
 
 
+@pytest.mark.parametrize("seeds, fitness, rounds, won", [("far, true", 0.55, 2, 1),
+                                                        ("true", 0.7, 1, 0)])
+def test_coarse_stage_redraws_until_a_seed_wins_or_confirms(cam, tmp_path, monkeypatch, seeds,
+                                                            fitness, rounds, won):
+    """The coarse stage of the large-motion pair, handed an un-seeded
+    result over the 0.5 gate. The wrong one (0.54 off in se3, fitness set
+    to 0.55): a first seed that refines elsewhere and loses does not end
+    the stage, and the next, the true pose, wins. The true pose's
+    refinement (fitness set to 0.7, over any seed's): a first seed that
+    refines to it confirms it without winning, and the stage ends after one
+    round."""
+    from azurekinect3dreconstruction_tpu_torch.core.types import RGBDFrame
+    from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import icp_point_to_plane
+
+    poses = orbit_trajectory(2, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    T_true = np.linalg.inv(poses[0]) @ poses[1]
+    pipe = CloudAccumulator(INTR, CFG, device="cpu", output_dir=str(tmp_path))
+    pipe.process_frame(*cam.capture(poses[0]))
+    frame = RGBDFrame.from_raw(*(torch.from_numpy(a) for a in cam.capture(poses[1])))
+    flat = backproject_depth(frame.depth, pipe.rays)[::4, ::4].reshape(-1, 3)
+    mask = flat[:, 2] > 0
+    res = icp_point_to_plane(flat, mask, pipe.prev_maps, INTR, cfg=CFG.registration)
+    assert np.linalg.norm(_pose_err(res.T.numpy(), T_true)) > 0.3
+    true = torch.as_tensor(T_true, dtype=torch.float32)
+    if seeds == "true":  # the un-seeded result is the true pose's refinement
+        res = icp_point_to_plane(flat, mask, pipe.prev_maps, INTR, init=true, cfg=CFG.registration)
+    far = true @ se3.se3_exp(torch.tensor([0.3, 0.0, 0.1, 0.0, 0.6, 0.0]))
+    draws = iter([far, true] if seeds == "far, true" else [true, true])
+    monkeypatch.setattr(pipe, "_ransac_seed", lambda *a: next(draws))
+    got = pipe._coarse_register(flat, mask, res._replace(fitness=torch.tensor(fitness)))
+    et, er = _pose_err(got.T.numpy(), T_true)
+    assert et < 0.06 and er < 0.10, (et, er)
+    ev = pipe.telemetry.counters
+    assert ev.get("coarse_retry", 0) == rounds - 1 and ev.get("coarse_won", 0) == won, ev
+
+
 def _patch(shape=(1.2, 0.6), spacing=0.005):
     """A planar patch at 1 m, on a 5 mm grid, gray."""
     g = [np.arange(0.0, s, spacing) for s in shape]

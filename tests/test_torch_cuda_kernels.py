@@ -1110,3 +1110,87 @@ def test_streamed_loop_syncs_only_at_tick_frames(dev):
     assert ticks == sv.n_ticks == 2
     assert build.launches[tk.KERNEL] - b1 == build.launches[odo.KERNEL] - b2 == len(raw) - 1
     assert pipe.volume.tsdf is sv.vol.tsdf and pipe.odometry_failures == 0
+
+
+# -- the sharded volume --------------------------------------------------------------
+
+
+def test_sharded_step_on_a_card_grid_matches_cpu(dev, rig_pair):
+    """Two sharded steps of the test rig's pair on a ``[cuda] * 4`` grid
+    (2 x 2; B1 4 times a step) and on a CPU grid: shard by shard the same
+    block keys, the voxels to B1's tolerances."""
+    from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
+
+    T1, ((d0, c0), (d1, c1)) = rig_pair
+    cam_c = DUAL_CFG.camera
+    scal = (1.0 / cam_c.depth_scale, cam_c.depth_min, cam_c.depth_trunc)
+    vols = []
+    for d in (dev, torch.device("cpu")):
+        mesh = sv.make_mesh(2, 2, [d] * 4)
+        step = sv.make_sharded_raw_step(mesh, INTR, CFG, stride=2)
+        t = lambda *a: torch.stack([torch.from_numpy(x) for x in a]).to(d)
+        poses = torch.as_tensor(np.stack([np.eye(4), T1]), dtype=torch.float32, device=d)
+        vol = sv.create_sharded(CFG, mesh)
+        before = build.launches[tk.KERNEL]
+        for _ in range(2):
+            vol = step(vol, t(d0, d1), t(c0, c1), poses, pixel_rays(INTR, d),
+                       torch.ones(2, device=d), *scal)
+        assert build.launches[tk.KERNEL] - before == (8 if d.type == "cuda" else 0)
+        vols.append(vol)
+    assert not vols[0].overflow.any()
+    for a, b in zip(*(v.shards for v in vols)):
+        _assert_close_by_key(a, b)
+
+
+def test_calibrated_sharded_dual_loop_never_syncs(dev, rig_pair, tmp_path):
+    """``DualCameraFusion(sharded=True, devices=[cuda] * 4)``: the first
+    pair calibrates, and after it ``process_frames`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` with B1 launched 4 times a
+    pair (2 cameras x 2 shards)."""
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+
+    _, pair = rig_pair
+    pipe = DualCameraFusion((INTR, INTR), DUAL_CFG, device=dev, output_dir=str(tmp_path),
+                            sharded=True, devices=[dev] * 4)
+    assert pipe.sharded and pipe.mesh.shape == {"cam": 2, "blk": 2}
+    pipe.process_frames(pair)
+    assert pipe.calibrated
+    torch.cuda.synchronize()
+    before = build.launches[tk.KERNEL]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pipe.process_frames(pair)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert build.launches[tk.KERNEL] - before == 12
+    assert not pipe.volume.overflow.any() and int(pipe.volume.n_blocks.sum()) > 50
+
+
+def test_sharded_slam_batch_1x1_tracks_as_the_mono_loop(dev):
+    """The 1 x 1 SLAM batch over 6 frames against ``MonoOdometryTSDF`` on
+    the same decoded frames: the same trajectory to 1e-5 (the same
+    arithmetic; to the bit expected), B2 and B1 once a tracked frame."""
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
+
+    pcfg = PipelineConfig(tsdf=CFG, odometry=OdometryConfig(pyramid_iters=(8, 8, 8)))
+    raw = _raw_frames(orbit_trajectory(6, radius=0.3, angle_span=0.6))
+    pipe = MonoOdometryTSDF(INTR, pcfg, device=dev)
+    for d, c in raw:
+        pipe.process_frame(d, c)
+    cam_c = pcfg.camera
+    dec = [decode_raw_frame(torch.from_numpy(d).to(dev), torch.from_numpy(c).to(dev),
+                            1.0 / cam_c.depth_scale, cam_c.depth_min, cam_c.depth_trunc)
+           for d, c in raw]
+    stack = lambda k: torch.stack([f[k] for f in dec])[None]
+    mesh = sv.make_mesh(1, 1, [dev])
+    batch = sv.make_sharded_slam_batch(mesh, INTR, pcfg, stride=2)
+    torch.cuda.synchronize()
+    b1, b2 = build.launches[tk.KERNEL], build.launches[odo.KERNEL]
+    vol, poses, fits = batch(sv.create_sharded(CFG, mesh), torch.eye(4, device=dev)[None],
+                             stack(2), stack(0), stack(1), pixel_rays(INTR, dev))
+    assert build.launches[tk.KERNEL] - b1 == build.launches[odo.KERNEL] - b2 == 5
+    want = np.stack(pipe.trajectory[2:])
+    np.testing.assert_allclose(poses[0].cpu().numpy(), want, rtol=0, atol=1e-5)
+    assert (fits > 0.3).all() and not vol.overflow.any()
