@@ -4,11 +4,18 @@ of the JAX package's ``scripts/common.py``, headless only).
 ``--source`` chooses the frames:
   synthetic       the deterministic rendered scene (default; no hardware)
   replay:<dir>    a recorded ``frame_%06d.npz`` log (``io/replay.py``)
+  mkv:<file>      a k4arecorder recording (``io/mkv.py``; needs pyk4a)
+  k4a[:<id>]      a live Azure Kinect (``io/k4a_live.py``; needs pyk4a)
+
+The MKV and live sources give depth registered to the color camera, so
+their intrinsics are the color camera's. Without pyk4a they exit with an
+error that says so.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -21,7 +28,7 @@ from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("--source", default="synthetic", help="synthetic | replay:<dir>")
+    ap.add_argument("--source", default="synthetic", help="synthetic | replay:<dir> | mkv:<file> | k4a[:<id>]")
     ap.add_argument("--frames", type=int, default=60, help="frame budget")
     ap.add_argument("--scale", type=float, default=1.0,
                     help="intrinsics and image scale of the synthetic source (e.g. 0.25)")
@@ -47,4 +54,21 @@ def make_source(args) -> Tuple[Iterator[Tuple[np.ndarray, np.ndarray]], Intrinsi
         if args.scale != 1.0:
             log_info("--scale ignored for replay sources")
         return iter(src), intr
-    raise SystemExit(f"unknown source {spec!r}: use synthetic or replay:<dir>")
+    try:
+        if spec.startswith("mkv:"):
+            from azurekinect3dreconstruction_tpu_torch.io.mkv import MkvReplaySource
+
+            src = MkvReplaySource(spec.split(":", 1)[1], limit=args.frames or None)
+            intr = (src.calibration.color if src.calibration
+                    else Intrinsics.fallback_from_size(1280, 720))
+            return iter(src), intr
+        if spec == "k4a" or spec.startswith("k4a:"):
+            from azurekinect3dreconstruction_tpu_torch.io.k4a_live import K4ALiveSource
+
+            src = K4ALiveSource(device_id=int(spec.split(":")[1]) if ":" in spec else 0)
+            it = itertools.islice(src.frames(), args.frames) if args.frames else src.frames()
+            return it, src.calibration.color
+    except RuntimeError as e:
+        raise SystemExit(f"--source {spec}: {e}") from e
+    raise SystemExit(f"unknown source {spec!r}: use synthetic, replay:<dir>, mkv:<file> or "
+                     "k4a[:<id>]")

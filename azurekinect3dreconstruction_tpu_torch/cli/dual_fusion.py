@@ -2,11 +2,15 @@
 of the JAX package's ``scripts/dual_fusion.py``.
 
     python -m azurekinect3dreconstruction_tpu_torch.cli.dual_fusion \\
-        --source synthetic --frames 30 [--sharded] --output results
+        --source synthetic|k4a --frames 30 [--sharded] --output results
 
 The synthetic source is a static two-camera rig viewing the default scene:
 camera 0 at the origin, camera 1 at ``se3_exp([0.12, 0.02, -0.02, 0.03,
--0.1, 0.02])``. The first good pair calibrates camera 1's extrinsic (FPFH +
+-0.1, 0.02])``. ``--source k4a`` captures synchronized pairs from the first
+two attached Azure Kinects (``io.streams.MultiCameraRig`` over two
+``io.k4a_live.K4ALiveSource``; needs pyk4a), their intrinsics from the
+first camera's color calibration. Each pair uploads while the previous one
+computes (``io.streams.prefetch_to_device``). The first good pair calibrates camera 1's extrinsic (FPFH +
 RANSAC + ICP; ``--colored-calib`` refines with colored ICP), unless
 ``--rig-calib DIR`` loads the newest rig calibration there. Every pair is
 fused (``DualCameraFusion``); on exit the merged cloud and the TSDF mesh
@@ -34,6 +38,7 @@ from azurekinect3dreconstruction_tpu_torch.config import (
 from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
 from azurekinect3dreconstruction_tpu_torch.core.device import resolve_device
+from azurekinect3dreconstruction_tpu_torch.io.streams import MultiCameraRig, prefetch_to_device
 from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
 from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info
@@ -47,6 +52,35 @@ def synthetic_pair_frames(args, intr):
     T1 = se3.se3_exp(torch.tensor(RIG_XI, dtype=torch.float32)).numpy().astype(np.float64)
     for _ in range(args.frames):
         yield cam.capture(np.eye(4)), cam.capture(T1)
+
+
+def k4a_pair_frames(args):
+    """(pairs from the first two attached Azure Kinects through a
+    synchronized rig, depth intrinsics of the first camera's color)."""
+    from azurekinect3dreconstruction_tpu_torch.io.k4a_live import K4ALiveSource, detect_cameras
+
+    ids = detect_cameras()
+    if len(ids) < 2:
+        raise SystemExit("need two Azure Kinect devices for --source k4a")
+    sources = [K4ALiveSource(device_id=i) for i in ids[:2]]
+
+    def pairs():
+        rig = MultiCameraRig([s.capture for s in sources])
+        rig.start()
+        rig.install_sigint_handler()
+        try:
+            n = 0
+            while args.frames == 0 or n < args.frames:
+                frames = rig.get_synchronized_frames()
+                if frames is not None:
+                    yield tuple(frames)
+                    n += 1
+        finally:
+            rig.stop()
+            for s in sources:
+                s.stop()
+
+    return pairs(), sources[0].calibration.color
 
 
 def main(argv=None) -> int:
@@ -63,24 +97,32 @@ def main(argv=None) -> int:
                     help="load the newest rig calibration from DIR instead of auto-calibrating")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s] %(message)s")
-    if args.source != "synthetic":
-        raise SystemExit(f"dual_fusion takes --source synthetic (a {args.source!r} log holds "
-                         "one camera)")
-
-    intr = Intrinsics.azure_kinect_depth_nfov().scaled(args.scale)
+    if args.source == "k4a":
+        frames, intr = k4a_pair_frames(args)
+    elif args.source == "synthetic":
+        intr = Intrinsics.azure_kinect_depth_nfov().scaled(args.scale)
+        frames = synthetic_pair_frames(args, intr)
+    else:
+        raise SystemExit(f"dual_fusion takes --source synthetic or k4a (a {args.source!r} source "
+                         "holds one camera)")
     cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel),
                          registration=RegistrationConfig(ransac_hypotheses=2048))
     pipe = DualCameraFusion((intr, intr), cfg, device=args.device, output_dir=args.output,
                             sharded=args.sharded, colored_calibration=args.colored_calib)
     if args.rig_calib:
-        cal = RigCalibration.load_newest(args.rig_calib)
+        serials = None
+        if args.source == "k4a":  # the saved serials must match the attached rig's
+            from azurekinect3dreconstruction_tpu_torch.io.k4a_live import rig_serials
+
+            serials = rig_serials()
+        cal = RigCalibration.load_newest(args.rig_calib, expected_serials=serials)
         if cal is None:
-            raise SystemExit(f"no rig calibration in {args.rig_calib}")
+            raise SystemExit(f"no matching rig calibration in {args.rig_calib}")
         pipe.extrinsics = [np.asarray(e, np.float64) for e in cal.extrinsics]
         pipe.calibrated = True
         log_info(f"rig calibration loaded: baseline "
                  f"{np.linalg.norm(cal.extrinsics[1][:3, 3]):.4f} m (serials {cal.serials})")
-    for pair in synthetic_pair_frames(args, intr):
+    for pair in prefetch_to_device(frames, device=args.device):
         pipe.process_frames(pair)
     log_info(f"{pipe.frame_index} pairs, calibrated {pipe.calibrated}, sharded {pipe.sharded}, "
              f"n_blocks {int(pipe.volume.n_blocks.sum())}, "

@@ -4,10 +4,11 @@ the JAX package's ``scripts/live_mono.py``.
     python -m azurekinect3dreconstruction_tpu_torch.cli.live_mono \\
         --source synthetic --frames 24 --streaming --output results
 
-Tracks and fuses every frame (``MonoOdometryTSDF``), and on exit saves the
-welded mesh, the volume's point cloud and the trajectory (and, on the
-synthetic source, the true trajectory in the pipeline's frame) through
-``viz.savers.ResultSaver``. ``--streaming`` streams far blocks to host
+Tracks and fuses every frame (``MonoOdometryTSDF``), each uploaded while
+the previous one computes (``io.streams.prefetch_to_device``), and on exit
+saves the welded mesh, the volume's point cloud and the trajectory (and,
+on the synthetic source, the true trajectory in the pipeline's frame)
+through ``viz.savers.ResultSaver``. ``--streaming`` streams far blocks to host
 memory (``tsdf.streaming.StreamingTSDF``), so the scan's extent is not
 bounded by the device pool; the saves then assemble live and streamed
 geometry. Runs on the card unless ``--device cpu``.
@@ -22,6 +23,7 @@ import numpy as np
 from azurekinect3dreconstruction_tpu_torch.cli.common import add_common_args, make_source
 from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
 from azurekinect3dreconstruction_tpu_torch.core.types import PointCloudHost
+from azurekinect3dreconstruction_tpu_torch.io.streams import prefetch_to_device
 from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import MonoOdometryTSDF
 from azurekinect3dreconstruction_tpu_torch.tsdf.marching_cubes import weld_vertices
 from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
@@ -70,7 +72,8 @@ def main(argv=None) -> int:
                  f"evict>{streaming.evict_dist:.2f} m, high water {streaming.high_water} blocks")
     pipe = MonoOdometryTSDF(intr, cfg, device=args.device, tracking=args.tracking,
                             streaming=streaming, relocalize=args.relocalize)
-    for depth, color in frames:
+    # frame k+1 uploads while the step computes on frame k
+    for depth, color in prefetch_to_device(frames, device=args.device):
         pipe.process_frame(depth, color)
     log_info(f"{pipe.frame_index} frames, {pipe.odometry_failures} gate rejections, "
              f"n_blocks {int(pipe.volume.n_blocks)}, overflow {bool(pipe.volume.overflow)}"

@@ -51,6 +51,18 @@ class Intrinsics:
         """Nominal Azure Kinect 1280x720 color intrinsics."""
         return Intrinsics(1280, 720, 605.286, 605.699, 637.134, 366.758)
 
+    @staticmethod
+    def primesense_default() -> "Intrinsics":
+        """Open3D's PrimeSenseDefault 640x480 intrinsics."""
+        return Intrinsics(640, 480, 525.0, 525.0, 319.5, 239.5)
+
+    @staticmethod
+    def fallback_from_size(width: int, height: int) -> "Intrinsics":
+        """The last-resort guess when a camera reports no calibration:
+        fx = fy = width * 1.03, the principal point at the image center."""
+        f = width * 1.03
+        return Intrinsics(width, height, f, f, width / 2.0, height / 2.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class Distortion:

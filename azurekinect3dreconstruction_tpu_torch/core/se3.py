@@ -162,3 +162,11 @@ def is_valid_transform(T, tol: float = 1e-3) -> bool:
     R = T[:3, :3]
     return bool(np.allclose(R @ R.T, np.eye(3), atol=10 * tol)
                 and abs(np.linalg.det(R) - 1.0) < 10 * tol)
+
+
+def same_pose(T_a, T_b, tol: float) -> bool:
+    """Whether two poses lie within ``tol`` of each other, in metres of
+    translation and radians of rotation (a radian moves a point at the
+    scene's ~1 m depth by ~1 m)."""
+    d = se3_log(inverse(T_a) @ T_b)
+    return bool((torch.linalg.vector_norm(d[:3]) < tol) & (torch.linalg.vector_norm(d[3:]) < tol))

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
 
 _BIG = 1e9
@@ -232,3 +233,14 @@ def orbit_trajectory(n: int, radius: float = 0.4, center=(0.0, 0.1, 1.4),
         T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = x_axis, y_axis, z_axis, eye
         poses.append(T)
     return poses
+
+
+def small_motion(i: int, scale: float = 1.0):
+    """A small SE(3) perturbation for frame-to-frame odometry tests: a
+    twist drawn uniformly in +-0.01 * ``scale`` (m and rad) from
+    ``RandomState(100 + i)``, as the JAX package's ``small_motion`` draws
+    it; a 4x4 float32 numpy matrix."""
+    rng = np.random.RandomState(100 + i)
+    xi = np.concatenate([rng.uniform(-0.01, 0.01, 3) * scale,
+                         rng.uniform(-0.01, 0.01, 3) * scale])
+    return se3.se3_exp(torch.as_tensor(xi, dtype=torch.float32)).numpy()

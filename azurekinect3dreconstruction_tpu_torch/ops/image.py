@@ -1,5 +1,6 @@
-"""Image-space ops: intensity, pyramids and Sobel gradients for odometry,
-and the depth-gradient display colors of two-camera fusion.
+"""Image-space ops: BGRA to RGB and the vertical flip of the sources;
+intensity, pyramids and Sobel gradients for odometry; and the
+depth-gradient display colors of two-camera fusion.
 
 Edge-clamped shift-add stencils in float32, with the JAX package's operation
 order, so results agree exactly (or to the last ulp where a compiler fuses a
@@ -13,6 +14,17 @@ from typing import List, Tuple
 import torch
 
 from azurekinect3dreconstruction_tpu_torch.core.fmath import div
+
+
+def bgra_to_rgb(img):
+    """uint8 BGRA (H, W, 4) -> float32 RGB in [0, 1]."""
+    img = torch.as_tensor(img)
+    return img[..., [2, 1, 0]].to(torch.float32) / 255.0
+
+
+def flip_ud(img):
+    """Vertical flip (the row order reversed)."""
+    return torch.flip(torch.as_tensor(img), dims=(0,))
 
 
 def rgb_to_intensity(rgb):

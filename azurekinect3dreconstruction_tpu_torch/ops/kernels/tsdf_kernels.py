@@ -10,6 +10,7 @@ volume's sticky ``overflow`` flag instead.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -17,6 +18,7 @@ import torch
 from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
 from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+from azurekinect3dreconstruction_tpu_torch.core.device import full_fp32_matmul
 from azurekinect3dreconstruction_tpu_torch.core.fmath import fma, rcp32
 from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf_volume
@@ -178,3 +180,41 @@ def integrate_step(vol, depth, color, T_world_cam, rays, intr: Intrinsics,
     worklist size is a static budget, and overflow sets the sticky flag."""
     vol = tsdf_volume.allocate(vol, depth, rays, T_world_cam, cfg, stride=stride)
     return integrate_worklist(vol, depth, color, T_world_cam, intr, cfg, worklist_size)
+
+
+@functools.lru_cache(maxsize=16)
+def make_fused_frame_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, stride: int = 2):
+    """One frame's fused step: ``step(vol, depth, color, T, rays) -> vol``,
+    which is :func:`integrate_step` (allocate, worklist, integrate: B1 once
+    on the card).
+
+    The pools update in place, so the returned volume shares the input's
+    storage (this stands in for the JAX factory's donated volume): keep no
+    other reference to the input. Nothing waits on the host."""
+
+    def step(vol, depth, color, T, rays):
+        with full_fp32_matmul():
+            return integrate_step(vol, depth, color, T, rays, intr, cfg, worklist_size, stride)
+
+    return step
+
+
+@functools.lru_cache(maxsize=16)
+def make_fused_batch_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, stride: int = 2):
+    """A batch of frames at known poses:
+    ``batch(vol, depths (F, H, W), colors (F, H, W, 3), poses (F, 4, 4),
+    rays) -> vol``, one :func:`integrate_step` a frame in order (B1 F times
+    on the card), a Python loop where the JAX factory has ``lax.scan``.
+
+    The pools update in place, so the returned volume shares the input's
+    storage (this stands in for the JAX factory's donated volume). On the
+    card nothing waits on the host: a frame with more visible blocks than
+    ``worklist_size`` sets the sticky ``overflow`` flag instead."""
+
+    def batch(vol, depths, colors, poses, rays):
+        with full_fp32_matmul():
+            for d, c, T in zip(depths, colors, poses):
+                vol = integrate_step(vol, d, c, T, rays, intr, cfg, worklist_size, stride)
+        return vol
+
+    return batch

@@ -36,9 +36,6 @@ from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
 from azurekinect3dreconstruction_tpu_torch.core.device import full_fp32_matmul, resolve_device
 from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
-from azurekinect3dreconstruction_tpu_torch.ops.kernels.odometry_kernels import (
-    compute_odometry_fast,
-)
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.tsdf_kernels import integrate_worklist
 from azurekinect3dreconstruction_tpu_torch.tsdf import hash as vhash
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf_volume
@@ -255,18 +252,16 @@ def make_sharded_slam_batch(mesh: DeviceMesh, intr: Intrinsics, pcfg, stride: in
         -> (vol, poses (n_cam, F-1, 4, 4), fits (n_cam, F-1))
 
     Frame 0 of each stream is the tracking reference at ``T0[cam]``; each
-    later frame is tracked against its predecessor with
-    ``compute_odometry_fast`` (B2 once a camera a tracked frame on the
-    card), gated by ``apply_odometry_gate`` (identity motion and fitness -1
-    where it rejects), and then every camera's frame is fused into every
-    shard (B1 ``n_cam x n_blk`` times a frame). A Python loop over frames
+    later frame is tracked against its predecessor by the pipelines'
+    ``track_frame``: ``compute_odometry_fast`` (B2 once a camera a tracked
+    frame on the card), gated by ``apply_odometry_gate`` (identity motion
+    and fitness -1 where it rejects). Then every camera's frame is fused
+    into every shard (B1 ``n_cam x n_blk`` times a frame). A Python loop over frames
     with no host synchronization; poses and fits are returned on camera
     0's device."""
-    # the pipeline layer's gate, imported here so that this layer does not
-    # load the pipelines
-    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
-        apply_odometry_gate,
-    )
+    # the pipeline layer's tracking body, imported here so that this layer
+    # does not load the pipelines
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import track_frame
 
     fuse = _make_fuse(mesh, intr, pcfg.tsdf, stride, samples, dedup_budget, worklist_size)
     n_cam = mesh.shape["cam"]
@@ -278,9 +273,8 @@ def make_sharded_slam_batch(mesh: DeviceMesh, intr: Intrinsics, pcfg, stride: in
             poses, fits = [[] for _ in range(n_cam)], [[] for _ in range(n_cam)]
             for f in range(1, dep[0].shape[0]):
                 for c in range(n_cam):
-                    res = compute_odometry_fast(inten[c][f - 1], dep[c][f - 1], inten[c][f],
-                                                dep[c][f], intr, pcfg.odometry)
-                    T[c], fit = apply_odometry_gate(T[c], res, min_fitness)
+                    T[c], fit = track_frame(T[c], inten[c][f - 1], dep[c][f - 1], inten[c][f],
+                                            dep[c][f], intr, pcfg.odometry, min_fitness)
                     poses[c].append(T[c])
                     fits[c].append(fit)
                 vol = fuse(vol, [d[f] for d in dep], [c_[f] for c_ in col], T, rays)

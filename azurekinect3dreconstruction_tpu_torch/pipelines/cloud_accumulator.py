@@ -60,14 +60,6 @@ _COARSE_VOXEL = 0.015  # the coarse stage's grid; normals at 2x, FPFH at 4x
 _COARSE_ROUNDS = 4  # seeds a coarse stage draws at most, while the result is unconfirmed
 
 
-def _same_pose(T_a, T_b, tol: float) -> bool:
-    """Whether two poses lie within ``tol`` of each other, in metres of
-    translation and radians of rotation (a radian moves a point at the
-    scene's ~1 m depth by ~1 m)."""
-    d = se3.se3_log(se3.inverse(T_a) @ T_b)
-    return bool((torch.linalg.vector_norm(d[:3]) < tol) & (torch.linalg.vector_norm(d[3:]) < tol))
-
-
 class CloudAccumulator:
     """Feed raw (depth_u16, color_u8) frames; ``save_model`` writes the model.
 
@@ -169,7 +161,7 @@ class CloudAccumulator:
                 if float(r2.fitness) > float(res.fitness):
                     res, won = r2, True
                 elif not won:
-                    confirmed = confirmed or _same_pose(r2.T, res.T, reg.icp_distance_threshold)
+                    confirmed = confirmed or se3.same_pose(r2.T, res.T, reg.icp_distance_threshold)
             if float(res.fitness) >= reg.min_fitness_icp and (won or confirmed):
                 break
         if won:

@@ -23,6 +23,7 @@ cadence, not per frame; relocalization adds one read every
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Optional
 
 import numpy as np
@@ -49,7 +50,8 @@ from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF, 
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
 
 __all__ = ["MonoOdometryTSDF", "apply_lost_latch", "apply_odometry_gate", "decode_raw_frame",
-           "integration_reach", "make_raw_batch_fn", "make_raw_f2m_step", "make_raw_slam_step"]
+           "integration_reach", "make_device_slam_batch", "make_device_slam_step",
+           "make_raw_batch_fn", "make_raw_f2m_step", "make_raw_slam_step", "track_frame"]
 
 TRACKING_MODES = ("frame_to_frame", "frame_to_model")
 
@@ -452,6 +454,16 @@ def apply_odometry_gate(T_prev, res, min_fitness: float):
     return T, torch.where(ok, res.fitness, -1.0)
 
 
+def track_frame(T_prev, prev_int, prev_depth, intensity, depth, intr: Intrinsics, ocfg,
+                min_fitness: float):
+    """The tracking half of every frame-to-frame step: odometry of this
+    frame (target) against the previous one (source) with
+    :func:`compute_odometry_fast` (B2 once on the card), then
+    :func:`apply_odometry_gate`. Returns (T_world_cam, fitness)."""
+    res = compute_odometry_fast(prev_int, prev_depth, intensity, depth, intr, ocfg)
+    return apply_odometry_gate(T_prev, res, min_fitness)
+
+
 def apply_lost_latch(lost_in, fit, depth):
     """The device-side fusion latch of relocalize mode: ``lost`` sets on any
     gate rejection (``fit < 0``) and only the host clears it, so from the
@@ -488,8 +500,8 @@ def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int
         with full_fp32_matmul():
             d, c, inten = decode_raw_frame(depth_raw, color_raw, inv_scale, depth_min,
                                            depth_trunc)
-            res = compute_odometry_fast(prev_int, prev_depth, inten, d, intr, cfg.odometry)
-            T, fit = apply_odometry_gate(T_prev, res, min_fitness)
+            T, fit = track_frame(T_prev, prev_int, prev_depth, inten, d, intr, cfg.odometry,
+                                 min_fitness)
             if integrate_rejected:
                 vol = integrate_step(vol, d, c, T, rays, intr, cfg.tsdf, worklist_size, stride)
                 return vol, T, fit, inten, d
@@ -498,6 +510,67 @@ def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int
         return vol, T, fit, inten, d, lost
 
     return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_device_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+                          stride: int = 2, min_fitness: float = 0.3):
+    """The device-resident form of this pipeline on decoded frames: one
+    step that tracks (:func:`track_frame`: odometry against the previous
+    frame, identity motion where the gate rejects) and fuses
+    (``integrate_step``: allocate, worklist, integrate), with no host
+    synchronization. Batch frames with :func:`make_device_slam_batch`.
+
+    step(vol, T_prev (4, 4), prev_intensity, prev_depth, intensity, depth,
+         color, rays) -> (vol, T_world_cam, fitness)
+
+    B2 and B1 launch once each a call on the card; on the CPU their plain
+    versions run. The pools update in place, so the returned volume shares
+    the input's storage (this stands in for the JAX factory's donated
+    volume). The JAX package's ``make_xla_slam_step``, its mirror of this
+    step for backends without the Pallas kernels, has no separate port:
+    on the CPU this step already runs the kernels' plain versions."""
+
+    def step(vol, T_prev, prev_int, prev_depth, intensity, depth, color, rays):
+        with full_fp32_matmul():
+            T, fit = track_frame(T_prev, prev_int, prev_depth, intensity, depth, intr,
+                                 cfg.odometry, min_fitness)
+            vol = integrate_step(vol, depth, color, T, rays, intr, cfg.tsdf, worklist_size,
+                                 stride)
+        return vol, T, fit
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_device_slam_batch(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+                           stride: int = 2, min_fitness: float = 0.3):
+    """:func:`make_device_slam_step` over a frame batch, a Python loop where
+    the JAX factory has ``lax.scan``:
+
+    batch(vol, T0 (4, 4), intensities (F, H, W), depths (F, H, W),
+          colors (F, H, W, 3), rays)
+        -> (vol, poses (F-1, 4, 4), fitnesses (F-1,))
+
+    Frame 0 is only the tracking reference, at ``T0``: it is not
+    integrated (pass the last frame of the previous batch as index 0 to
+    chain batches). B2 and B1 launch once each a tracked frame on the card,
+    and nothing waits on the host; the pools update in place."""
+    step = make_device_slam_step(intr, cfg, worklist_size, stride, min_fitness)
+
+    def batch(vol, T0, intensities, depths, colors, rays):
+        T = torch.as_tensor(T0, dtype=torch.float32, device=depths.device)
+        poses, fits = [], []
+        for f in range(1, depths.shape[0]):
+            vol, T, fit = step(vol, T, intensities[f - 1], depths[f - 1], intensities[f],
+                               depths[f], colors[f], rays)
+            poses.append(T)
+            fits.append(fit)
+        if not poses:
+            return vol, T.new_zeros((0, 4, 4)), T.new_zeros((0,))
+        return vol, torch.stack(poses), torch.stack(fits)
+
+    return batch
 
 
 def make_raw_batch_fn(intr: Intrinsics, tsdf_cfg: TSDFConfig, worklist_size: Optional[int] = None,
@@ -553,8 +626,8 @@ def make_raw_f2m_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int 
         with full_fp32_matmul():
             d, c, inten = decode_raw_frame(depth_raw, color_raw, inv_scale, depth_min,
                                            depth_trunc)
-            res = compute_odometry_fast(prev_int, prev_depth, inten, d, intr, cfg.odometry)
-            T_odo, fit = apply_odometry_gate(T_prev, res, min_fitness)
+            T_odo, fit = track_frame(T_prev, prev_int, prev_depth, inten, d, intr, cfg.odometry,
+                                     min_fitness)
             r = refine(model_pts, model_mask, TargetMaps.from_depth(d, rays), se3.inverse(T_odo))
             ok = (r.inliers >= min_inliers) & torch.isfinite(r.T).all()
             # the jump gate in the tangent space; a wild T must not poison it

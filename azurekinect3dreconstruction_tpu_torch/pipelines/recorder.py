@@ -54,7 +54,6 @@ from azurekinect3dreconstruction_tpu_torch.ops.normals import organized_normals
 from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
 from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
     TargetMaps,
-    evaluate_registration,
     icp_point_to_plane,
     icp_projective,
 )
@@ -230,12 +229,18 @@ class Recorder:
         """The expensive rungs on the saved raw frames of a rejected
         keyframe: global FPFH + RANSAC registration, then point-to-plane ICP.
         Returns T (this camera -> previous keyframe camera, host float64) or
-        None. One round (4 RANSAC restarts, the best refined) is the
-        reference's whole ladder; its seed lands in ICP's basin only on some
+        None. The reference's whole ladder is one round: 4 RANSAC restarts,
+        the one of most cloud overlap refined. Here every restart is refined
+        and the refinement of highest fitness wins, once it passes the gate
+        and a second refinement lands on the same pose: on the card, the
+        jump of ``tests/test_pipelines.py`` once refined from the restart of
+        most overlap to a pose 0.63 m and 0.57 rad off that passed the gate
+        (a seed slid along a plane keeps much of its overlap), while the
+        true pose fits better. A restart lands in ICP's basin only on some
         draws (and on the card every run is a new draw: the downsample's and
-        FPFH's scatter-adds are atomics), so while the refinement is
-        rejected, another round draws fresh seeds, at most
-        ``_FALLBACK_ROUNDS`` in all."""
+        FPFH's scatter-adds are atomics), so while no winner is accepted,
+        another round draws fresh seeds, at most ``_FALLBACK_ROUNDS`` in all;
+        the last round accepts an unconfirmed winner that passes the gate."""
         cam = self.cfg.camera
         reg = self.cfg.registration
         # the recovery stage gets the full hypothesis pool
@@ -256,31 +261,31 @@ class Recorder:
         f_s = compute_fpfh(ds, n_s, dm, radius=4 * vox, k=16)
         f_t = compute_fpfh(dt, n_t, dtm, radius=4 * vox, k=16)
         wide = dataclasses.replace(reg, icp_distance_threshold=3 * reg.icp_distance_threshold)
+        refined = []  # every refinement so far, of every round
         for k in range(_FALLBACK_ROUNDS):
             if k:
                 self.telemetry.count("fallback_retry")
-            # restarts ranked by cloud overlap: RANSAC's own inlier share is
-            # gamed by smooth or ambiguous geometry
-            best_T, best_fit = None, -1.0
             for _ in range(4):
                 g = global_registration(ds, f_s, dm, dt, f_t, dtm, reg_full,
                                         distance_threshold=0.04, generator=self.generator)
                 if not se3.is_valid_transform(g.T.cpu().numpy()):
                     continue
-                fit, _ = evaluate_registration(ds, dm, dt, dtm, g.T, dist_thr=0.05)
-                if float(fit) > best_fit:
-                    best_fit, best_T = float(fit), g.T
-            if best_T is None:
+                # RANSAC only seeds: the refinement pulls a seed several cm
+                # off into the basin, and its fitness is what decides
+                r1 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=g.T, cfg=wide)
+                refined.append(icp_point_to_plane(src, s_mask, prev_maps, self.intr,
+                                                  init=r1.T, cfg=reg))
+            if not refined:
                 continue
-            # RANSAC only seeds: the refinement pulls a seed several cm off
-            # into the basin, and its gate is the one that decides
-            r1 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=best_T, cfg=wide)
-            res = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=r1.T, cfg=reg)
-            T = res.T.cpu().numpy().astype(np.float64)
-            if float(res.fitness) >= reg.min_fitness_icp and se3.is_valid_transform(T):
+            best = max(refined, key=lambda r: float(r.fitness))
+            T = best.T.cpu().numpy().astype(np.float64)
+            if not (float(best.fitness) >= reg.min_fitness_icp and se3.is_valid_transform(T)):
+                continue
+            n_same = sum(se3.same_pose(r.T, best.T, reg.icp_distance_threshold) for r in refined)
+            if n_same >= 2 or k == _FALLBACK_ROUNDS - 1:
                 self.telemetry.count("fallback_icp_ok")
                 return T
-        self.telemetry.count("global_reject" if best_T is None else "fallback_reject")
+        self.telemetry.count("fallback_reject" if refined else "global_reject")
         return None
 
     # -- persistence ----------------------------------------------------------

@@ -46,7 +46,8 @@ worklist, odometry pyramid [20, 10, 5]):
    frame, B2 never, every keyframe accepted by colored ICP, no overflow,
    the keyframes' ATE <= 2 cm; saves and reads back, times one keyframe
    step, its colored ICP and one interval step; then the keyframe jump of
-   ``tests/test_pipelines.py`` must be rebased through the fallback ladder;
+   ``tests/test_pipelines.py`` must be rebased through the fallback ladder,
+   and the ladder must land on it again from each of 8 fresh seeds;
 8. drives the offline bundle, ``OfflineBundle(..., device="cuda")``, over
    the first 12 sweep poses out and back (24 frames) and ``finalize``, the
    counters zeroed just before and read just after: B1 exactly once a
@@ -115,7 +116,26 @@ worklist, odometry pyramid [20, 10, 5]):
    over 8 bench-rig pairs beside the unsharded pipeline (B1 4 a pair,
    ms/pair, the meshes, the save read back), each with the counters zeroed
    just before and read just after; then ``cli.dual_fusion --sharded`` in a
-   subprocess must save a mesh and a cloud.
+   subprocess must save a mesh and a cloud;
+15. drives the device-resident step and batches and the frame feeder by
+   the JAX bench's methods (``device_step_phase``): ``make_fused_batch_fn``
+   over the 64-pose sweep (``bench.py:67-121``: a 32-frame warmup on its
+   own trajectory, the sweep cold in two 32-frame batches with
+   ``n_blocks`` growing between them, B1 exactly 64 a pass, the volume
+   equal by key to 64 ``integrate_step`` calls to the bit,
+   ``fused_cold_fps`` from the min of 3 cold passes, ``fused_steady_fps``
+   from the warm repass slope); ``make_device_slam_batch``
+   (``bench.py:165-221``: the 16-frame batch, B2 and B1 15 each, min fit
+   > 0.3, ``slam_batch_fps`` by the (3 - 1) / 30 slope; on the mono loop's
+   decoded frames its poses equal to the mono loop's and to a 1 x 1
+   ``make_sharded_slam_batch``'s to the bit; ``slam_ate`` / ``slam_rpe``
+   over the sweep, ATE <= 2 cm); ``MonoOdometryTSDF`` over 32 quantized
+   sweep frames through ``io.streams.prefetch_to_device`` with one sync
+   (``bench.py:259-290``: ``pipeline_fps``, the trajectory equal to the
+   unfed loop's to the bit, B1 32 and B2 31, ``h2d_mbps``, the fed loop's
+   device idle share and the share of its copy time under a kernel from
+   ``torch.profiler``), each with the counters zeroed just before and read
+   just after.
 
 After step 4 it times ``tsdf.streaming._compact`` over the main path's
 volume (the identity permutation) beside its bound. Between steps 1 and 2
@@ -198,6 +218,9 @@ N_REC_FRAMES = 32
 # tests/test_pipelines.py's keyframe jump and its bounds there (at its registration budgets)
 JUMP_T_LIMIT_M = 0.06
 JUMP_R_LIMIT_RAD = 0.08
+# the fallback ladder again on the jump's pair, from this many fresh generator seeds (on
+# the card every draw differs anyway: the downsample's and FPFH's sums are atomics)
+JUMP_DRAWS = 8
 N_OFFLINE_OUT = 12  # the offline scan: 12 sweep poses out and back, 24 frames
 N_OFFLINE_CPU = 4
 # Azure Kinect WFOV unbinned depth: width, height, fx, fy, cx, cy
@@ -246,6 +269,11 @@ SHARDED_POSE_TOL = 1e-4
 # thus fails that check as well as the launch checks; the sharded order is held to the bit
 # against a single volume fed in that order)
 SHARDED_CENTROID_MIN = 0.999
+# the device step and batches (bench.py's cells): its 64-pose sweep, the 16-frame SLAM
+# batch, the 32 frames of the fed pipeline
+N_SWEEP = 64
+N_SLAM_BATCH = 16
+N_FED = 32
 
 
 def _log(msg: str) -> None:
@@ -945,8 +973,10 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
     keyframes' ATE against ``gt``; the save read back; the ms of one
     keyframe step, its colored ICP and one interval step. Then the keyframe
     jump of tests/test_pipelines.py (a keyframe every frame) must be caught
-    by the deferred check and rebased through the fallback ladder. Returns
-    (failures, launch counts)."""
+    by the deferred check and rebased through the fallback ladder, and the
+    ladder run again on that pair from ``JUMP_DRAWS`` fresh generator seeds
+    must land within the same bounds on each. Returns (failures, launch
+    counts)."""
     import dataclasses
 
     import numpy as np
@@ -1055,6 +1085,7 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
     for T in jump:
         rj.process_frame(*_quantize(cam.render(T)))
     deferred = len(rj._pending) > 0
+    pair = rj._pending[-1][2:4] if deferred else None  # raw (previous, this) keyframe
     rj.save_model()
     evj = rj.telemetry.counters
     err = se3.se3_log(torch.as_tensor(np.linalg.inv(np.linalg.inv(jump[0]) @ jump[-1])
@@ -1067,6 +1098,28 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
             and et < JUMP_T_LIMIT_M and er < JUMP_R_LIMIT_RAD):
         failures.append(f"the recorder's jump was not rebased through the ladder: {evj}, "
                         f"{et:.4f} m / {er:.4f} rad")
+    # every draw of the ladder must land on the jump: T (this camera -> previous keyframe)
+    T_true = np.linalg.inv(jump[2]) @ jump[3]
+    draws = []
+    for seed in range(1, JUMP_DRAWS + 1 if pair else 1):
+        rj.generator.manual_seed(seed)
+        retries = rj.telemetry.counters.get("fallback_retry", 0)
+        t0 = time.perf_counter()
+        T_cp = rj._register_fallback(*pair)
+        ms = ms_since(t0)
+        rounds = 1 + rj.telemetry.counters.get("fallback_retry", 0) - retries
+        e = (se3.se3_log(torch.as_tensor(np.linalg.inv(T_true) @ T_cp)).numpy()
+             if T_cp is not None else np.full(6, np.inf))
+        draws.append((float(np.linalg.norm(e[:3])), float(np.linalg.norm(e[3:])), rounds, ms))
+    bad = [d for d in draws if not (d[0] < JUMP_T_LIMIT_M and d[1] < JUMP_R_LIMIT_RAD)]
+    _log(f"recorder jump ladder over {len(draws)} fresh seeds: {len(draws) - len(bad)} within "
+         f"the bounds; worst {max((d[0] for d in draws), default=0) * 1e3:.3f} mm / "
+         f"{max((d[1] for d in draws), default=0) * 1e3:.3f} mrad; rounds "
+         f"{[d[2] for d in draws]}; ladder ms {[round(d[3], 1) for d in draws]} (host clock)  "
+         f"[{gpu}]")
+    if len(draws) != JUMP_DRAWS or bad:
+        failures.append(f"the recorder's fallback ladder missed the jump on {len(bad)} of "
+                        f"{len(draws)} fresh seeds: {bad}")
     del rj
     tmp.cleanup()
     return failures, counts
@@ -2244,6 +2297,297 @@ def sharded_phase(intr, cfg, cam, raw, mono_traj, mono_ms, dev, gpu: str,
     return failures, counts
 
 
+def _equal_by_key(va, vb) -> bool:
+    """Two volumes hold the same block keys with every pool row equal, to
+    the bit (tsdf, weight and color)."""
+    import numpy as np
+
+    rows = _matched_rows(va, vb)
+    return rows is not None and all(np.array_equal(*rows(f)) for f in ("tsdf", "weight", "color"))
+
+
+def _feeder_overlap(prof):
+    """From a ``torch.profiler`` trace of a fed loop: (the device's idle
+    share of the window from its first to its last device event, the share
+    of host-to-device copy time that overlaps a kernel, copies, kernels);
+    (None, None, 0, 0) when the trace holds no device events."""
+    def union(iv):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    kernels, copies = [], []
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(iv)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(iv)
+    if not kernels:
+        return None, None, 0, 0
+    every = kernels + copies
+    span = max(b for _, b in every) - min(a for a, _ in every)
+    idle = 1.0 - union(every) / span if span > 0 else None
+    copy_time = sum(b - a for a, b in copies)
+    overlapped = sum(union([(max(a, c), min(b, d)) for c, d in kernels if c < b and d > a])
+                     for a, b in copies)
+    return idle, (overlapped / copy_time if copy_time > 0 else None), len(copies), len(kernels)
+
+
+def device_step_phase(cfg, cam, raw, mono_traj, dev, gpu: str, n_sweep: int = N_SWEEP,
+                      n_slam: int = N_SLAM_BATCH, n_fed: int = N_FED):
+    """The device-resident step and batches and the frame feeder, by
+    ``bench.py``'s methods at its configuration (``cfg``, ``cam``'s
+    intrinsics), each with the launch counters zeroed just before and read
+    just after.
+
+    (a) ``make_fused_batch_fn`` (``bench.py:67-121``): a 32-frame warmup on
+    its own trajectory into a volume then dropped; the ``n_sweep``-pose
+    sweep (rendered, not quantized) cold in two half batches: ``n_blocks``
+    grows between them, B1 exactly once a frame, no overflow, the volume
+    equal by key, to the bit, to ``n_sweep`` calls of ``integrate_step``;
+    ``fused_cold_fps`` from the min of 3 cold passes, ``fused_steady_fps``
+    from the warm repass slope ((3 half batches - 1) / 2 x n_sweep / 2).
+    (b) ``make_device_slam_batch`` (``bench.py:165-221``): the first
+    ``n_slam`` sweep renders, B2 and B1 once each a tracked frame, min fit
+    > 0.3, ``slam_batch_fps`` by the (3 batches - 1 batch) / 2 (n_slam - 1)
+    slope; on the main path's decoded frames (``raw``) the poses equal to
+    the mono loop's (``mono_traj``) and to a 1 x 1 ``make_sharded_slam_batch``'s,
+    to the bit; ``slam_ate`` / ``slam_rpe`` over the whole sweep.
+    (c) ``prefetch_to_device`` (``bench.py:259-290``): ``MonoOdometryTSDF``
+    over the first ``n_fed`` sweep frames quantized to u16 / u8 on the
+    host, fed through the feeder with one sync at the end
+    (``pipeline_fps``), its trajectory equal to the same loop fed host
+    arrays, to the bit; ``h2d_mbps`` by the bench's method (4 x 2 MiB
+    pageable uploads, one sync); on a card, the feeder's overlap from a
+    ``torch.profiler`` trace of the fed loop (device idle share, share of
+    copy time under a kernel). Returns (failures, the launch counts of each
+    part)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.streams import prefetch_to_device
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.image import rgb_to_intensity
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+        make_device_slam_batch,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate, rpe
+
+    failures, counts = [], {}
+    t_phase = time.perf_counter()
+    tcfg, intr = cfg.tsdf, cam.intrinsics
+    rays = pixel_rays(intr, dev)
+    launched = lambda: {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    gc.collect()
+
+    def render_all(poses):
+        r = [cam.render(T) for T in poses]
+        return (torch.stack([z for z, _ in r]), torch.stack([c for _, c in r]),
+                torch.as_tensor(np.stack(poses), dtype=torch.float32, device=dev))
+
+    sweep = orbit_trajectory(n_sweep, radius=0.35, angle_span=1.3)
+    depths, colors, posearr = render_all(sweep)
+    half = n_sweep // 2
+
+    # -- a. the fused batch ------------------------------------------------------------
+    batch = tk.make_fused_batch_fn(intr, tcfg, 2048, 2)
+    wd, wc, wp = render_all(orbit_trajectory(32, radius=0.3, angle_span=1.2,
+                                             center=(0.05, 0.05, 1.3)))
+    batch(tsdf.create(tcfg, dev), wd, wc, wp, rays)
+    _sync(dev)
+    del wd, wc, wp
+    build.launches.clear()
+    vol = batch(tsdf.create(tcfg, dev), depths[:half], colors[:half], posearr[:half], rays)
+    n_mid = int(vol.n_blocks)
+    vol = batch(vol, depths[half:], colors[half:], posearr[half:], rays)
+    _sync(dev)
+    counts["fused"] = launched()
+    n_blocks, overflow = int(vol.n_blocks), bool(vol.overflow)
+    ref = tsdf.create(tcfg, dev)
+    for f in range(n_sweep):
+        ref = tk.integrate_step(ref, depths[f], colors[f], posearr[f], rays, intr, tcfg, 2048, 2)
+    equal = _equal_by_key(vol, ref)
+    del ref
+
+    def cold_pass():
+        t0 = time.perf_counter()
+        v = batch(tsdf.create(tcfg, dev), depths[:half], colors[:half], posearr[:half], rays)
+        v = batch(v, depths[half:], colors[half:], posearr[half:], rays)
+        float(v.weight.sum())
+        return time.perf_counter() - t0
+
+    cold = [cold_pass() for _ in range(3)]
+    state = {"v": vol}
+
+    def repass(k):
+        t0 = time.perf_counter()
+        v = state["v"]
+        for _ in range(k):
+            v = batch(v, depths[:half], colors[:half], posearr[:half], rays)
+        float(v.weight.sum())
+        state["v"] = v
+        return time.perf_counter() - t0
+
+    repass(1)
+    t1 = min(repass(1) for _ in range(2))
+    t3 = min(repass(3) for _ in range(2))
+    del state, vol
+    fused_cold_fps = n_sweep / min(cold)
+    fused_steady_fps = 2 * half / (t3 - t1)
+    _log(f"fused batch launches: {json.dumps(counts['fused'])} over one cold pass of {n_sweep} "
+         f"frames  [{gpu}]")
+    _log(f"fused batch (bench.py's method, make_fused_batch_fn, worklist 2048, stride 2): "
+         f"fused_cold_fps {fused_cold_fps:.3f} (min of 3 cold passes {min(cold) * 1e3:.1f} ms, "
+         f"all {[round(t * 1e3, 1) for t in cold]}), fused_steady_fps {fused_steady_fps:.3f} "
+         f"(warm repass slope, {(t3 - t1) * 1e3 / (2 * half):.3f} ms/frame); n_blocks {n_mid} "
+         f"after {half} frames, {n_blocks} after {n_sweep}; overflow {overflow}; equal to "
+         f"{n_sweep} integrate_step calls by key, to the bit: {equal} (host clock)  [{gpu}]")
+    if counts["fused"] != {tk.KERNEL: n_sweep, odo.KERNEL: 0}:
+        failures.append(f"fused batch launches {counts['fused']}, not B1 once a frame")
+    if not (0 < n_mid < n_blocks and not overflow and equal):
+        failures.append(f"fused batch: n_blocks {n_mid} -> {n_blocks}, overflow {overflow}, "
+                        f"equal to integrate_step {equal}")
+
+    # -- b. the SLAM batch -------------------------------------------------------------
+    slam = make_device_slam_batch(intr, cfg, worklist_size=2048, stride=2)
+    intens = torch.stack([rgb_to_intensity(c) for c in colors[:n_slam]])
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    run = lambda v: slam(v, eye, intens, depths[:n_slam], colors[:n_slam], rays)
+    run(tsdf.create(tcfg, dev))
+    _sync(dev)
+    build.launches.clear()
+    svol, _, fits = run(tsdf.create(tcfg, dev))
+    _sync(dev)
+    counts["slam"] = launched()
+    min_fit, s_overflow = float(fits.min()), bool(svol.overflow)
+    del svol
+
+    def slam_run(k):
+        t0 = time.perf_counter()
+        v, _, _ = run(tsdf.create(tcfg, dev))
+        for _ in range(k - 1):
+            v, _, _ = run(v)
+        float(v.weight.sum())
+        return time.perf_counter() - t0
+
+    s1 = min(slam_run(1) for _ in range(2))
+    s3 = min(slam_run(3) for _ in range(2))
+    slam_ms = (s3 - s1) / (2 * (n_slam - 1)) * 1e3
+    # the mono loop's own decoded frames: the same poses as the loop and the 1 x 1 grid
+    dec = [_decode(r, cfg, dev) for r in raw]
+    dD, dC, dI = (torch.stack([f[k] for f in dec]) for k in range(3))
+    _, mposes, _ = slam(tsdf.create(tcfg, dev), eye, dI, dD, dC, rays)
+    m11 = sv.make_mesh(1, 1, [dev])
+    _, sposes, _ = sv.make_sharded_slam_batch(m11, intr, cfg, stride=2, worklist_size=2048)(
+        sv.create_sharded(tcfg, m11), eye[None], dI[None], dD[None], dC[None], rays)
+    mposes = mposes.cpu().numpy()
+    eq_mono = np.array_equal(mposes.astype(np.float64), np.stack(mono_traj))
+    eq_sharded = np.array_equal(mposes, sposes[0].cpu().numpy())
+    del dec, dD, dC, dI
+    # tracking accuracy over the whole sweep
+    intens_all = torch.stack([rgb_to_intensity(c) for c in colors])
+    _, traj_all, fits_all = slam(tsdf.create(tcfg, dev), eye, intens_all, depths, colors, rays)
+    est = traj_all.cpu().numpy().astype(np.float64)
+    gt0 = np.linalg.inv(sweep[0])
+    gt = np.stack([gt0 @ T for T in sweep[1:]])
+    slam_ate, slam_rpe = ate(est, gt), rpe(est, gt)
+    del intens_all, traj_all, intens
+    _log(f"SLAM batch launches: {json.dumps(counts['slam'])} over one {n_slam}-frame batch  "
+         f"[{gpu}]")
+    _log(f"SLAM batch (bench.py's method, make_device_slam_batch): slam_batch_fps "
+         f"{1e3 / slam_ms:.3f}, {slam_ms:.3f} ms/frame ((3 batches - 1) / 2 x {n_slam - 1} "
+         f"frames, host clock, min of 2); min fit {min_fit:.4f}, overflow {s_overflow}; on the "
+         f"mono loop's decoded frames the poses equal the mono loop's to the bit: {eq_mono}, "
+         f"the 1 x 1 sharded batch's: {eq_sharded}; over the {n_sweep}-pose sweep slam_ate "
+         f"rmse {slam_ate['rmse'] * 1e3:.3f} mm (max {slam_ate['max'] * 1e3:.3f} mm), slam_rpe "
+         f"trans {slam_rpe['trans_rmse'] * 1e3:.3f} mm rot "
+         f"{np.degrees(slam_rpe['rot_rmse']):.4f} deg, min fit "
+         f"{float(fits_all.min()):.4f}  [{gpu}]")
+    if counts["slam"] != {tk.KERNEL: n_slam - 1, odo.KERNEL: n_slam - 1}:
+        failures.append(f"SLAM batch launches {counts['slam']}, not B1 and B2 once a tracked "
+                        "frame")
+    if not (min_fit > 0.3 and not s_overflow and eq_mono and eq_sharded):
+        failures.append(f"SLAM batch: min fit {min_fit:.4f}, overflow {s_overflow}, equal to the "
+                        f"mono loop {eq_mono}, to the sharded batch {eq_sharded}")
+    if not slam_ate["rmse"] <= ATE_LIMIT_M:
+        failures.append(f"SLAM batch ATE {slam_ate['rmse']:.4f} m over {ATE_LIMIT_M} m")
+
+    # -- c. the feeder -----------------------------------------------------------------
+    host = [_quantize((depths[i], colors[i])) for i in range(n_fed)]
+    del depths, colors, posearr
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    for d, c in host[:3]:
+        pipe.process_frame(d, c)
+    _sync(dev)
+
+    def fed_loop(feed: bool):
+        pipe.reset()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for d, c in (prefetch_to_device(iter(host), device=dev) if feed else host):
+            pipe.process_frame(d, c)
+        _sync(dev)
+        return (time.perf_counter() - t0) / len(host), np.stack(pipe.trajectory)
+
+    build.launches.clear()
+    fed_dt, fed_traj = fed_loop(True)
+    counts["fed"] = launched()
+    unfed_dt, unfed_traj = fed_loop(False)
+    fed_equal = np.array_equal(fed_traj, unfed_traj)
+    # in turns (fed, unfed, unfed, fed): the host's pace drifts within a run
+    unfed_dt = [unfed_dt, fed_loop(False)[0]]
+    fed_dt = [fed_dt, fed_loop(True)[0]]
+    bufs = [np.random.default_rng(i).integers(0, 255, 2 << 20, dtype=np.uint8) for i in range(4)]
+    torch.from_numpy(bufs[0]).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    up = [torch.from_numpy(b).to(dev) for b in bufs]
+    _sync(dev)
+    h2d_mbps = len(bufs) * 2.0 / (time.perf_counter() - t0)
+    del up
+    idle = overlap = None
+    n_copies = n_kernels = 0
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fed_loop(True)
+        idle, overlap, n_copies, n_kernels = _feeder_overlap(prof)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    _log(f"feeder launches: {json.dumps(counts['fed'])} over {n_fed} fed frames  [{gpu}]")
+    ms = lambda ts: ", ".join(f"{t * 1e3:.3f}" for t in ts)
+    _log(f"feeder (bench.py's method, MonoOdometryTSDF over prefetch_to_device, one sync): "
+         f"pipeline_fps {1.0 / fed_dt[0]:.3f} ({fed_dt[0] * 1e3:.3f} ms/frame); in turns fed "
+         f"{ms(fed_dt)} ms/frame (first, last) and unfed {ms(unfed_dt)} (second, third); "
+         f"trajectory equal to the unfed loop's to the bit: "
+         f"{fed_equal}; h2d_mbps {h2d_mbps:.1f} (4 x 2 MiB pageable uploads, one sync); "
+         f"profiled fed loop: device idle share {fmt(idle)}, share of copy time under a kernel "
+         f"{fmt(overlap)} ({n_copies} host-to-device copies, {n_kernels} device kernels) "
+         f"(host clock; torch.profiler)  [{gpu}]")
+    if counts["fed"] != {tk.KERNEL: n_fed, odo.KERNEL: n_fed - 1}:
+        failures.append(f"feeder launches {counts['fed']}, not B1 once a frame and B2 once a "
+                        "tracked frame")
+    if not fed_equal:
+        failures.append("the fed loop's trajectory differs from the unfed loop's")
+    del pipe
+    _log(f"device step phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  "
+         f"[{gpu}]")
+    return failures, counts
+
+
 def main() -> int:
     import torch
 
@@ -2502,6 +2846,12 @@ def main() -> int:
         for part, key in (("sharded", "launches_sharded"), ("grid", "launches_sharded_grid"),
                           ("dual", "launches_sharded_dual")):
             k[key] = sharded_counts[part][k["name"]]
+    step_failures, step_counts = device_step_phase(cfg, cam, raw, traj[1:], dev, gpu)
+    failures += step_failures
+    for k in kernels:
+        for part, key in (("fused", "launches_fused_batch"), ("slam", "launches_slam_batch"),
+                          ("fed", "launches_fed_pipeline")):
+            k[key] = step_counts[part][k["name"]]
     _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))

@@ -5,7 +5,8 @@ of ``live_mono`` (with and without ``--streaming``), ``dual_fusion``
 (auto-calibration, the ``--sharded`` fallback on one device,
 ``--rig-calib``), ``record_reconstruction``, ``offline_bundle`` and its
 ``--resume``, ``fragments``, ``cloud_accumulate``, ``depth_to_cloud`` into
-``cloud_to_mesh`` and ``eval_trajectory``. Needs no jax."""
+``cloud_to_mesh``, ``eval_trajectory`` and ``device_test``, and the
+``mkv:`` source's error without pyk4a. Needs no jax."""
 
 import functools
 import glob
@@ -65,10 +66,11 @@ def test_live_mono_without_a_card_raises(tmp_path):
 
 
 def test_streaming_and_cli_modules_import_without_jax():
-    """With jax made unimportable, the streaming manager, the pipeline and
-    the entry point import and pull in neither jax nor the JAX package."""
+    """With jax made unimportable, the streaming manager, the pipeline, the
+    sources, the feeder and the entry points import and pull in neither jax
+    nor the JAX package."""
     mods = ["tsdf", "tsdf.streaming", "tsdf.hash", "pipelines.mono_odometry_tsdf", "cli.common",
-            "cli.live_mono"]
+            "cli.live_mono", "io", "io.streams", "io.mkv", "io.k4a_live", "cli.device_test"]
     code = ("import sys, importlib\nsys.modules['jax'] = None\n"
             + "".join(f"importlib.import_module('azurekinect3dreconstruction_tpu_torch.{m}')\n"
                       for m in mods)
@@ -77,6 +79,25 @@ def test_streaming_and_cli_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_device_test_reports_the_synthetic_camera_and_the_device():
+    """tests/test_scripts.py's ``device_test`` on the CPU: no camera, so the
+    synthetic source's shapes, then a product on the device."""
+    out = _run("device_test", "--source", "synthetic", "--device", "cpu")
+    assert "no camera; exercising the synthetic source" in out, out
+    assert "depth (576, 640) uint16" in out and "device matmul OK: 16777216.0" in out, out
+
+
+def test_live_mono_mkv_source_without_pyk4a_exits_clearly(tmp_path):
+    """``--source mkv:`` without pyk4a exits non-zero naming the missing
+    SDK, before any frame."""
+    r = subprocess.run([sys.executable, "-m", f"{CLI}.live_mono", "--source", "mkv:/nonexistent",
+                        "--device", "cpu", "--frames", "2", "--output", str(tmp_path)],
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode != 0 and "--source mkv:/nonexistent: pyk4a is not installed" in r.stderr, \
+        r.stderr[-2000:]
+    assert "Traceback" not in r.stderr
 
 
 @pytest.fixture(scope="module")

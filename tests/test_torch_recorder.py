@@ -361,6 +361,50 @@ def test_fallback_recovery_does_not_depend_on_the_draw(cam, tmp_path):
     assert np.linalg.norm(err[:3]) < 0.06 and np.linalg.norm(err[3:]) < 0.08, err
 
 
+@pytest.mark.parametrize("rounds, expect_retries", [
+    # a plane-slid refinement passes the gate at fitness 0.54 beside the true pose's 0.77
+    ((("slid", "true", "true", "garbage"),), 0),
+    # alone it is unconfirmed: another round draws, and the true pose wins there
+    ((("slid", "garbage", "garbage", "garbage"), ("true", "garbage", "true", "slid")), 1),
+])
+def test_fallback_ladder_takes_the_confirmed_refinement_of_highest_fitness(
+        cam, tmp_path, monkeypatch, rounds, expect_retries):
+    """The ladder refines every RANSAC restart and returns the refinement of
+    highest fitness once a second refinement lands on its pose; a wrong pose
+    over the fitness gate is never returned while the true pose is drawn.
+    RANSAC and ICP are scripted: each seed refines to itself at its fitness."""
+    import types
+
+    from azurekinect3dreconstruction_tpu_torch.core.device import upload
+    from azurekinect3dreconstruction_tpu_torch.pipelines import recorder as rec_mod
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import ICPResult
+
+    poses = {"true": np.eye(4), "slid": np.eye(4), "garbage": np.eye(4)}
+    poses["true"][:3, 3] = (0.1, 0.0, 0.05)
+    poses["slid"][:3, 3] = (0.56, 0.0, 0.05)  # 0.46 m along the plane
+    poses["garbage"][:3, 3] = (2.0, 1.0, 0.0)
+    fitness = {"true": 0.77, "slid": 0.54, "garbage": 0.1}
+    draws = iter([name for r in rounds for name in r])
+
+    def fake_global(*args, **kwargs):
+        return types.SimpleNamespace(T=torch.as_tensor(poses[next(draws)], dtype=torch.float32))
+
+    def fake_icp(src, mask, maps, intr, init, cfg):
+        name = min(poses, key=lambda k: np.abs(poses[k] - init.numpy()).max())
+        return ICPResult(init, torch.tensor(fitness[name]), torch.tensor(0.0),
+                         torch.tensor(1, dtype=torch.int32))
+
+    monkeypatch.setattr(rec_mod, "global_registration", fake_global)
+    monkeypatch.setattr(rec_mod, "icp_point_to_plane", fake_icp)
+    pipe = Recorder(INTR, CFG, device="cpu", output_dir=str(tmp_path))
+    orbit = orbit_trajectory(2, radius=0.2, angle_span=0.1)
+    raw = [tuple(upload(a, pipe.device) for a in cam.capture(T)) for T in orbit]
+    T = pipe._register_fallback(*raw)
+    np.testing.assert_allclose(T, poses["true"], atol=1e-6)
+    assert pipe.telemetry.counters.get("fallback_retry", 0) == expect_retries
+    assert pipe.telemetry.counters["fallback_icp_ok"] == 1
+
+
 def test_recorder_interval_frames_take_the_interval_step(cam, tmp_path):
     """keyframe_interval 3: frames 0 and 3 are keyframes, the others take
     the interval step; the trajectory holds the pose each frame used."""
