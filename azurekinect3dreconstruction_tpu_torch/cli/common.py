@@ -1,5 +1,5 @@
 """Shared command-line plumbing of the port's entry points (the counterpart
-of the JAX package's ``scripts/common.py``, headless only).
+of the JAX package's ``scripts/common.py``).
 
 ``--source`` chooses the frames:
   synthetic       the deterministic rendered scene (default; no hardware)
@@ -10,6 +10,11 @@ of the JAX package's ``scripts/common.py``, headless only).
 The MKV and live sources give depth registered to the color camera, so
 their intrinsics are the color camera's. Without pyk4a they exit with an
 error that says so.
+
+The live entry points show their reconstruction through :func:`make_viewer`:
+``--serve PORT`` serves it to a browser (``viz.live_server``), else an
+Open3D window opens when Open3D imports and ``--headless`` is not given,
+else nothing is shown.
 """
 
 from __future__ import annotations
@@ -72,3 +77,54 @@ def make_source(args) -> Tuple[Iterator[Tuple[np.ndarray, np.ndarray]], Intrinsi
         raise SystemExit(f"--source {spec}: {e}") from e
     raise SystemExit(f"unknown source {spec!r}: use synthetic, replay:<dir>, mkv:<file> or "
                      "k4a[:<id>]")
+
+
+def add_viewer_args(ap: argparse.ArgumentParser) -> None:
+    """``--headless`` and ``--serve PORT`` of the live entry points."""
+    ap.add_argument("--headless", action="store_true", help="never open a window")
+    ap.add_argument("--serve", type=int, nargs="?", const=0, default=None, metavar="PORT",
+                    help="serve a live browser viewer on 127.0.0.1:PORT (0 = any free port) "
+                         "instead of an Open3D window; works headless")
+
+
+class NullViewer:
+    """The viewer when nothing is shown: keys are never pressed, geometry
+    goes nowhere, the loop never stops early."""
+
+    headless = True
+
+    def register_key(self, *a, **k):
+        pass
+
+    def press(self, *a):
+        pass
+
+    def update_cloud(self, *a):
+        pass
+
+    def update_mesh(self, *a):
+        pass
+
+    def tick(self) -> bool:
+        return True
+
+    def close(self):
+        pass
+
+    def reset_view(self):
+        pass
+
+
+def make_viewer(args, name: str):
+    """A ``viz.live_server.BrowserLiveViewer`` on ``--serve PORT``; else
+    Open3D's window (``viz.o3d_bridge.LiveViewer``) when Open3D imports and
+    ``--headless`` is not given; else a :class:`NullViewer`."""
+    from azurekinect3dreconstruction_tpu_torch.viz import o3d_bridge
+
+    if getattr(args, "serve", None) is not None:
+        from azurekinect3dreconstruction_tpu_torch.viz.live_server import BrowserLiveViewer
+
+        return BrowserLiveViewer(port=args.serve, window_name=name)
+    if getattr(args, "headless", False) or not o3d_bridge.is_available():
+        return NullViewer()
+    return o3d_bridge.LiveViewer(window_name=name)

@@ -18,18 +18,28 @@ are saved and the extrinsic's roll, pitch and yaw logged. ``--sharded``
 puts each camera on its own row of a grid of the visible cards with the
 volume block-sharded over its columns; with fewer than two cards it logs
 a warning and runs unsharded. Runs on the card unless ``--device cpu``.
+
+``--serve PORT`` shows the merged cloud in a browser (``viz.live_server``),
+else an Open3D window opens when Open3D imports and ``--headless`` is not
+given; the cloud is refreshed every ``vis_update_interval`` pairs. Keys: S
+save, R recalibrate, C cycle the color mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 
 import numpy as np
 import torch
 
 from azurekinect3dreconstruction_tpu_torch.calib.extrinsics import RigCalibration
-from azurekinect3dreconstruction_tpu_torch.cli.common import add_common_args
+from azurekinect3dreconstruction_tpu_torch.cli.common import (
+    add_common_args,
+    add_viewer_args,
+    make_viewer,
+)
 from azurekinect3dreconstruction_tpu_torch.config import (
     PipelineConfig,
     RegistrationConfig,
@@ -86,6 +96,7 @@ def k4a_pair_frames(args):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(ap)
+    add_viewer_args(ap)
     ap.add_argument("--voxel", type=float, default=0.01, help="TSDF voxel (m)")
     ap.add_argument("--sharded", action="store_true",
                     help="camera-per-device + block-sharded volume over the visible cards "
@@ -122,12 +133,24 @@ def main(argv=None) -> int:
         pipe.calibrated = True
         log_info(f"rig calibration loaded: baseline "
                  f"{np.linalg.norm(cal.extrinsics[1][:3, 3]):.4f} m (serials {cal.serials})")
-    for pair in prefetch_to_device(frames, device=args.device):
-        pipe.process_frames(pair)
-    log_info(f"{pipe.frame_index} pairs, calibrated {pipe.calibrated}, sharded {pipe.sharded}, "
-             f"n_blocks {int(pipe.volume.n_blocks.sum())}, "
-             f"overflow {bool(pipe.volume.overflow.any())}")
-    pipe.save_current_state()
+    viewer = make_viewer(args, "dual-camera fusion")
+    try:
+        viewer.register_key("S", pipe.save_current_state, "save cloud + mesh")
+        viewer.register_key("R", pipe.recalibrate, "recalibrate extrinsics (ICP)")
+        viewer.register_key("C", pipe.cycle_color_mode, "cycle color mode")
+        for i, pair in enumerate(prefetch_to_device(frames, device=args.device)):
+            pipe.process_frames(pair)
+            if i % cfg.vis_update_interval == 0 and not viewer.headless:
+                viewer.update_cloud("merged", pipe.merged_cloud())
+            if not viewer.tick():
+                break
+        log_info(f"{pipe.frame_index} pairs, calibrated {pipe.calibrated}, sharded "
+                 f"{pipe.sharded}, n_blocks {int(pipe.volume.n_blocks.sum())}, "
+                 f"overflow {bool(pipe.volume.overflow.any())}, "
+                 f"calibration events {json.dumps(pipe.counts)}")
+        pipe.save_current_state()
+    finally:
+        viewer.close()
     if pipe.calibrated:
         r, p, y = se3.rpy_from_matrix(pipe.extrinsics[1][:3, :3])
         log_info(f"final extrinsic rpy deg: {np.degrees([r, p, y])}")

@@ -27,6 +27,11 @@ class Intrinsics:
     cx: float
     cy: float
 
+    @property
+    def matrix(self) -> np.ndarray:
+        """The 3x3 pinhole matrix K (float64)."""
+        return np.array([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]])
+
     def scaled(self, factor: float) -> "Intrinsics":
         """Intrinsics for an image resized by ``factor`` (pyramid levels).
 

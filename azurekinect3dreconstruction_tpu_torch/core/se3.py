@@ -19,6 +19,11 @@ import torch
 
 from azurekinect3dreconstruction_tpu_torch.core.fmath import fma
 
+# Open3D-style display flip (y and z negated); the viewers use it for display only
+FLIP_TRANSFORM = np.array(
+    [[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 0], [0, 0, 0, 1.0]]
+)
+
 
 def hat(w):
     """3-vector -> skew-symmetric matrix, so that hat(w) @ v == cross(w, v)."""

@@ -2,12 +2,13 @@
 package's ``pipelines/cloud_accumulator.py``).
 
 Every ``keyframe_interval``-th frame is registered to the previous keyframe
-by projective point-to-plane ICP; where its fitness is low, an FPFH +
-RANSAC seed (4 restarts ranked by cloud overlap) is refined coarse to fine
-and kept if it fits better; a fresh seed is drawn, up to 4 in all (the
-reference draws once), while the result would be rejected, and also while
-no seed has beaten the un-seeded result or refined to the same pose (an
-accepted un-seeded result can be a wrong minimum that no single losing seed
+by projective point-to-plane ICP; where its fitness is low, the FPFH +
+RANSAC seeds of 4 restarts are each refined coarse to fine and the best
+refinement is kept if it fits better (the reference refines only the
+restart of most cloud overlap, once); fresh seeds are drawn, up to 4 rounds
+in all, while the result would be rejected, and also while no seed has
+beaten the un-seeded result or refined to the same pose (an accepted
+un-seeded result can be a wrong minimum that no single losing seed
 disproves). The keyframe's points join the host model in
 the world frame, and a model over ``model_capacity`` points is voxel
 downsampled. The save orients the model's normals toward the nearest
@@ -26,7 +27,7 @@ does not saturate, the result is the same.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -110,36 +111,42 @@ class CloudAccumulator:
         tgt = self.prev_maps.points[::4, ::4].reshape(-1, 3)
         return self._features(tgt, tgt[:, 2] > 0)
 
-    def _ransac_seed(self, src_features, tgt_features) -> Optional[torch.Tensor]:
-        """The seed from two feature tuples of :meth:`_features`: 4 RANSAC
-        restarts of at least 8,192 hypotheses, each ranked by the cloud
-        overlap of ``evaluate_registration`` (RANSAC's own inlier share is
-        gamed by smooth surfaces, where most mutual matches are wrong)."""
+    def _ransac_seeds(self, src_features, tgt_features) -> List[torch.Tensor]:
+        """The seeds from two feature tuples of :meth:`_features`: the valid
+        transforms of 4 RANSAC restarts of at least 8,192 hypotheses, ranked
+        by the cloud overlap of ``evaluate_registration``, most first (the
+        reference's seed is the first; RANSAC's own inlier share is gamed by
+        smooth surfaces, where most mutual matches are wrong)."""
         reg = dataclasses.replace(self.cfg.registration, ransac_hypotheses=max(
             8192, self.cfg.registration.ransac_hypotheses))
         (ds, dm, _, f_s), (dt, dtm, _, f_t) = src_features, tgt_features
-        best, best_fit = None, -1.0
-        for _ in range(4):
+        ranked = []
+        for i in range(4):
             g = global_registration(ds, f_s, dm, dt, f_t, dtm, reg, distance_threshold=0.04,
                                     generator=self.generator)
             if not se3.is_valid_transform(g.T.cpu().numpy()):
                 continue
             fit, _ = evaluate_registration(ds, dm, dt, dtm, g.T, dist_thr=0.05)
-            if float(fit) > best_fit:
-                best, best_fit = g.T, float(fit)
-        if best is None:
+            ranked.append((-float(fit), i, g.T))
+        if not ranked:
             self.telemetry.count("coarse_reject")
-        return best
+        return [T for _, _, T in sorted(ranked, key=lambda r: r[:2])]
 
     def _coarse_register(self, flat, mask, res):
         """The coarse stage of a keyframe whose un-seeded ICP result ``res``
-        fits poorly: an FPFH + RANSAC seed refined at 3x the correspondence
-        radius (a seed can sit several cm off), then at 1x; the refined
-        result replaces ``res`` where it fits better. That round is the
-        reference's whole stage. On a hard pair most mutual FPFH matches are
-        wrong and one round's seed lands in ICP's basin only on some draws,
-        so another round draws a fresh seed, at most ``_COARSE_ROUNDS`` in
-        all, while the result would still be rejected (fitness under
+        fits poorly: each FPFH + RANSAC seed of a round refined at 3x the
+        correspondence radius (a seed can sit several cm off), then at 1x;
+        the refinement that fits best replaces ``res`` where it fits better.
+        The reference's whole stage is one round that refines only the seed
+        of most overlap. On a hard pair nearly every mutual FPFH match is
+        wrong, so a seed lands in ICP's basin only on some draws, and the
+        seed of most overlap can be a wrong attractor round after round
+        while another restart's seed refines to the truth (on the card 4
+        of 20 generator seeds of the large-motion pair at quarter
+        resolution ended rejected so, ``tools/torch_coarse_seed_rate.py``).
+        So every seed is refined, and
+        another round draws fresh seeds, at most ``_COARSE_ROUNDS`` in all,
+        while the result would still be rejected (fitness under
         ``min_fitness_icp``) or is not yet confirmed: no seed has won, and
         none refined to within ``icp_distance_threshold`` of the un-seeded
         pose (on the card a wrong un-seeded minimum 0.44 m off passed the
@@ -152,8 +159,7 @@ class CloudAccumulator:
         for k in range(_COARSE_ROUNDS):
             if k:
                 self.telemetry.count("coarse_retry")
-            seed = self._ransac_seed(self._feat_next, tgt)
-            if seed is not None:
+            for seed in self._ransac_seeds(self._feat_next, tgt):
                 r1 = icp_point_to_plane(flat, mask, self.prev_maps, self.intr, init=seed,
                                         cfg=wide)
                 r2 = icp_point_to_plane(flat, mask, self.prev_maps, self.intr, init=r1.T,

@@ -19,7 +19,6 @@ step (B1 once a camera a shard), and meshing runs on the shards combined.
 
 from __future__ import annotations
 
-import collections
 import logging
 import time
 from typing import List, Optional, Tuple
@@ -63,6 +62,7 @@ from azurekinect3dreconstruction_tpu_torch.tracking.ransac import (
 )
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.utils.telemetry import Telemetry
 from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 
 log = logging.getLogger(__name__)
@@ -88,7 +88,11 @@ class DualCameraFusion:
     columns (``parallel.sharded_volume.make_sharded_raw_step``, stride 2).
     With fewer than 2 devices, or different intrinsics for the two
     cameras, it logs a warning and runs unsharded; ``self.sharded`` says
-    which."""
+    which.
+
+    ``telemetry`` (:class:`utils.telemetry.Telemetry`) ticks once a pair,
+    counts ``calib_ok`` / ``calib_reject`` and times the ``step`` on the
+    host clock (on a card, the time to enqueue it)."""
 
     COLOR_MODES = ("rgb", "depth_gradient", "uniform")
 
@@ -108,7 +112,7 @@ class DualCameraFusion:
         self.generator = torch.Generator(device=self.device).manual_seed(7)
         self.frame_index = 0
         self.calib_stage_ms = {}
-        self._counts = collections.Counter()
+        self.telemetry = Telemetry()  # pair rate, calibration events, step times (host clock)
         self._last_frames: List[Optional[RGBDFrame]] = [None, None]
         self._last_raw = [None, None]  # device (depth_raw, color_raw) of the last pair
         self._frames_stale = False  # _last_frames behind _last_raw
@@ -138,7 +142,7 @@ class DualCameraFusion:
     @property
     def counts(self) -> dict:
         """Calibration event counts: ``calib_ok`` and ``calib_reject``."""
-        return {k: v for k, v in self._counts.items() if v}
+        return {k: v for k, v in self.telemetry.counters.items() if v}
 
     # -- calibration ------------------------------------------------------------
 
@@ -215,7 +219,7 @@ class DualCameraFusion:
 
         if fit < reg.min_overlap_extrinsic or not se3.is_valid_transform(T01):
             log.warning("calibration rejected (overlap %.2f)", fit)
-            self._counts["calib_reject"] += 1
+            self.telemetry.count("calib_reject")
             return False
         if abs(np.trace(T01) - 4.0) < 1e-6:  # the identity: a degenerate registration
             log.warning("calibration returned identity; rejected")
@@ -225,7 +229,7 @@ class DualCameraFusion:
         r, p, y = np.degrees(se3.rpy_from_matrix(T01[:3, :3]))
         log.info("calibrated: overlap %.2f, t = %s, rpy = (%.1f, %.1f, %.1f) deg", fit,
                  T01[:3, 3], r, p, y)
-        self._counts["calib_ok"] += 1
+        self.telemetry.count("calib_ok")
         return True
 
     def recalibrate(self) -> bool:
@@ -269,13 +273,18 @@ class DualCameraFusion:
         dev = upload(host.astype(np.float32), self.device)
         (d0r, c0r), (d1r, c1r) = self._last_raw
         scal = (1.0 / cam.depth_scale, cam.depth_min, cam.depth_trunc)
-        if self.sharded:
-            self.volume = self._sharded_step(self.volume, (d0r, d1r), (c0r, c1r),
-                                             dev[:32].view(2, 4, 4), self.rays[0], dev[32:], *scal)
-        else:
-            self.volume = self._step(self.volume, d0r, c0r, d1r, c1r, self.rays[0], self.rays[1],
-                                     dev[:16].view(4, 4), dev[16:32].view(4, 4), *scal, dev[33])
+        with self.telemetry.time_block("step"):
+            if self.sharded:
+                self.volume = self._sharded_step(self.volume, (d0r, d1r), (c0r, c1r),
+                                                 dev[:32].view(2, 4, 4), self.rays[0], dev[32:],
+                                                 *scal)
+            else:
+                self.volume = self._step(self.volume, d0r, c0r, d1r, c1r, self.rays[0],
+                                         self.rays[1], dev[:16].view(4, 4),
+                                         dev[16:32].view(4, 4), *scal, dev[33])
         self.frame_index += 1
+        self.telemetry.tick_frame()
+        self.telemetry.maybe_report(extra=f"calibrated {self.calibrated} mode {self.color_mode}")
 
     def merged_cloud(self, max_points: int = 200000) -> PointCloudHost:
         """Both cameras' points in the world frame, voxel-downsampled to

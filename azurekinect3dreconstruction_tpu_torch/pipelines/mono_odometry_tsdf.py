@@ -22,7 +22,6 @@ cadence, not per frame; relocalization adds one read every
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import Optional
 
@@ -46,8 +45,12 @@ from azurekinect3dreconstruction_tpu_torch.tracking.icp import GraphedICP, Targe
 from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
-from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF, integration_reach
-from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
+from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import (
+    StreamingTSDF,
+    integration_reach,
+    model_reach,
+)
+from azurekinect3dreconstruction_tpu_torch.utils.telemetry import Telemetry, log_info, log_warning
 
 __all__ = ["MonoOdometryTSDF", "apply_lost_latch", "apply_odometry_gate", "decode_raw_frame",
            "integration_reach", "make_device_slam_batch", "make_device_slam_step",
@@ -89,10 +92,15 @@ class MonoOdometryTSDF:
     on the device only at the interval frame), adopting the pool a tick
     replaced; lost frames keep ticking at the stale pose, so geometry near
     the loss can stream back for the relocalizer. ``extract_mesh`` and
-    ``extract_point_cloud`` then assemble live and streamed geometry."""
+    ``extract_point_cloud`` then assemble live and streamed geometry.
+
+    ``telemetry`` (:class:`utils.telemetry.Telemetry`) ticks once a frame
+    (its ``fps`` is the live viewer's), holds the event counts that
+    ``counts`` returns and times the ``step`` on the host clock: on a card
+    that is the time to enqueue it, since nothing it records waits on the
+    device."""
 
     MIN_FITNESS = 0.3  # odometry acceptance gate
-    REFRESH_MARGIN = 0.25  # metres the camera may move before the next refresh
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
                  device="cuda", tracking: str = "frame_to_frame", model_refine_interval: int = 5,
@@ -160,7 +168,7 @@ class MonoOdometryTSDF:
         self._prev_depth = None  # depth in meters of the previous frame (device)
         self.frame_index = 0
         self._model = None  # (points, mask) on the device
-        self._counts = collections.Counter()
+        self.telemetry = Telemetry()  # frame rate, event counts and step times (host clock)
         self._icp_ok = []  # device refinement-gate flags not yet counted
         self._model_ovf = []  # device refresh-overflow flags not yet counted
         self._ok_pending = []  # (frame index, host copy of its gate flag, copy-done event)
@@ -214,10 +222,10 @@ class MonoOdometryTSDF:
             if flags:
                 f = torch.stack(flags).cpu().numpy()
                 flags.clear()
-                self._counts[yes] += int(f.sum())
+                self.telemetry.count(yes, int(f.sum()))
                 if no is not None:
-                    self._counts[no] += int((~f).sum())
-        return {k: v for k, v in self._counts.items() if v}
+                    self.telemetry.count(no, int((~f).sum()))
+        return {k: v for k, v in self.telemetry.counters.items() if v}
 
     # -- per frame --------------------------------------------------------------
 
@@ -245,14 +253,16 @@ class MonoOdometryTSDF:
             # first frame: integrate at the identity / world origin
             frame = RGBDFrame.from_raw(depth_raw, color_raw, cam.depth_scale,
                                        cam.depth_trunc, cam.depth_min)
-            self.volume = tsdf.integrate_frame(self.volume, frame.depth, frame.color,
-                                               self.rays, self._T, self.intr, self.cfg.tsdf)
+            with self.telemetry.time_block("step"):
+                self.volume = tsdf.integrate_frame(self.volume, frame.depth, frame.color,
+                                                   self.rays, self._T, self.intr, self.cfg.tsdf)
             self._prev_int, self._prev_depth = frame.intensity, frame.depth
         elif self.tracking == "frame_to_model":
             mp, mm = self._model if self._model is not None else self._no_model
-            (self.volume, self._T, fit, self._prev_int, self._prev_depth, _, ok) = \
-                self._f2m_step(self.volume, self._T, self._prev_int, self._prev_depth,
-                               depth_raw, color_raw, self.rays, mp, mm, *scal)
+            with self.telemetry.time_block("step"):
+                (self.volume, self._T, fit, self._prev_int, self._prev_depth, _, ok) = \
+                    self._f2m_step(self.volume, self._T, self._prev_int, self._prev_depth,
+                                   depth_raw, color_raw, self.rays, mp, mm, *scal)
             self._fits.append(fit)
             if self._model is not None:
                 self._icp_ok.append(ok)
@@ -261,11 +271,13 @@ class MonoOdometryTSDF:
         else:
             args = (self.volume, self._T, self._prev_int, self._prev_depth, depth_raw, color_raw,
                     self.rays, *scal)
-            if self.relocalize:
-                (self.volume, self._T, fit, self._prev_int, self._prev_depth,
-                 self._lost) = self._step(*args, self._lost)
-            else:
-                (self.volume, self._T, fit, self._prev_int, self._prev_depth) = self._step(*args)
+            with self.telemetry.time_block("step"):
+                if self.relocalize:
+                    (self.volume, self._T, fit, self._prev_int, self._prev_depth,
+                     self._lost) = self._step(*args, self._lost)
+                else:
+                    (self.volume, self._T, fit, self._prev_int,
+                     self._prev_depth) = self._step(*args)
             self._fits.append(fit)
         self._traj.append(self._T)
         self.frame_index += 1
@@ -275,6 +287,8 @@ class MonoOdometryTSDF:
             self._stream()
         if self.tracking == "frame_to_model":
             self._maybe_refresh_model()
+        self.telemetry.tick_frame()
+        self.telemetry.maybe_report()
         return self._T
 
     def _stream(self) -> None:
@@ -283,14 +297,15 @@ class MonoOdometryTSDF:
         write the pools in place, so the pipeline must never keep a pool the
         manager dropped."""
         if self.streaming is not None:
-            self.streaming.vol = self.volume
-            if self.streaming.maybe_tick(lambda: self._T):
-                self.volume = self.streaming.vol
+            with self.telemetry.time_block("streaming"):
+                self.streaming.vol = self.volume
+                if self.streaming.maybe_tick(lambda: self._T):
+                    self.volume = self.streaming.vol
 
     def _model_reach(self) -> float:
-        """Radius of the view-local model sample: the integration reach plus
-        the distance the camera may move before the next refresh."""
-        return integration_reach(self.cfg) + self.REFRESH_MARGIN
+        """Radius of the view-local model sample (:func:`tsdf.streaming.
+        model_reach`)."""
+        return model_reach(self.cfg)
 
     def _maybe_refresh_model(self) -> None:
         """Re-sample the model (:func:`tsdf.marching_cubes.
@@ -356,7 +371,7 @@ class MonoOdometryTSDF:
             self.lost = True
             self._lost_frames = 0
             self._paused_pending = 0  # these frames belong to the lost episode now
-            self._counts["tracking_lost"] += 1
+            self.telemetry.count("tracking_lost")
             log_warning(f"tracking LOST ({worst} consecutive rejections); fusion paused, "
                         "relocalizing")
         elif self._latch_up:
@@ -364,7 +379,7 @@ class MonoOdometryTSDF:
                 log_info(f"tracking rejection streak ({streak}) reaches the check boundary: "
                          "fusion stays paused")
             else:
-                self._counts["fusion_paused_frames"] += self._paused_pending
+                self.telemetry.count("fusion_paused_frames", self._paused_pending)
                 log_info(f"transient tracking rejection: {self._paused_pending} frame(s) "
                          "tracked but not fused")
                 self._paused_pending = 0
@@ -390,10 +405,11 @@ class MonoOdometryTSDF:
             frame = RGBDFrame.from_raw(upload(depth_raw, self.device),
                                        upload(color_raw, self.device), cam.depth_scale,
                                        cam.depth_trunc, cam.depth_min)
-            T = self._get_relocalizer().attempt(self.volume, frame.depth,
-                                                T_hint=self.T_world_cam)
+            with self.telemetry.time_block("relocalize"):
+                T = self._get_relocalizer().attempt(self.volume, frame.depth,
+                                                    T_hint=self.T_world_cam)
             if T is None:
-                self._counts["reloc_failed"] += 1
+                self.telemetry.count("reloc_failed")
             else:
                 self._T = torch.as_tensor(T, dtype=torch.float32).to(self.device)
                 self.volume = tsdf.integrate_frame(self.volume, frame.depth, frame.color,
@@ -405,7 +421,7 @@ class MonoOdometryTSDF:
                 self._latch_up = False
                 self._paused_pending = 0
                 recovered = True
-                self._counts["relocalized"] += 1
+                self.telemetry.count("relocalized")
                 log_info(f"relocalized after {self._lost_frames + 1} lost frames")
         self._lost_frames += 1
         self._fits.append(torch.full((), 1.0 if recovered else -1.0, dtype=torch.float32,
@@ -413,6 +429,8 @@ class MonoOdometryTSDF:
         self._fit_checked = len(self._fits)  # the checks must not count these again
         self._traj.append(self._T)
         self.frame_index += 1
+        self.telemetry.tick_frame()
+        self.telemetry.maybe_report()
         return self._T
 
     def extract_mesh(self, **kw):

@@ -11,9 +11,14 @@ pose chain is no longer trusted. An attempt climbs a ladder:
    works on feature-poor geometry. No feature consensus backs the seed, so
    its gate is strict: the inlier count, a valid transform, and a projective
    overlap of matched over visible model points of at least
-   ``hint_gate_fitness``;
+   ``hint_gate_fitness`` (the overlap gate);
 1. the model cloud: budget-bounded marching-cubes vertex samples
-   (``marching_cubes.extract_surface_samples``), in world coordinates;
+   (``marching_cubes.extract_surface_samples``), in world coordinates.
+   That sampler keeps the first emissions in pool order, so on a map over
+   its budget it would see only the oldest blocks; there, with a hint, the
+   model is sampled from all the blocks within ``tsdf.streaming.model_reach``
+   of the hint (``marching_cubes.extract_sampled_surface_model``). The
+   reference drops the overflow flag and keeps the oldest blocks;
 2. FPFH on both clouds, voxel-downsampled at one fitted voxel (PCA normals;
    the model's orient toward the hint position);
 3. multi-restart RANSAC (``tracking.ransac.global_registration``, at least
@@ -21,7 +26,11 @@ pose chain is no longer trusted. An attempt climbs a ladder:
    ``evaluate_registration``;
 4. projective point-to-plane ICP of the whole model sample onto the frame's
    organized maps, gated on the inlier count (most of a grown map projects
-   outside one frame, so a ratio would reject correct recoveries).
+   outside one frame, so a ratio over the whole sample would reject correct
+   recoveries) and then on rung 0's overlap gate. The reference gates
+   on the inlier count alone, which a RANSAC winner outside ICP's basin
+   passes: it refines to a wrong pose with thousands of inliers that
+   leaves much of the visible model unmatched.
 
 The model samples and descriptors are cached across an episode's retries
 (fusion is paused while lost, so the volume does not change). The port's
@@ -61,6 +70,7 @@ from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
 from azurekinect3dreconstruction_tpu_torch.tracking.ransac import global_registration
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import model_reach
 
 
 class Relocalizer:
@@ -152,6 +162,16 @@ class Relocalizer:
             vox *= 1.5
         return vox
 
+    def _overlap_gate(self, mpts, mmask, maps, T_mc):
+        """The strict gate: (passed, matched, visible) of the model points
+        against the dense frame maps, passed when at least
+        ``hint_gate_fitness`` of the visible ones match; a wrong-basin slide
+        leaves the misaligned relief uncovered."""
+        n_m, n_vis, _ = projective_overlap(mpts, mmask, maps, self.intr, T_mc,
+                                           dist_thr=self.cfg.registration.icp_distance_threshold)
+        n_m, n_vis = torch.stack([n_m, n_vis]).tolist()
+        return n_vis >= self.min_inliers and n_m / n_vis >= self.hint_gate_fitness, n_m, n_vis
+
     def _enrich(self, ds, dm, orient_to, vox):
         """PCA normals, then FPFH, on a downsampled cloud: the same radii
         for the frame and the model, so both see the same binning."""
@@ -179,7 +199,16 @@ class Relocalizer:
         key = (vol.tsdf.data_ptr(), tsdf.content_checksums(vol).cpu().numpy().tobytes(),
                cam_pos.tobytes())
         if self._model_cache is None or self._model_cache[0] != key:
-            mpts, mmask, _ = mc.extract_surface_samples(vol, self.cfg.tsdf, self.model_points)
+            mpts, mmask, ovf = mc.extract_surface_samples(vol, self.cfg.tsdf, self.model_points)
+            if T_hint is not None and bool(ovf):
+                # the sampler keeps the first emissions in pool order, the
+                # oldest part of the map: sample the blocks near the hint,
+                # every one of them (a stride over blocks leaves holes that
+                # let the hint rung slide), their triangles strided to the budget
+                mpts, mmask, _ = mc.extract_sampled_surface_model(
+                    vol, self.cfg.tsdf, self.model_points,
+                    torch.as_tensor(T_hint, dtype=torch.float32).to(dev), model_reach(self.cfg),
+                    sample_blocks=int(vol.n_blocks))
             self._model_cache = (key, mpts, mmask, self._fit_voxel(mpts, mmask), {})
         _, mpts, mmask, m_vox, m_feats = self._model_cache
 
@@ -203,18 +232,12 @@ class Relocalizer:
             r1 = icp_projective(mpts, mmask, maps, self.intr, init=r0.T, max_iters=15,
                                 dist_thr=reg.icp_distance_threshold)
             T_mc = r1.T.cpu().numpy().astype(np.float64)  # world -> camera
-            if int(r1.inliers) >= self.min_inliers and se3.is_valid_transform(T_mc):
-                # the strict gate: matched / visible model points against the
-                # dense frame maps; a wrong-basin slide leaves the misaligned
-                # relief uncovered
-                n_m, n_vis, _ = projective_overlap(mpts, mmask, maps, self.intr, r1.T,
-                                                   dist_thr=reg.icp_distance_threshold)
-                n_m, n_vis = torch.stack([n_m, n_vis]).tolist()
-                if n_vis >= self.min_inliers and n_m / n_vis >= self.hint_gate_fitness:
-                    self.n_success += 1
-                    self.n_hint_success += 1
-                    self.last_reject = ""
-                    return np.linalg.inv(T_mc)
+            if (int(r1.inliers) >= self.min_inliers and se3.is_valid_transform(T_mc)
+                    and self._overlap_gate(mpts, mmask, maps, r1.T)[0]):
+                self.n_success += 1
+                self.n_hint_success += 1
+                self.last_reject = ""
+                return np.linalg.inv(T_mc)
 
         # the global ladder; the model's descriptors are memoized per voxel
         if m_feats[vox][2] is None:
@@ -248,6 +271,10 @@ class Relocalizer:
             return None
         if not se3.is_valid_transform(T_mc):
             self.last_reject = "icp transform invalid"
+            return None
+        ok, n_m, n_vis = self._overlap_gate(mpts, mmask, maps, res.T)
+        if not ok:
+            self.last_reject = f"icp overlap {n_m}/{n_vis}"
             return None
         self.n_success += 1
         self.last_reject = ""

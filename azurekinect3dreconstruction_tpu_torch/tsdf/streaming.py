@@ -88,6 +88,14 @@ def integration_reach(cfg) -> float:
     return 1.45 * cfg.camera.depth_trunc + cfg.tsdf.sdf_trunc + 1.8 * cfg.tsdf.block_size
 
 
+def model_reach(cfg) -> float:
+    """Radius of a view-local model sample, from a ``PipelineConfig``:
+    :func:`integration_reach` plus the 0.25 m the camera may move before
+    frame-to-model tracking refreshes its model. The relocalizer samples a
+    map too large for its budget within this radius of its hint."""
+    return integration_reach(cfg) + 0.25
+
+
 # ---------------------------------------------------------------------------
 # device ops
 # ---------------------------------------------------------------------------

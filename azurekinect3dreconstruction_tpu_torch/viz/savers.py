@@ -2,11 +2,11 @@
 
 A copy of the JAX package's ``viz/savers.py`` on numpy: binary
 little-endian (default) or ASCII PLY point clouds and meshes, OBJ meshes,
-their readers, and the timestamped + ``latest_*`` dual-save convention of
-:class:`ResultSaver`. The JAX writers try the C++ runtime (``io/native``)
-first; the port writes with the pure-Python path only, which gives the same
-bytes (``tests/test_torch_savers.py``). Mesh previews (``save_preview``)
-wait for the port's renderer.
+their readers, PNG mesh previews (``viz.render``), and the timestamped +
+``latest_*`` dual-save convention of :class:`ResultSaver`. Binary PLY goes
+through the C++ runtime (``io.native``) when its library loads, as in the
+JAX package, else through the pure-Python path, which writes the same bytes
+(``tests/test_torch_native.py``); ``io.native`` logs the fallback once.
 """
 
 from __future__ import annotations
@@ -25,6 +25,14 @@ def _timestamp() -> str:
 
 
 def write_ply_point_cloud(path: str, cloud: PointCloudHost, binary: bool = True) -> None:
+    if binary:
+        # the C++ writer (native/kinrt.cpp) when its library loads
+        from azurekinect3dreconstruction_tpu_torch.io import native
+
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if native.write_ply_points_native(path, np.asarray(cloud.points, np.float32),
+                                          cloud.colors, cloud.normals):
+            return
     pts = np.asarray(cloud.points, np.float32)
     n = pts.shape[0]
     has_color = cloud.colors is not None
@@ -63,6 +71,14 @@ def write_ply_point_cloud(path: str, cloud: PointCloudHost, binary: bool = True)
 
 
 def write_ply_mesh(path: str, mesh: TriangleMeshHost, binary: bool = True) -> None:
+    if binary and mesh.vertex_normals is None:
+        from azurekinect3dreconstruction_tpu_torch.io import native
+
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if native.write_ply_mesh_native(path, np.asarray(mesh.vertices, np.float32),
+                                        np.asarray(mesh.triangles, np.int32),
+                                        mesh.vertex_colors):
+            return
     v = np.asarray(mesh.vertices, np.float32)
     t = np.asarray(mesh.triangles, np.int32)
     has_color = mesh.vertex_colors is not None
@@ -257,6 +273,16 @@ class ResultSaver:
         arr = np.stack([np.asarray(T).reshape(16) for T in poses])
         np.savetxt(p, arr)
         np.savetxt(latest, arr)
+        return p
+
+    def save_preview(self, mesh: TriangleMeshHost, kind: str = "preview") -> str:
+        """Shaded PNG preview of a mesh (``viz.render``: no GL, no Open3D),
+        dual-saved like every other artifact."""
+        from azurekinect3dreconstruction_tpu_torch.viz.render import save_mesh_preview
+
+        p, latest = self._paths(kind, "png")
+        save_mesh_preview(mesh, p)
+        save_mesh_preview(mesh, latest)
         return p
 
     @staticmethod

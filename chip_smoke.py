@@ -135,7 +135,29 @@ worklist, odometry pyramid [20, 10, 5]):
    unfed loop's to the bit, B1 32 and B2 31, ``h2d_mbps``, the fed loop's
    device idle share and the share of its copy time under a kernel from
    ``torch.profiler``), each with the counters zeroed just before and read
-   just after.
+   just after;
+16. drives the live session (``serve_phase``): ``cli.live_mono``'s loop
+   (``LiveSession``) over the 32 quantized sweep frames, headless and then
+   served by a ``BrowserLiveViewer`` on 127.0.0.1 with a thread polling
+   ``/meta.json`` and fetching ``/geometry.bin`` as the page does, ``M`` at
+   frame 11 and ``S`` at frame 21 sent over HTTP before the loop has
+   synchronized with the frame's work (none of its calls synchronized; the
+   log says whether the card's stream still had work pending), the counters
+   zeroed just before and read just after: B1 32, B2 31, the trajectory
+   equal to the headless loop's to the bit, each key acting at that frame's
+   tick, the served mesh (frame 30) and cloud (frame 10)
+   equal to the volume's ``extract_mesh`` / ``extract_point_cloud`` and
+   their ``geometry.bin`` to their pack, the status line, the save (mesh,
+   cloud, trajectory, a PNG preview) read back, the native PLY writers'
+   bytes against the Python writers'; then ms/frame headless and served in
+   both display modes in turns (median of 3; the page thread polls and
+   fetches through every served turn and is stopped for the headless ones),
+   the vis frames' stage ms and the synchronizing calls by frame;
+17. drives the checkerboard route for a rig (``rig_calib_phase``):
+   ``cli.calibrate_rig --source synthetic --views 8`` on the host, within
+   4 cm / 3 deg of the truth, then ``cli.dual_fusion --rig-calib`` over 8
+   pairs with the counters zeroed just before and read just after: the
+   calibration loaded, no auto-calibration attempt, B1 16, no overflow.
 
 After step 4 it times ``tsdf.streaming._compact`` over the main path's
 volume (the identity permutation) beside its bound. Between steps 1 and 2
@@ -173,9 +195,11 @@ with the bound and its bytes (null for a version without
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -274,6 +298,16 @@ SHARDED_CENTROID_MIN = 0.999
 N_SWEEP = 64
 N_SLAM_BATCH = 16
 N_FED = 32
+# the live session served to a browser: the key sent over HTTP at each frame (frames
+# that are not vis frames, so the loop has not synchronized with the frame's work when
+# the key arrives), the turns of its ms/frame against headless
+SERVE_KEY_FRAMES = {"M": 11, "S": 21}
+SERVE_TURNS = 3
+# the checkerboard rig calibration: tests/test_io_calib.py's bounds on its
+# extrinsic; the pairs cli.dual_fusion --rig-calib then fuses
+RIG_T_LIMIT_M = 0.04
+RIG_R_LIMIT_DEG = 3.0
+N_RIG_CALIB_PAIRS = 8
 
 
 def _log(msg: str) -> None:
@@ -1268,6 +1302,7 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
     )
     from azurekinect3dreconstruction_tpu_torch.tracking.ransac import global_registration
     from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import model_reach
     from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 
     failures = []
@@ -1345,16 +1380,23 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
     bad[:3, 3] += [0.9, -0.6, 0.8]
     reloc = Relocalizer(intr, cfg, device=dev)
     # what the model sample covers: the surface sampler emits at most 4x the
-    # budget, in pool order, before it thins
+    # budget, in pool order, before it thins; over the budget, the relocalizer
+    # samples every block near its hint instead (ROADMAP C9)
     E = mc.snap_extract_blocks(int(vol.n_blocks), vol.tsdf.shape[0])
     _, total = mc.exact_budgets(mc._survey(vol, cfg.tsdf, extract_blocks=E, colors=False), cfg.tsdf)
     _, mm, m_ovf = mc.extract_surface_samples(vol, cfg.tsdf, reloc.model_points)
     ms_model = _median_ms(lambda: mc.extract_surface_samples(vol, cfg.tsdf, reloc.model_points),
                           dev)
-    _log(f"relocalizer model sample: {int(mm.sum())} points from the first "
-         f"{min(total, 4 * (reloc.model_points // 3))} of the volume's {total} triangles in "
-         f"pool order, overflow {bool(m_ovf)}; extract_surface_samples {ms_model:.3f} ms "
-         f"(synchronized, median of 5)  [{gpu}]")
+    near = lambda: mc.extract_sampled_surface_model(
+        vol, cfg.tsdf, reloc.model_points, torch.as_tensor(hint, dtype=torch.float32).to(dev),
+        model_reach(cfg), sample_blocks=int(vol.n_blocks))
+    _, nm, _ = near()
+    ms_near = _median_ms(near, dev)
+    _log(f"relocalizer model: the pool-order sample holds {int(mm.sum())} points from the first "
+         f"{min(total, 4 * (reloc.model_points // 3))} of the volume's {total} triangles, "
+         f"overflow {bool(m_ovf)} ({ms_model:.3f} ms), so the relocalizer samples the blocks "
+         f"within {model_reach(cfg):.3f} m of its hint: {int(nm.sum())} points "
+         f"({ms_near:.3f} ms) (synchronized, median of 5)  [{gpu}]")
 
     def timed(fn):
         _sync(dev)
@@ -2588,6 +2630,453 @@ def device_step_phase(cfg, cam, raw, mono_traj, dev, gpu: str, n_sweep: int = N_
     return failures, counts
 
 
+def _png_rgb(path):
+    """(height, width, 3) u8 pixels of a PNG that ``viz.render.write_png``
+    wrote (8-bit RGB, filter 0 rows)."""
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.rindex(b"IEND") - 4])
+    return np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def _native_missing() -> list:
+    """What the native runtime's build needs and this machine lacks."""
+    import shutil
+
+    return [what for what, ok in (("g++", shutil.which("g++")),
+                                  ("zlib.h", os.path.exists("/usr/include/zlib.h"))) if not ok]
+
+
+def native_build() -> list:
+    """Build and load ``io.native``'s library once, before any phase saves a
+    PLY, so that no timed save holds the compile; its time on a line of its
+    own. Without g++ or zlib's header it says why (the savers then write in
+    Python); any other failed build fails the run. Returns the failures."""
+    from azurekinect3dreconstruction_tpu_torch.io import native
+
+    missing = _native_missing()
+    if missing:
+        _log(f"native runtime not built: this machine has no {' and no '.join(missing)}, so "
+             "the savers write in Python")
+        return []
+    t0 = time.perf_counter()
+    try:
+        native.load()
+    except (RuntimeError, OSError) as e:
+        return [f"the native runtime did not build or load: {e}"]
+    _log(f"native runtime built (g++) and loaded in {time.perf_counter() - t0:.2f} s -> "
+         f"{os.path.relpath(str(native.library_path()), REPO)}")
+    return []
+
+
+def _native_check(mesh, cloud, gpu: str) -> list:
+    """``io.native``'s binary PLY writers against the Python writers on the
+    served mesh and cloud: the same bytes. Without g++ or zlib's header the
+    check says why on a line of its own and is not made; any other failed
+    build fails the run. Returns the failures."""
+    from azurekinect3dreconstruction_tpu_torch.io import native
+    from azurekinect3dreconstruction_tpu_torch.viz import savers
+
+    missing = _native_missing()
+    if missing:
+        _log(f"native PLY check not made: this machine has no {' and no '.join(missing)}, so "
+             f"the savers write in Python  [{gpu}]")
+        return []
+    try:
+        native.load()  # built by native_build before the phases
+    except (RuntimeError, OSError) as e:
+        return [f"the native runtime did not build or load: {e}"]
+    same = {}
+    with tempfile.TemporaryDirectory() as td:
+        for name, geom in (("mesh", mesh), ("cloud", cloud)):
+            a, b = os.path.join(td, f"native_{name}.ply"), os.path.join(td, f"python_{name}.ply")
+            if name == "mesh":
+                ok = native.write_ply_mesh_native(a, geom.vertices, geom.triangles,
+                                                  geom.vertex_colors)
+            else:
+                ok = native.write_ply_points_native(a, geom.points, geom.colors, geom.normals)
+            avail = native.is_available
+            native.is_available = lambda: False  # the savers' Python path
+            try:
+                (savers.write_ply_mesh if name == "mesh" else savers.write_ply_point_cloud)(b, geom)
+            finally:
+                native.is_available = avail
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same[name] = bool(ok) and fa.read() == fb.read()
+    _log(f"native PLY writers ({os.path.relpath(str(native.library_path()), REPO)}): bytes "
+         f"equal to the Python writers' for the served mesh "
+         f"({mesh.triangles.shape[0]} triangles) {same['mesh']} and cloud "
+         f"({cloud.points.shape[0]} points) {same['cloud']}  [{gpu}]")
+    return [] if all(same.values()) else ["the native PLY bytes differ from the Python writers'"]
+
+
+def serve_phase(intr, cfg, raw, dev, gpu: str, turns: int = SERVE_TURNS):
+    """The live session at full width: ``cli.live_mono``'s loop
+    (``LiveSession.run``, the frames through ``prefetch_to_device``) over
+    ``raw``, headless, then served by a ``BrowserLiveViewer`` on 127.0.0.1
+    with a thread polling ``/meta.json`` and fetching each new
+    ``/geometry.bin`` as the page does, and ``M`` / ``S`` sent over HTTP at
+    ``SERVE_KEY_FRAMES``, frames that are not vis frames. Checks, the
+    counters zeroed just before the served run and read just after: B1 once
+    a frame and B2 once a tracked frame; the trajectory equal to the
+    headless run's to the bit; on the card, no synchronizing call between
+    the previous frame's end and a key's arrival (and whether the stream
+    still had work pending then, logged); each key queued until that
+    frame's ``tick`` and acting there; at the last mesh-mode vis frame the
+    sent soup equal to
+    ``extract_mesh`` of that volume (count and centroid set at 5 decimals)
+    and the ``geometry.bin`` of that revision equal to its pack (decimated
+    whole triangles past the viewer's 2,000,000 vertices); at the last
+    cloud-mode vis frame the sent cloud equal to ``extract_point_cloud(
+    max_points=200000)`` and its bytes to its pack; the status line's frame
+    and a finite rate; the save (mesh, cloud, trajectory, preview) read
+    back; the native PLY writers. Then ms/frame of the loop headless,
+    served in cloud mode and served in mesh mode, in turns (median of
+    ``turns``; the page thread runs through each served turn and not
+    through the headless ones), the vis frames' ``inc.update`` and
+    ``pack_geometry`` ms,
+    one ``geometry.bin``'s bytes, and the synchronizing calls by frame of a
+    served run (``torch.cuda.set_sync_debug_mode``). Returns (failures,
+    launches)."""
+    import shutil
+    import statistics
+    import threading
+    import urllib.request
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli.common import NullViewer
+    from azurekinect3dreconstruction_tpu_torch.cli.live_mono import LiveSession
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.viz.live_server import (
+        MAGIC,
+        BrowserLiveViewer,
+        pack_geometry,
+    )
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver, read_ply
+
+    t_phase = time.perf_counter()
+    failures = []
+    n, every = len(raw), cfg.vis_update_interval
+    key_at = {f: k for k, f in SERVE_KEY_FRAMES.items()}
+    vis = list(range(0, n, every))
+    last_mesh = max(i for i in vis if i > SERVE_KEY_FRAMES["M"])
+    last_cloud = max(i for i in vis if i <= SERVE_KEY_FRAMES["M"])
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    get = lambda url: urllib.request.urlopen(url, timeout=10).read()
+    td = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+
+    def run(viewer, out, on_frame=None, mesh_mode=False):
+        pipe.reset()
+        s = LiveSession(pipe, viewer, ResultSaver(os.path.join(td, out)))
+        s.mesh_mode = mesh_mode
+        _sync(dev)
+        t0 = time.perf_counter()
+        s.run(iter(raw), on_frame=on_frame)
+        _sync(dev)
+        return s, (time.perf_counter() - t0) * 1e3 / n
+
+    viewer = BrowserLiveViewer(port=0, window_name="chip_smoke serve")
+    url = viewer.server.url
+    stop = threading.Event()
+    page = {"polls": 0, "fetches": [], "bytes": 0, "errors": []}
+
+    def poll():  # the page: poll the meta, fetch each new revision
+        known = None
+        while not stop.is_set():
+            try:
+                obj = json.loads(get(url + "meta.json"))["objects"].get("surface")
+                page["polls"] += 1
+                if obj and obj["rev"] != known:
+                    blob = get(url + "geometry.bin?name=surface")
+                    page["fetches"].append(struct.unpack_from("<3I", blob))
+                    page["bytes"] += len(blob)
+                    known = obj["rev"]
+            except OSError as e:
+                page["errors"].append(repr(e))
+            stop.wait(0.05)
+
+    def page_on():
+        stop.clear()
+        t = threading.Thread(target=poll, name="chip-smoke-page", daemon=True)
+        t.start()
+        return t
+
+    def page_off(t):
+        stop.set()
+        t.join(timeout=10)
+
+    @contextlib.contextmanager
+    def sync_calls():
+        """The synchronizing calls made inside (on the card), as a growing
+        list of torch's sync-debug warnings."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield caught
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+
+    n_sync = lambda caught: sum("synchroniz" in str(w.message) for w in caught)
+    checks, queued, vis_ms = {}, [], {"inc": [], "pack_mesh": [], "pack_cloud": []}
+    # at each key: the synchronizing calls since the previous frame's check, and
+    # whether the card's stream still had work pending
+    key_syncs, key_busy, seen = [], [], {"caught": [], "n": 0}
+
+    def check_frame(s, i):
+        if i in key_at:
+            key_syncs.append(n_sync(seen["caught"]) - seen["n"])
+            if dev.type == "cuda":
+                key_busy.append(not torch.cuda.current_stream(dev).query())
+        if s.vis_frames and s.vis_frames[-1][0] == i:
+            mode = s.vis_frames[-1][1]
+            geom = s.sent[mode][1]
+            if mode == "mesh":
+                vis_ms["inc"].append(sum(s.inc.timings.values()) * 1e3)
+            t0 = time.perf_counter()
+            pack_geometry(geom, 1, viewer.server.max_vertices)
+            vis_ms[f"pack_{mode}"].append((time.perf_counter() - t0) * 1e3)
+            if i in (last_mesh, last_cloud):
+                blob = get(url + "geometry.bin?name=surface")
+                rev, _, nv = struct.unpack_from("<3I", blob, 8)  # rev, mode, n_vertices
+                out = dict(frame=i, bytes_equal=blob == pack_geometry(
+                    geom, rev, viewer.server.max_vertices), geometry_bin_bytes=len(blob))
+                if mode == "mesh":
+                    full = s.pipe.extract_mesh().compact()
+                    cen = lambda v: (lambda r: r[np.lexsort(r.T)])(
+                        np.round(np.asarray(v).reshape(-1, 3, 3).mean(1), 5))
+                    out.update(same_as_extract=(
+                        geom.triangles.shape[0] == full.triangles.shape[0]
+                        and np.array_equal(cen(geom.vertices), cen(full.vertices))),
+                        triangles=int(geom.triangles.shape[0]), sent_vertices=int(nv),
+                        decimated=bool(nv < geom.vertices.shape[0]))
+                else:
+                    pts, cols = s.pipe.extract_point_cloud(max_points=s.CLOUD_POINTS)
+                    out.update(same_as_extract=bool(np.array_equal(pts, geom.points)
+                                                    and np.array_equal(cols, geom.colors)),
+                               points=int(pts.shape[0]))
+                checks[mode] = out
+            checks["status"] = json.loads(get(url + "meta.json"))["status"]
+        if i in key_at:
+            before = list(s.keys)
+            get(url + "key?c=" + key_at[i].lower())
+            queued.append(s.keys == before)
+        seen["n"] = n_sync(seen["caught"])
+
+    ms = {"headless": [], "cloud": [], "mesh": []}
+    try:
+        ms["headless"].append(run(NullViewer(), "headless")[1])
+        traj_headless = np.stack(pipe.trajectory)
+        t_page = page_on()
+        with sync_calls() as seen["caught"]:
+            build.launches.clear()
+            served, _ = run(viewer, "served", on_frame=check_frame)
+            counts = {k: build.launches[k] for k in (tk.KERNEL, odo.KERNEL)}
+        page_off(t_page)
+        traj_served = np.stack(pipe.trajectory)
+        mesh_geom, cloud_geom = served.sent["mesh"][1], served.sent["cloud"][1]
+        # the synchronizing calls of a served run, frame by frame
+        per_frame = []
+        if dev.type == "cuda":
+            with sync_calls() as caught:
+                last = [0]
+
+                def count(s, i):
+                    per_frame.append(n_sync(caught) - last[0])
+                    last[0] = n_sync(caught)
+
+                run(viewer, "syncs", on_frame=count, mesh_mode=True)
+        # ms/frame headless and served, in turns (the first headless turn above); the
+        # page polls and fetches through each served turn
+        page_before = (len(page["fetches"]), page["bytes"], page["polls"])
+        for t in range(turns):
+            for what in (("cloud", "mesh", "headless") if t % 2 == 0
+                         else ("headless", "mesh", "cloud")):
+                if len(ms[what]) < turns:
+                    t_page = None if what == "headless" else page_on()
+                    try:
+                        v = NullViewer() if what == "headless" else viewer
+                        ms[what].append(run(v, "timing", mesh_mode=what == "mesh")[1])
+                    finally:
+                        if t_page is not None:
+                            page_off(t_page)
+        turn_page = (len(page["fetches"]) - page_before[0], page["bytes"] - page_before[1],
+                     page["polls"] - page_before[2])
+    finally:
+        stop.set()
+        viewer.close()
+
+    traj_equal = np.array_equal(traj_served, traj_headless)
+    want_keys = [(SERVE_KEY_FRAMES["M"], "M"), (SERVE_KEY_FRAMES["S"], "S")]
+    want_vis = [(i, "mesh" if i > SERVE_KEY_FRAMES["M"] else "cloud") for i in vis]
+    status = checks.get("status", "").split(" | ")
+    status_ok = (len(status) == 2 and status[0] == f"frame {vis[-1]}"
+                 and np.isfinite(float(status[1].split()[0])))
+    fetched = page["fetches"]
+    page_ok = (page["polls"] > 0 and fetched and not page["errors"]
+               and all(m == MAGIC and v == 1 for m, v, _ in fetched)
+               and [r for _, _, r in fetched] == sorted(r for _, _, r in fetched))
+    saved = os.path.join(td, "served")
+    try:
+        mv, _, mf = read_ply(os.path.join(saved, "latest_mesh.ply"))
+        cv, cc, _ = read_ply(os.path.join(saved, "latest_volume_pcd.ply"))
+        tr = np.loadtxt(os.path.join(saved, "latest_trajectory.txt"))
+        img = _png_rgb(os.path.join(saved, "latest_preview.png"))
+        save_ok = (mf is not None and len(mf) > 10000 and np.isfinite(mv).all()
+                   and cv.shape[0] > 10000 and cc is not None
+                   and tr.shape == (SERVE_KEY_FRAMES["S"] + 2, 16) and img.shape == (480, 640, 3)
+                   and bool((np.abs(img.astype(int) - [18, 18, 24]).sum(-1) > 10).any()))
+        save_what = (f"mesh {len(mf)} faces, cloud {cv.shape[0]} points, trajectory "
+                     f"{tr.shape[0]} poses, preview {img.shape[1]}x{img.shape[0]} with "
+                     f"{float((np.abs(img.astype(int) - [18, 18, 24]).sum(-1) > 10).mean()):.3f} "
+                     "of its pixels off the background")
+    except (OSError, ValueError) as e:
+        save_ok, save_what = False, f"not read back: {e}"
+    _log(f"serve launches: {json.dumps(counts)} over {n} frames  [{gpu}]")
+    m_chk = {k: v for k, v in checks.get("mesh", {}).items()}
+    c_chk = {k: v for k, v in checks.get("cloud", {}).items()}
+    _log(f"served loop (LiveSession over prefetch_to_device, BrowserLiveViewer on {url}): "
+         f"trajectory equal to the headless loop's to the bit: {traj_equal}; vis frames "
+         f"{served.vis_frames}; keys {served.keys}, each queued until that frame's tick: "
+         f"{queued}, synchronizing calls since the previous frame before each {key_syncs}, the "
+         f"card's stream still busy at each {key_busy}; "
+         f"mesh check {json.dumps(m_chk)}; cloud check {json.dumps(c_chk)}; status "
+         f"{checks.get('status')!r}; the page thread polled {page['polls']} times and fetched "
+         f"{len(fetched)} revisions, errors {page['errors'][:2]}; save: {save_what}  [{gpu}]")
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    _log(f"served ms/frame (host clock, one sync after {n} frames, {turns} turns, median): "
+         f"headless {med(ms['headless']):.3f} ({fmt(ms['headless'])}), served cloud mode "
+         f"{med(ms['cloud']):.3f} ({fmt(ms['cloud'])}), served mesh mode {med(ms['mesh']):.3f} "
+         f"({fmt(ms['mesh'])}); during the served turns the page thread polled "
+         f"{turn_page[2]} times and fetched {turn_page[0]} revisions, {turn_page[1]} bytes  "
+         f"[{gpu}]")
+    _log(f"served vis frames (every {every}, host clock): inc.update ms median "
+         f"{med(vis_ms['inc']):.3f} ({fmt(vis_ms['inc'])}), pack_geometry ms median mesh "
+         f"{med(vis_ms['pack_mesh']):.3f} ({fmt(vis_ms['pack_mesh'])}) / cloud "
+         f"{med(vis_ms['pack_cloud']):.3f} ({fmt(vis_ms['pack_cloud'])})  [{gpu}]")
+    _log(f"one geometry.bin: {m_chk.get('geometry_bin_bytes')} bytes (mesh, "
+         f"{m_chk.get('sent_vertices')} vertices), {c_chk.get('geometry_bin_bytes')} bytes "
+         f"(cloud, {c_chk.get('points')} points)  [{gpu}]")
+    if per_frame:
+        other = [c for i, c in enumerate(per_frame) if i % every]
+        _log(f"synchronizing calls by frame of a served mesh-mode run "
+             f"(torch.cuda.set_sync_debug_mode): {per_frame}; on the {len(other)} frames that "
+             f"are not vis frames {sum(other)}  [{gpu}]")
+    if counts != {tk.KERNEL: n, odo.KERNEL: n - 1}:
+        failures.append(f"serve launches {counts}, not B1 once a frame and B2 once a tracked "
+                        "frame")
+    if not traj_equal:
+        failures.append("the served loop's trajectory differs from the headless loop's")
+    if served.keys != want_keys or not all(queued) or len(queued) != 2:
+        failures.append(f"keys handled {served.keys}, queued until the tick {queued}")
+    if dev.type == "cuda" and any(key_syncs):
+        failures.append(f"the loop synchronized before a key arrived: {key_syncs}")
+    if served.vis_frames != want_vis:
+        failures.append(f"vis frames {served.vis_frames}, not {want_vis}")
+    if not (m_chk.get("same_as_extract") and m_chk.get("bytes_equal")):
+        failures.append(f"the served mesh differs from extract_mesh or its pack: {m_chk}")
+    if not (c_chk.get("same_as_extract") and c_chk.get("bytes_equal")):
+        failures.append(f"the served cloud differs from extract_point_cloud or its pack: {c_chk}")
+    if not status_ok:
+        failures.append(f"the status line {checks.get('status')!r}")
+    if not page_ok:
+        failures.append(f"the page thread: {page['polls']} polls, fetches {fetched[:3]}, errors "
+                        f"{page['errors'][:2]}")
+    if not save_ok:
+        failures.append(f"the save: {save_what}")
+    failures += _native_check(mesh_geom, cloud_geom, gpu)
+    shutil.rmtree(td, ignore_errors=True)
+    _log(f"serve phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  [{gpu}]")
+    return failures, counts
+
+
+def rig_calib_phase(dev, gpu: str, n_pairs: int = N_RIG_CALIB_PAIRS, scale: float = 1.0):
+    """The checkerboard route for a rig outside ICP's basin: ``cli.
+    calibrate_rig --source synthetic --views 8`` into a temporary directory
+    on the host (its extrinsic within tests/test_io_calib.py's 4 cm / 3 deg
+    of the true T10), then ``cli.dual_fusion --source synthetic --frames
+    n_pairs --rig-calib DIR`` on the card, in process, the counters zeroed
+    just before and read just after: it logs the loaded calibration, makes
+    no auto-calibration attempt (``calib_ok`` + ``calib_reject`` = 0), B1
+    twice a pair, no overflow. Returns (failures, launches)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.calib.extrinsics import RigCalibration
+    from azurekinect3dreconstruction_tpu_torch.cli import calibrate_rig, dual_fusion
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+
+    t_phase = time.perf_counter()
+    failures = []
+    with tempfile.TemporaryDirectory() as td:
+        calib = os.path.join(td, "calibration")
+        t0 = time.perf_counter()
+        rc = calibrate_rig.main(["--source", "synthetic", "--views", "8", "--calib-dir", calib])
+        calib_ms = (time.perf_counter() - t0) * 1e3
+        cal = RigCalibration.load_newest(calib, expected_serials=["SYNTH0", "SYNTH1"])
+        T_true = calibrate_rig._exp64(calibrate_rig.SYNTH_T10_XI)
+        t_err = r_err = float("nan")
+        if cal is not None:
+            T = np.asarray(cal.extrinsics[1])
+            t_err = float(np.linalg.norm(T[:3, 3] - T_true[:3, 3]))
+            cos = (np.trace(T[:3, :3].T @ T_true[:3, :3]) - 1) / 2
+            r_err = float(np.degrees(np.arccos(np.clip(cos, -1, 1))))
+        _log(f"rig calibration (cli.calibrate_rig, 8 synthetic view pairs, host): rc {rc}, "
+             f"extrinsic {t_err * 1e3:.2f} mm / {r_err:.3f} deg from the truth, "
+             f"{calib_ms:.1f} ms with the board renders  [{gpu}]")
+        if rc != 0 or not (t_err < RIG_T_LIMIT_M and r_err < RIG_R_LIMIT_DEG):
+            failures.append(f"the checkerboard extrinsic is {t_err:.4f} m / {r_err:.3f} deg off "
+                            f"(rc {rc})")
+        buf = io.StringIO()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dual_fusion.main(["--source", "synthetic", "--frames", str(n_pairs), "--scale",
+                                   str(scale), "--device", str(dev), "--rig-calib", calib,
+                                   "--output", os.path.join(td, "fused")])
+        _sync(dev)
+        dual_s = time.perf_counter() - t0
+        counts = {k: build.launches[k] for k in (tk.KERNEL, odo.KERNEL)}
+    out = buf.getvalue()
+    summary = [l for l in out.splitlines() if "pairs, calibrated" in l]
+    loaded = [l for l in out.splitlines() if "rig calibration loaded" in l]
+    _log(f"dual_fusion --rig-calib ({n_pairs} pairs, {dual_s:.1f} s with its set-up and save): "
+         f"rc {rc}; {loaded[0] if loaded else 'NO rig calibration loaded line'}; "
+         f"{summary[0] if summary else 'NO summary line'}; launches {json.dumps(counts)}  [{gpu}]")
+    if rc != 0 or not loaded or not summary:
+        failures.append("dual_fusion --rig-calib did not load the calibration or finish")
+    elif not ("calibration events {}" in summary[0] and "overflow False" in summary[0]
+              and "calibrated True" in summary[0]):
+        failures.append(f"dual_fusion --rig-calib: {summary[0]}")
+    if counts != {tk.KERNEL: 2 * n_pairs, odo.KERNEL: 0}:
+        failures.append(f"rig-calibrated dual launches {counts}, not B1 twice a pair")
+    _log(f"rig calibration phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  "
+         f"[{gpu}]")
+    return failures, counts
+
+
 def main() -> int:
     import torch
 
@@ -2622,6 +3111,8 @@ def main() -> int:
     _log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s) "
          f"-> {os.path.relpath(lib_path, REPO)}")
 
+    failures = native_build()
+
     cfg, intr, cam, poses, raw = _bench(dev, N_FRAMES)
     tcfg, ocfg = cfg.tsdf, cfg.odometry
     dec = [_decode(r, cfg, dev) for r in raw[:3]]
@@ -2629,7 +3120,6 @@ def main() -> int:
           for T in poses]
     rays = pixel_rays(intr, dev)
     kernels = []
-    failures = []
 
     # -- B1: one frame into a 2-frame volume, kernel vs plain ----------------
     vol = tsdf.create(tcfg, dev)
@@ -2852,6 +3342,13 @@ def main() -> int:
         for part, key in (("fused", "launches_fused_batch"), ("slam", "launches_slam_batch"),
                           ("fed", "launches_fed_pipeline")):
             k[key] = step_counts[part][k["name"]]
+    serve_failures, serve_counts = serve_phase(intr, cfg, raw32, dev, gpu)
+    failures += serve_failures
+    rig_failures, rig_counts = rig_calib_phase(dev, gpu)
+    failures += rig_failures
+    for k in kernels:
+        k["launches_serve"] = serve_counts[k["name"]]
+        k["launches_rig_calib_dual"] = rig_counts[k["name"]]
     _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))

@@ -6,7 +6,11 @@ of ``live_mono`` (with and without ``--streaming``), ``dual_fusion``
 ``--rig-calib``), ``record_reconstruction``, ``offline_bundle`` and its
 ``--resume``, ``fragments``, ``cloud_accumulate``, ``depth_to_cloud`` into
 ``cloud_to_mesh``, ``eval_trajectory`` and ``device_test``, and the
-``mkv:`` source's error without pyk4a. Needs no jax."""
+``mkv:`` source's error without pyk4a; and of the live viewer: ``live_mono``'s
+loop served to a browser viewer in process (keys over HTTP acting on the
+next tick, the served geometry, the preview on save), ``--serve``,
+``live_viewer``, ``view_results``, ``generate_checkerboard`` and
+``calibrate_rig`` into ``dual_fusion --rig-calib``. Needs no jax."""
 
 import functools
 import glob
@@ -70,7 +74,10 @@ def test_streaming_and_cli_modules_import_without_jax():
     sources, the feeder and the entry points import and pull in neither jax
     nor the JAX package."""
     mods = ["tsdf", "tsdf.streaming", "tsdf.hash", "pipelines.mono_odometry_tsdf", "cli.common",
-            "cli.live_mono", "io", "io.streams", "io.mkv", "io.k4a_live", "cli.device_test"]
+            "cli.live_mono", "io", "io.streams", "io.mkv", "io.k4a_live", "cli.device_test",
+            "io.native", "viz", "viz.render", "viz.webgl_core", "viz.html_export",
+            "viz.live_server", "viz.o3d_bridge", "viz.browsers", "viz.savers", "calib",
+            "calib.checkerboard", "calib.checkerboard_np"]
     code = ("import sys, importlib\nsys.modules['jax'] = None\n"
             + "".join(f"importlib.import_module('azurekinect3dreconstruction_tpu_torch.{m}')\n"
                       for m in mods)
@@ -220,7 +227,8 @@ def test_pipeline_cli_modules_import_without_jax():
     """With jax made unimportable, every entry point imports, and
     ``eval_trajectory`` without torch."""
     mods = ["dual_fusion", "record_reconstruction", "offline_bundle", "fragments",
-            "cloud_accumulate", "depth_to_cloud", "cloud_to_mesh", "eval_trajectory"]
+            "cloud_accumulate", "depth_to_cloud", "cloud_to_mesh", "eval_trajectory",
+            "live_viewer", "view_results", "calibrate_rig", "generate_checkerboard"]
     code = ("import sys, importlib\nsys.modules['jax'] = None\n"
             "importlib.import_module('azurekinect3dreconstruction_tpu_torch.cli.eval_trajectory')\n"
             "assert 'torch' not in sys.modules\n"
@@ -230,3 +238,176 @@ def test_pipeline_cli_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# -- the live viewer and the calibration entry points -------------------------------
+
+
+def _http(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read()
+
+
+def _tri_set(verts) -> set:
+    """Triangle centroids of a (3n, 3) soup at 5 decimals."""
+    return {tuple(x) for x in np.round(np.asarray(verts).reshape(-1, 3, 3).mean(1), 5).tolist()}
+
+
+def _png_size_and_pixels(path):
+    """(width, height, RGB rows) of a PNG written by ``viz.render.write_png``."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    w, h = struct.unpack(">II", data[16:24])
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.rindex(b"IEND") - 4])
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+    return w, h, rows
+
+
+def test_live_mono_served_loop_keys_act_on_the_next_tick(tmp_path):
+    """``cli.live_mono``'s loop in process at quarter resolution, 6 frames,
+    a vis frame every 2, served by a ``BrowserLiveViewer`` on a free port:
+    ``M``, ``S`` and ``=`` sent over HTTP while the loop runs wait until
+    the next ``tick`` and act there (mesh mode from the next vis frame, the
+    save with its preview, depth scale 1,100); the served mesh is the
+    volume's ``extract_mesh`` (count and centroid set) and the served bytes
+    its pack; the status shows the frame and a finite rate; the trajectory
+    up to the ``=`` equals a headless run's to the bit."""
+    from urllib.parse import quote
+
+    from azurekinect3dreconstruction_tpu_torch.cli.common import NullViewer
+    from azurekinect3dreconstruction_tpu_torch.cli.live_mono import LiveSession
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.viz.live_server import (
+        BrowserLiveViewer,
+        pack_geometry,
+    )
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
+
+    intr = Intrinsics.azure_kinect_depth_nfov().scaled(0.25)
+    cam = SyntheticCamera(intrinsics=intr, device="cpu")
+    poses = orbit_trajectory(6, radius=0.35, angle_span=1.0)
+    frames = [cam.capture(T) for T in poses]
+    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=0.02, sdf_trunc=0.08), vis_update_interval=2)
+
+    def session(viewer, out):
+        return LiveSession(MonoOdometryTSDF(intr, cfg, device="cpu"), viewer,
+                           ResultSaver(str(out)), gt_poses=poses)
+
+    headless = session(NullViewer(), tmp_path / "headless")
+    headless.run(iter(frames))
+    assert headless.vis_frames == [] and headless.keys == []
+    viewer = BrowserLiveViewer(port=0)
+    seen = {}
+
+    def on_frame(s, i):
+        url = viewer.server.url
+        if i in s.sent.get("mesh", (None,))[:1]:
+            soup = s.sent["mesh"][1]
+            blob = _http(url + "geometry.bin?name=surface")
+            full = mc.extract_mesh(s.pipe.volume, cfg.tsdf)
+            nt = int(full.num_triangles)
+            seen[i] = (blob == pack_geometry(soup, int.from_bytes(blob[8:12], "little")),
+                       soup.triangles.shape[0] == nt,
+                       _tri_set(soup.vertices) == _tri_set(full.vertices[:3 * nt]))
+        if i == 4:
+            seen["status"] = json.loads(_http(url + "meta.json"))["status"]
+        key = {1: "m", 3: "s", 4: "="}.get(i)
+        if key:
+            before = list(s.keys)
+            assert _http(url + "key?c=" + quote(key)) == b"ok"
+            assert s.keys == before  # queued until the tick
+
+    try:
+        served = session(viewer, tmp_path / "served")
+        served.run(iter(frames), on_frame=on_frame)
+    finally:
+        viewer.close()
+    assert served.keys == [(1, "M"), (3, "S"), (4, "=")]
+    assert served.vis_frames == [(0, "cloud"), (2, "mesh"), (4, "mesh")]
+    assert seen[2] == seen[4] == (True, True, True)
+    status = seen["status"].split(" | ")
+    assert status[0] == "frame 4" and np.isfinite(float(status[1].split()[0]))
+    assert served.pipe.cfg.camera.depth_scale == 1100.0
+    names = os.listdir(tmp_path / "served")
+    for kind in ("latest_mesh.ply", "latest_volume_pcd.ply", "latest_trajectory.txt",
+                 "latest_preview.png"):
+        assert kind in names, (kind, names)
+    w, h, rows = _png_size_and_pixels(tmp_path / "served" / "latest_preview.png")
+    assert (w, h) == (640, 480) and (np.abs(rows.astype(int) - [18, 18, 24]).sum(-1) > 10).any()
+    a, b = np.stack(served.pipe.trajectory), np.stack(headless.pipe.trajectory)
+    assert a.shape == b.shape == (7, 4, 4)
+    assert np.array_equal(a[:6], b[:6])  # frames 0-4; the "=" acts from frame 5
+
+
+def test_live_mono_serve_flag(tmp_path):
+    """``--serve 0`` runs the loop against the browser viewer on a free
+    port, and the save writes the preview."""
+    out = _live_mono(*QUICK, "--frames", "3", "--serve", "0", "--output", str(tmp_path))
+    assert "live viewer serving at http://127.0.0.1:" in out, out
+    assert "latest_preview.png" in os.listdir(tmp_path)
+
+
+def test_live_viewer_headless():
+    out = _run("live_viewer", *BASE, "--frames", "2", "--position-colors", "--headless")
+    assert "2 frames shown" in out, out
+
+
+def test_view_results_list_only_and_html(mono_results, tmp_path):
+    """``--list-only`` names the newest result; ``--html`` writes the newest
+    mesh as a self-contained WebGL page with the geometry embedded."""
+    out = _run("view_results", "--mode", "latest", "--dir", str(mono_results), "--list-only")
+    assert "newest result" in out, out
+    out = _run("view_results", "--mode", "choose", "--dir", str(mono_results), "--list-only")
+    assert "latest_mesh.ply" in out, out
+    page = str(tmp_path / "viewer.html")
+    out = _run("view_results", "--mode", "mesh", "--dir", str(mono_results), "--html", page)
+    assert "HTML viewer written" in out, out
+    html = open(page).read()
+    assert "webgl" in html and 'pos: "' in html and os.path.getsize(page) > 10_000
+
+
+def test_generate_checkerboard(tmp_path):
+    """One board per size, the generator's array (PNG through OpenCV where
+    it imports, else .npy)."""
+    from azurekinect3dreconstruction_tpu_torch.calib.checkerboard import generate_checkerboard
+    from azurekinect3dreconstruction_tpu_torch.cli import generate_checkerboard as gen
+
+    assert gen.main(["--output", str(tmp_path), "--sizes", "60", "20"]) == 0
+    for s in (60, 20):
+        (path,) = glob.glob(str(tmp_path / f"checkerboard_10x7_{s}px.*"))
+        if path.endswith(".npy"):
+            img = np.load(path)
+        else:
+            import cv2
+
+            img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(img, generate_checkerboard(10, 7, s))
+
+
+def test_calibrate_rig_then_dual_fusion_reads_it(tmp_path):
+    """The checkerboard workflow end to end (tests/test_scripts.py's): 8
+    synthetic board views -> intrinsics -> stereo extrinsic -> the rig
+    JSON, then ``dual_fusion --rig-calib`` loads it instead of
+    auto-calibrating."""
+    calib = str(tmp_path / "calibration")
+    out = _run("calibrate_rig", "--source", "synthetic", "--views", "8", "--calib-dir", calib)
+    assert glob.glob(os.path.join(calib, "rig_*.json")), out
+    assert "baseline" in out and "synthetic ground-truth baseline error" in out, out
+    out = _run("dual_fusion", *QUICK, "--frames", "2", "--output", str(tmp_path / "results"),
+               "--rig-calib", calib)
+    assert "rig calibration loaded" in out and "calibrated: overlap" not in out, out
+    assert 'calibration events {}' in out, out

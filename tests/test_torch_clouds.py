@@ -146,7 +146,7 @@ def coarse_pair(cam, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ransac, "draw_samples", jax_draw)
         mp.setattr(ransac, "match_features", jax_match)
-        seed = got._ransac_seed(carry(want._feat_cache), carry(jax_target))
+        seed = got._ransac_seeds(carry(want._feat_cache), carry(jax_target))[0]
     return dict(want=want, got=got, jax_seeds=jax_seeds, port_seed_on_jax=seed)
 
 
@@ -247,12 +247,42 @@ def test_coarse_stage_redraws_until_a_seed_wins_or_confirms(cam, tmp_path, monke
         res = icp_point_to_plane(flat, mask, pipe.prev_maps, INTR, init=true, cfg=CFG.registration)
     far = true @ se3.se3_exp(torch.tensor([0.3, 0.0, 0.1, 0.0, 0.6, 0.0]))
     draws = iter([far, true] if seeds == "far, true" else [true, true])
-    monkeypatch.setattr(pipe, "_ransac_seed", lambda *a: next(draws))
+    monkeypatch.setattr(pipe, "_ransac_seeds", lambda *a: [next(draws)])
     got = pipe._coarse_register(flat, mask, res._replace(fitness=torch.tensor(fitness)))
     et, er = _pose_err(got.T.numpy(), T_true)
     assert et < 0.06 and er < 0.10, (et, er)
     ev = pipe.telemetry.counters
     assert ev.get("coarse_retry", 0) == rounds - 1 and ev.get("coarse_won", 0) == won, ev
+
+
+@pytest.mark.parametrize("true_at", [1, 3])
+def test_coarse_stage_refines_every_restart(cam, tmp_path, monkeypatch, true_at):
+    """The large-motion pair with every round's 4 RANSAC restarts scripted
+    (ROADMAP C10): the restart of most cloud overlap a seed that refines
+    elsewhere and loses, the true pose at restart ``true_at`` with less
+    overlap. The reference's stage refines only the first seed, which loses
+    round after round, and the keyframe is rejected; with every seed
+    refined the true pose wins in the first round."""
+    from types import SimpleNamespace
+
+    poses = orbit_trajectory(2, radius=0.45, angle_span=1.3, height_wobble=0.0)
+    T_true = np.linalg.inv(poses[0]) @ poses[1]
+    true = torch.as_tensor(T_true, dtype=torch.float32)
+    far = true @ se3.se3_exp(torch.tensor([0.3, 0.0, 0.1, 0.0, 0.6, 0.0]))
+    restarts = [far] * 4
+    restarts[true_at] = true
+    drawn = iter(range(1 << 20))
+    monkeypatch.setattr(cloud_accumulator, "global_registration",
+                        lambda *a, **k: SimpleNamespace(T=restarts[next(drawn) % 4]))
+    monkeypatch.setattr(cloud_accumulator, "evaluate_registration",
+                        lambda *a, **k: (torch.tensor(0.1 if a[4] is true else 0.6), None))
+    pipe = CloudAccumulator(INTR, CFG, device="cpu", output_dir=str(tmp_path))
+    for T in poses:
+        pipe.process_frame(*cam.capture(T))
+    et, er = _pose_err(pipe.T_world_cam, T_true)
+    assert et < 0.06 and er < 0.10, (et, er)
+    ev = pipe.telemetry.counters
+    assert ev.get("coarse_won") == 1 and "coarse_retry" not in ev and "reg_fail" not in ev, ev
 
 
 def _patch(shape=(1.2, 0.6), spacing=0.005):

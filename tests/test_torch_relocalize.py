@@ -154,6 +154,44 @@ def test_relocalizer_wrong_hint_never_returns_wrong_pose(cam, fused_orbit):
         assert t_err < 0.05 and r_err < 0.1, (t_err, r_err)
 
 
+@pytest.mark.parametrize("xi, in_basin", [
+    ((0.025, -0.026, 0.125, 0.025, -0.128, 0.086), True),
+    ((0.0, 0.0, 0.0, -0.137, -0.001, 0.074), False),  # a tilt
+    ((0.003, 0.129, 0.012, 0.0, 0.0, 0.0), False),  # a slide
+    ((-0.114, -0.011, -0.061, -0.118, -0.088, -0.051), False),
+], ids=["in_basin", "tilt", "slide", "tilt_and_slide"])
+def test_global_rung_gates_its_refinement_on_overlap(cam, fused_orbit, monkeypatch, xi,
+                                                     in_basin):
+    """The global rung with its RANSAC winner scripted to a pose ``xi`` (se3,
+    camera frame) off the truth and a hint far outside any basin. A winner
+    in ICP's basin refines to the truth and is returned; one outside it
+    refines to a wrong pose that still has thousands of ICP inliers, so an
+    inlier count alone returned it (ROADMAP C12): the projective overlap
+    gate of rung 0 rejects it."""
+    from types import SimpleNamespace
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.tracking import relocalize
+
+    poses, world, st = fused_orbit
+    seed = world[4] @ se3.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+    monkeypatch.setattr(relocalize, "global_registration", lambda *a, **k: SimpleNamespace(
+        T=torch.as_tensor(seed, dtype=torch.float32)))
+    reloc = _reloc(restarts=1)
+    dm, _ = _meters(*cam.capture(poses[4]))
+    bad_hint = np.asarray(world[4], np.float64).copy()
+    bad_hint[:3, 3] += [0.9, -0.6, 0.8]
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=bad_hint)
+    assert reloc.n_hint_success == 0
+    if in_basin:
+        assert T is not None, reloc.last_reject
+        t_err, r_err = _pose_err(T, world[4])
+        assert t_err < 0.05 and r_err < 0.1, (t_err, r_err)
+    else:
+        assert T is None, f"a wrong pose returned: {_pose_err(T, world[4])}"
+        assert reloc.last_reject.startswith("icp overlap"), reloc.last_reject
+
+
 def test_pipeline_relocalizes_after_occlusion_and_jump(cam):
     """Track, lose the view (6 dark frames), resume far ahead: the loss is
     declared once, nothing fuses while rejected or lost, the pipeline
@@ -398,14 +436,21 @@ def test_latched_step_matches_jax(cam, lost_in):
 
 def test_hint_rung_pose_matches_jax(cam, fused_orbit):
     """From one carried-across volume, the same frame and neighbor hint: both
-    recover by rung 0, poses within 1e-4."""
+    recover by rung 0, poses within 1e-4. The orbit's surface overflows a
+    16,384-point sample, where the port samples near the hint and JAX keeps
+    the oldest blocks (ROADMAP C9), so both sample 32,768 points, within
+    budget, and build the same model."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+
     poses, world, st = fused_orbit
+    vol = interop.volume_from_jax_arrays(st, "cpu")
+    assert not bool(mc.extract_surface_samples(vol, CFG.tsdf, 32768)[2])
     dm, _ = _meters(*cam.capture(poses[4]))
-    jr = JRelocalizer(JINTR, JCFG, min_inliers=500, model_points=16384)
+    jr = JRelocalizer(JINTR, JCFG, min_inliers=500, model_points=32768)
     Tj = jr.attempt(jtsdf.TSDFVolume(**{k: jnp.asarray(v) for k, v in st.items()}), dm,
                     T_hint=world[3])
-    pr = _reloc()
-    Tp = pr.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=world[3])
+    pr = Relocalizer(INTR, CFG, device="cpu", min_inliers=500, model_points=32768)
+    Tp = pr.attempt(vol, dm, T_hint=world[3])
     assert Tj is not None and Tp is not None, (jr.last_reject, pr.last_reject)
     assert jr.n_hint_success == pr.n_hint_success == 1
     assert Tp.dtype == np.float64
@@ -436,6 +481,71 @@ def test_reset_clears_the_loss_state(cam):
     pipe.process_frame(*cam.capture(poses[0]))
     pipe.process_frame(*cam.capture(poses[1]))
     assert int(pipe.volume.n_blocks) > 0 and pipe.odometry_failures == 0
+
+
+def _corridor_camera():
+    """bench.py's streaming corridor (a checkered wall 0.55 m ahead, 33
+    spheres along +x) at quarter resolution, rendered by the port."""
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Plane, Scene, Sphere
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
+
+    scene = Scene(
+        planes=(Plane((0.0, 0.0, 0.55), (0.0, 0.0, -1.0), (0.7, 0.65, 0.6), checker=0.1),),
+        spheres=tuple(Sphere((0.3 * k, 0.1 * (-1) ** k, 0.5), 0.05,
+                             (0.3 + 0.5 * (k % 2), 0.4, 0.8 - 0.5 * (k % 2))) for k in range(33)))
+    return SyntheticCamera(scene=scene, intrinsics=INTR, device="cpu")
+
+
+def test_late_loss_in_a_map_over_the_sample_budget_recovers():
+    """A loss late in a long sweep (ROADMAP C9): 52 frames 4 cm apart along
+    the corridor, at 1 cm voxels, fill the volume past the relocalizer's
+    sample budget (``model_points`` 8,192: 10,922 emitted triangles); 4 dark
+    frames declare the loss, and the camera reappears at the next sweep
+    pose. ``extract_surface_samples`` keeps the oldest blocks, which no
+    point of the late frame sees, so the reference's model leaves nothing
+    to register against; the port samples the blocks near the hint and
+    recovers, then tracks on, within tests/test_relocalize.py's bounds
+    (< 6 cm / 0.12 rad)."""
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import TargetMaps, projective_overlap
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+
+    cfg = dataclasses.replace(
+        CFG, tsdf=CFG.tsdf.replace(voxel_size=0.01, sdf_trunc=0.04, block_capacity=4096,
+                                   hash_capacity=16384),
+        camera=CFG.camera.replace(depth_trunc=0.7))
+    cam = _corridor_camera()
+    poses = [np.eye(4) for _ in range(58)]
+    for i, T in enumerate(poses):
+        T[0, 3] = 0.04 * i
+    pipe = MonoOdometryTSDF(INTR, cfg, device="cpu", relocalize=True, reloc_window=2,
+                            reloc_interval=4, reloc_min_inliers=500, model_points=8192)
+    for T in poses[:52]:
+        pipe.process_frame(*cam.capture(T))
+    assert pipe.odometry_failures == 0
+    old, old_mask, ovf = mc.extract_surface_samples(pipe.volume, cfg.tsdf, 8192)
+    assert bool(ovf), "the sweep must overflow the sample budget"
+    for _ in range(4):
+        pipe.process_frame(*_dark(cam))
+    assert pipe.lost and pipe.counts["tracking_lost"] == 1
+    depth, color = cam.capture(poses[52])
+    pipe.process_frame(depth, color)
+    assert not pipe.lost and pipe.counts.get("relocalized") == 1, pipe._relocalizer.last_reject
+    assert pipe._relocalizer.n_hint_success == 1
+    # the reference's model: no point of it is visible in the frame that recovered
+    frame = RGBDFrame.from_raw(torch.from_numpy(depth), torch.from_numpy(color))
+    maps = TargetMaps.from_depth(frame.depth, pipe.rays)
+    T_cw = torch.as_tensor(np.linalg.inv(pipe.T_world_cam), dtype=torch.float32)
+    _, vis_old, _ = projective_overlap(old, old_mask, maps, INTR, T_cw)
+    _, model, mask, _, _ = pipe._relocalizer._model_cache
+    n_m, vis_new, _ = projective_overlap(model, mask, maps, INTR, T_cw)
+    assert int(vis_old) == 0 and int(vis_new) >= 500, (int(vis_old), int(vis_new))
+    # the two samples are disjoint along the corridor: the oldest blocks, and those near the hint
+    assert float(old[old_mask][:, 0].max()) < float(model[mask][:, 0].min())
+    for T in poses[53:]:
+        pipe.process_frame(*cam.capture(T))
+    assert not pipe.lost and pipe.counts.get("tracking_lost") == 1
+    t_err, r_err = _pose_err(pipe.T_world_cam, poses[-1])
+    assert t_err < 0.06 and r_err < 0.12, (t_err, r_err)
 
 
 def test_slice_modules_import_without_jax():
