@@ -66,6 +66,11 @@ class RGBDFrame:
         return RGBDFrame(*decode_raw_frame(depth_raw, color, 1.0 / depth_scale,
                                            depth_min, depth_trunc))
 
+    @property
+    def valid(self) -> torch.Tensor:
+        """(H, W) bool: where the frame has depth."""
+        return self.depth > 0.0
+
 
 def _host(a) -> Optional[np.ndarray]:
     """A tensor or array as a host numpy array (``None`` stays ``None``)."""

@@ -83,7 +83,10 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 30;  // 21 JtJ (upper triangle, row-major) + 6 Jtr + 3 counts
-constexpr int kMaxLevels = 4;
+// pyramid levels a launch takes: at 16 a 1024x1024 image is below one pixel
+// from level 11 on, so every count build_pyramid can make from a frame fits.
+// Each CTA copies the table to shared memory once and reads its level there.
+constexpr int kMaxLevels = 16;
 constexpr int kPlanes = 8;  // i_s, z, xs, ys, gx, gy, gdx, gdy in shared memory
 constexpr int kMaxDevices = 64;
 constexpr int kRowLoads = 16;  // partial rows a warp loads at once (one round up to 256 CTAs)
@@ -309,6 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const Pyr
   __shared__ float sums[kSums];
   __shared__ float st[16];  // pose [0..11], fitness, rmse, n_valid at [13..15]
   __shared__ float conv_s;
+  __shared__ Level lv[kMaxLevels];  // P.lv, indexed by the level
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned int G = gridDim.x;
@@ -322,15 +326,15 @@ __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const Pyr
   float* const s_gdy = planes + 7 * P.cap;
 
   if (tid < 16) st[tid] = P.state[tid];
+#pragma unroll
+  for (int j = 0; j < kMaxLevels; ++j)  // constant indices: P stays in parameter space
+    if (tid == j) lv[j] = P.lv[j];
   float conv_out = 0.f;  // the finest level's flag (thread 0)
   int step = 0;          // GN iterations so far, all levels: the buffer and the tag
   __syncthreads();
 
   for (int l = P.n_levels - 1; l >= 0; --l) {
-    Level L = P.lv[0];
-#pragma unroll
-    for (int j = 1; j < kMaxLevels; ++j)
-      if (l == j) L = P.lv[j];
+    const Level L = lv[l];
     conv_out = 0.f;  // each level starts unconverged
     if (L.iters <= 0) continue;  // the pose passes through unchanged
 
@@ -558,15 +562,16 @@ extern "C" int akr_odometry_pyramid_grid(int* grid, int* band) {
 
 // planes: 4 pointers per level [I_s, D_s, I_t, D_t], each (H, W) float32;
 // dims: 3 ints per level [H, W, iterations]; intr: 4 floats per level [fx,
-// fy, cx, cy]; params (host): min_depth, max_depth, max_depth_diff,
-// 1/sigma_i, 1/sigma_d, huber_delta, term_i, term_d, damping, tol^2; state:
-// float[16]; partials: 64-bit words[2 * grid * 30]; scratch: null to keep
-// the bands in shared memory, else grid * 8 * cap floats (cap: the pixels
-// of the largest band, ceil(H * W / grid) over the levels that iterate) to
-// keep them there. Level 0 is the finest; levels run from n_levels-1 down
-// to 0. A refused launch (cudaErrorCooperativeLaunchTooLarge: the bands do
-// not fit in shared memory at this grid; the wrapper passes a scratch for
-// such a pyramid) is returned, never worked around.
+// fy, cx, cy]; n_levels: 1 to kMaxLevels; params (host): min_depth,
+// max_depth, max_depth_diff, 1/sigma_i, 1/sigma_d, huber_delta, term_i,
+// term_d, damping, tol^2; state: float[16]; partials: 64-bit words[2 * grid
+// * 30]; scratch: null to keep the bands in shared memory, else grid * 8 *
+// cap floats (cap: the pixels of the largest band, ceil(H * W / grid) over
+// the levels that iterate) to keep them there. Level 0 is the finest;
+// levels run from n_levels-1 down to 0. A refused launch
+// (cudaErrorCooperativeLaunchTooLarge: the bands do not fit in shared memory
+// at this grid; the wrapper passes a scratch for such a pyramid) is
+// returned, never worked around.
 extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
                                     const float* intr, int n_levels, const float* params,
                                     float* state, unsigned long long* partials, float* scratch,

@@ -34,7 +34,12 @@
 //   its next group (a two-stage software pipeline in registers), so the DRAM
 //   and L2 latencies overlap the arithmetic.
 // - R is a template parameter, instantiated for 8, 16 and 32: voxel indices
-//   are shifts and masks. Any other R is refused.
+//   are shifts and masks. Every other block resolution the JAX package takes
+//   (any multiple of 8, ops/pallas/tsdf_kernels.py:189, whose index math
+//   divides by R) runs one more instance, kAnyR, which takes R at run time
+//   and forms the indices by division; a multiple of 8 keeps a group's 4
+//   z-voxels in one row and a row a whole number of 16-B words. Any other R
+//   is refused.
 //
 // Rounding: every multiply-add is spelled out, fused (fmaf) exactly where
 // the reference's compiled integrate fuses it and unfused (__fmul_rn,
@@ -58,12 +63,46 @@ struct IntegrateParams {
   float fx, fy, cx, cy, voxel, trunc, inv_trunc, max_w;
 };
 
+// A block's voxel index math. R = 8, 16 or 32: shifts and masks on
+// compile-time constants. R = 0 (kAnyR): the block resolution `r` at run
+// time, any multiple of 8, by division.
+constexpr int kAnyR = 0;
+
 template <int R>
 struct Block {
   static_assert(R == 8 || R == 16 || R == 32, "block_resolution must be 8, 16 or 32");
   static constexpr int kLog = R == 8 ? 3 : R == 16 ? 4 : 5;
   static constexpr int kGroupsPerRow = R * R * R / 4;
   static constexpr int kLogGroups = 3 * kLog - 2;
+  __device__ explicit Block(int) {}
+  __device__ int res() const { return R; }
+  __device__ int groups_per_row() const { return kGroupsPerRow; }
+  __device__ long long row(long long item) const { return item >> kLogGroups; }
+  __device__ int group(long long item) const {
+    return static_cast<int>(item) & (kGroupsPerRow - 1);
+  }
+  __device__ void voxel(int lin, int& ix, int& iy, int& iz) const {
+    ix = lin >> (2 * kLog);
+    iy = (lin >> kLog) & (R - 1);
+    iz = lin & (R - 1);
+  }
+};
+
+template <>
+struct Block<kAnyR> {
+  int r, g;  // the block resolution and the float4 groups of a row, r^3 / 4
+  __device__ explicit Block(int res_) : r(res_), g(res_ * res_ * res_ / 4) {}
+  __device__ int res() const { return r; }
+  __device__ int groups_per_row() const { return g; }
+  __device__ long long row(long long item) const { return item / g; }
+  __device__ int group(long long item) const { return static_cast<int>(item % g); }
+  __device__ void voxel(int lin, int& ix, int& iy, int& iz) const {
+    const int r2 = r * r;
+    ix = lin / r2;
+    const int rem = lin - ix * r2;
+    iy = rem / r;
+    iz = rem - iy * r;
+  }
 };
 
 // One float4 group after the mask phase: where it lives and which of its 4
@@ -83,20 +122,21 @@ struct Words {
 };
 
 template <int R>
-__device__ __forceinline__ Group mask_group(long long item, long long n_items,
+__device__ __forceinline__ Group mask_group(const Block<R>& B, long long item, long long n_items,
                                             const int4* __restrict__ worklist,
                                             const float (&T)[12], const float* __restrict__ depth,
                                             int H, int W, int trash, const IntegrateParams& p) {
-  using B = Block<R>;
   Group g;
   int4 row = make_int4(trash, 0, 0, 0);
-  if (item < n_items) row = worklist[item >> B::kLogGroups];
+  if (item < n_items) row = worklist[B.row(item)];
   g.slot = row.x;
-  g.grp = static_cast<int>(item) & (B::kGroupsPerRow - 1);
+  g.grp = B.group(item);
   const int lin = g.grp * 4;
-  const int ix = lin >> (2 * B::kLog), iy = (lin >> B::kLog) & (R - 1), iz = lin & (R - 1);
-  const float wx = __fmul_rn(__fadd_rn(static_cast<float>(row.y * R + ix), 0.5f), p.voxel);
-  const float wy = __fmul_rn(__fadd_rn(static_cast<float>(row.z * R + iy), 0.5f), p.voxel);
+  const int res = B.res();
+  int ix, iy, iz;
+  B.voxel(lin, ix, iy, iz);
+  const float wx = __fmul_rn(__fadd_rn(static_cast<float>(row.y * res + ix), 0.5f), p.voxel);
+  const float wy = __fmul_rn(__fadd_rn(static_cast<float>(row.z * res + iy), 0.5f), p.voxel);
   // fma(z, R2, fma(y, R1, x R0)) + t, as se3.transform_points; the x and y
   // terms are shared by the group's 4 voxels
   const float ex = fmaf(wy, T[1], __fmul_rn(wx, T[0]));
@@ -106,7 +146,7 @@ __device__ __forceinline__ Group mask_group(long long item, long long n_items,
   bool in[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float wz = __fmul_rn(__fadd_rn(static_cast<float>(row.w * R + iz + j), 0.5f), p.voxel);
+    const float wz = __fmul_rn(__fadd_rn(static_cast<float>(row.w * res + iz + j), 0.5f), p.voxel);
     const float x = __fadd_rn(fmaf(wz, T[2], ex), T[3]);
     const float y = __fadd_rn(fmaf(wz, T[6], ey), T[7]);
     z[j] = __fadd_rn(fmaf(wz, T[10], ez), T[11]);
@@ -131,12 +171,12 @@ __device__ __forceinline__ Group mask_group(long long item, long long n_items,
 }
 
 template <int R>
-__device__ __forceinline__ void load_words(const Group& g, Words& w,
+__device__ __forceinline__ void load_words(const Block<R>& B, const Group& g, Words& w,
                                            const float4* __restrict__ tsdf,
                                            const float4* __restrict__ weight,
                                            const float4* __restrict__ color_pool,
                                            const float* __restrict__ color) {
-  constexpr int G = Block<R>::kGroupsPerRow;
+  const int G = B.groups_per_row();
   const size_t off = static_cast<size_t>(g.slot) * G + g.grp;
   const size_t coff = static_cast<size_t>(g.slot) * (3 * G) + g.grp;
   w.t = tsdf[off];
@@ -150,12 +190,12 @@ __device__ __forceinline__ void load_words(const Group& g, Words& w,
 }
 
 template <int R>
-__device__ __forceinline__ void update_store(const Group& g, const Words& in,
+__device__ __forceinline__ void update_store(const Block<R>& B, const Group& g, const Words& in,
                                              float4* __restrict__ tsdf,
                                              float4* __restrict__ weight,
                                              float4* __restrict__ color_pool,
                                              const IntegrateParams& p) {
-  constexpr int G = Block<R>::kGroupsPerRow;
+  const int G = B.groups_per_row();
   float t[4] = {in.t.x, in.t.y, in.t.z, in.t.w};
   float w[4] = {in.w.x, in.w.y, in.w.z, in.w.w};
   float c[3][4];
@@ -191,10 +231,10 @@ tsdf_integrate_kernel(const int4* __restrict__ worklist, int M, const int* __res
                       const float* __restrict__ T_cw, const float* __restrict__ depth,
                       const float* __restrict__ color, int H, int W, float4* __restrict__ tsdf,
                       float4* __restrict__ weight, float4* __restrict__ color_pool, int trash,
-                      IntegrateParams p) {
-  using B = Block<R>;
+                      int res, IntegrateParams p) {
+  const Block<R> B(res);
   const int rows = n_active ? min(max(*n_active, 0), M) : M;
-  const long long n_items = static_cast<long long>(rows) << B::kLogGroups;
+  const long long n_items = static_cast<long long>(rows) * B.groups_per_row();
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   float T[12];
 #pragma unroll
@@ -203,12 +243,12 @@ tsdf_integrate_kernel(const int4* __restrict__ worklist, int M, const int* __res
   // a two-stage software pipeline: the next group's mask is computed while
   // the current group's pool words and color gathers are in flight
   long long item = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  Group cur = mask_group<R>(item, n_items, worklist, T, depth, H, W, trash, p);
+  Group cur = mask_group<R>(B, item, n_items, worklist, T, depth, H, W, trash, p);
   for (; item < n_items; item += stride) {
     Words words;
-    if (cur.any) load_words<R>(cur, words, tsdf, weight, color_pool, color);
-    const Group next = mask_group<R>(item + stride, n_items, worklist, T, depth, H, W, trash, p);
-    if (cur.any) update_store<R>(cur, words, tsdf, weight, color_pool, p);
+    if (cur.any) load_words<R>(B, cur, words, tsdf, weight, color_pool, color);
+    const Group next = mask_group<R>(B, item + stride, n_items, worklist, T, depth, H, W, trash, p);
+    if (cur.any) update_store<R>(B, cur, words, tsdf, weight, color_pool, p);
     cur = next;
   }
 }
@@ -238,7 +278,7 @@ cudaError_t persistent_grid(int* grid) {
 template <int R>
 cudaError_t launch(const int* worklist, int M, const int* n_active, const float* T_cw,
                    const float* depth, const float* color, int H, int W, float* tsdf,
-                   float* weight, float* color_pool, int trash, const IntegrateParams& p,
+                   float* weight, float* color_pool, int res, int trash, const IntegrateParams& p,
                    cudaStream_t stream) {
   int grid = 0;
   cudaError_t e = persistent_grid<R>(&grid);
@@ -246,9 +286,13 @@ cudaError_t launch(const int* worklist, int M, const int* n_active, const float*
   tsdf_integrate_kernel<R><<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const int4*>(worklist), M, n_active, T_cw, depth, color, H, W,
       reinterpret_cast<float4*>(tsdf), reinterpret_cast<float4*>(weight),
-      reinterpret_cast<float4*>(color_pool), trash, p);
+      reinterpret_cast<float4*>(color_pool), trash, res, p);
   return cudaGetLastError();
 }
+
+// Every block resolution the JAX package takes: a positive multiple of 8
+// (its cube a multiple of 128).
+bool supported(int R) { return R > 0 && R % 8 == 0; }
 
 }  // namespace
 
@@ -259,7 +303,8 @@ extern "C" int akr_tsdf_integrate_grid(int R, int* grid) {
     case 8: return static_cast<int>(persistent_grid<8>(grid));
     case 16: return static_cast<int>(persistent_grid<16>(grid));
     case 32: return static_cast<int>(persistent_grid<32>(grid));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(supported(R) ? persistent_grid<kAnyR>(grid) : cudaErrorInvalidValue);
   }
 }
 
@@ -267,32 +312,31 @@ extern "C" int akr_tsdf_integrate_grid(int R, int* grid) {
 // aligned; n_active: device int32, the live rows (rows past M are not
 // integrated), or null for all M; T_cw: 12 floats (3x4 camera-from-world,
 // row-major) in device memory; depth (H, W) and color (H, W, 3) float32;
-// pools (cap, R^3) / (cap, 3, R^3), 16-B aligned; R in {8, 16, 32};
-// params (host): fx, fy, cx, cy, voxel, trunc, 1/trunc (float32), max_weight.
+// pools (cap, R^3) / (cap, 3, R^3), 16-B aligned; R a positive multiple of
+// 8 (8, 16 and 32 have instances of their own, any other runs the kAnyR
+// instance); params (host): fx, fy, cx, cy, voxel, trunc, 1/trunc (float32),
+// max_weight.
 extern "C" int akr_tsdf_integrate(const int* worklist, int M, const int* n_active,
                                   const float* T_cw, const float* depth, const float* color,
                                   int H, int W, float* tsdf, float* weight, float* color_pool,
                                   int R, int trash, const float* params, void* stream) {
   const IntegrateParams p{params[0], params[1], params[2], params[3],
                           params[4], params[5], params[6], params[7]};
+  if (!supported(R)) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaSuccess);
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (R) {
     case 8:
-      e = launch<8>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf, weight, color_pool,
-                    trash, p, s);
-      break;
+      return static_cast<int>(launch<8>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf,
+                                        weight, color_pool, R, trash, p, s));
     case 16:
-      e = launch<16>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf, weight, color_pool,
-                     trash, p, s);
-      break;
+      return static_cast<int>(launch<16>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf,
+                                         weight, color_pool, R, trash, p, s));
     case 32:
-      e = launch<32>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf, weight, color_pool,
-                     trash, p, s);
-      break;
+      return static_cast<int>(launch<32>(worklist, M, n_active, T_cw, depth, color, H, W, tsdf,
+                                         weight, color_pool, R, trash, p, s));
     default:
-      e = cudaErrorInvalidValue;
+      return static_cast<int>(launch<kAnyR>(worklist, M, n_active, T_cw, depth, color, H, W,
+                                            tsdf, weight, color_pool, R, trash, p, s));
   }
-  return static_cast<int>(e);
 }

@@ -68,6 +68,29 @@ class Scene:
             ),
         )
 
+    @staticmethod
+    def cluttered() -> "Scene":
+        """Boxes of distinct sizes among the default props. Their edges and
+        corners give geometric features (FPFH) something to describe, where
+        every point of a sphere or a plane looks alike: the scene for
+        feature-based global registration (the recorder's fallback,
+        relocalization, cloud accumulation)."""
+        return Scene(
+            spheres=(
+                Sphere((0.45, 0.28, 1.75), 0.22, (0.25, 0.8, 0.3)),
+            ),
+            planes=(
+                Plane((0.0, 0.5, 0.0), (0.0, -1.0, 0.0), (0.6, 0.6, 0.6), checker=0.25),
+                Plane((0.0, 0.0, 2.6), (0.0, 0.0, -1.0), (0.75, 0.7, 0.6), checker=0.4),
+            ),
+            boxes=(
+                Box((-0.05, 0.32, 1.25), (0.22, 0.18, 0.16), (0.85, 0.3, 0.2)),
+                Box((-0.5, 0.38, 1.6), (0.1, 0.12, 0.3), (0.2, 0.5, 0.85)),
+                Box((0.18, 0.44, 1.05), (0.09, 0.06, 0.07), (0.9, 0.75, 0.25)),
+                Box((-0.28, 0.12, 1.85), (0.16, 0.38, 0.1), (0.55, 0.35, 0.75)),
+            ),
+        )
+
 
 def _vec(x, like):
     return torch.tensor(x, dtype=torch.float32, device=like.device)

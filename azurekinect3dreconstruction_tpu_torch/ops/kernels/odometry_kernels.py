@@ -36,7 +36,7 @@ from azurekinect3dreconstruction_tpu_torch.tracking.odometry import (
 KERNEL = "odometry_pyramid"
 N_SUMS = 30  # 21 JtJ upper triangle + 6 Jtr + n_valid, squared cost, n_source
 STATE = 16  # pose 3x4, convergence flag, fitness, rmse, n_valid
-MAX_LEVELS = 4  # kMaxLevels in the .cu
+MAX_LEVELS = 16  # kMaxLevels in the .cu
 PLANES = 8  # kPlanes in the .cu: i_s, z, xs, ys, gx, gy, gdx, gdy per source pixel
 
 # (6, 6) -> index of the upper-triangle JtJ entry in the sums vector
@@ -235,7 +235,7 @@ def pack_levels(pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig, device):
 
 def oversized_levels(dims, grid: int, band: int) -> list:
     """The levels that iterate and have more pixels than the kernel's grid
-    holds in shared memory: ``grid`` CTAs of ``band`` pixels each (934,296
+    holds in shared memory: ``grid`` CTAs of ``band`` pixels each (930,072
     on an H100). A pyramid with any such level keeps the source planes of
     all its levels in a global scratch buffer instead (the same arithmetic,
     slower). ``dims`` is :func:`pack_levels`' [H, W, iterations] per level."""

@@ -24,7 +24,9 @@ from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf_volume
 
 KERNEL = "tsdf_integrate"
-BLOCK_RESOLUTIONS = (8, 16, 32)  # the kernel's instantiations (csrc/tsdf_integrate.cu)
+# block resolutions with an instance of their own (csrc/tsdf_integrate.cu: shift-and-mask
+# index math); every other multiple of 8 runs the instance that takes R at run time
+BLOCK_RESOLUTIONS = (8, 16, 32)
 
 
 def build_worklist(block_coords, n_blocks, T_world_cam, intr: Intrinsics, cfg: TSDFConfig):
@@ -95,10 +97,12 @@ def updated_voxels(worklist, depth, T_world_cam, intr: Intrinsics, cfg: TSDFConf
 
 
 def check_block_resolution(R: int) -> None:
-    """Raise ``ValueError`` unless the kernel is built for ``R``."""
-    if R not in BLOCK_RESOLUTIONS:
-        raise ValueError(f"{KERNEL}: block_resolution {R} is not supported; the kernel is "
-                         f"built for {', '.join(map(str, BLOCK_RESOLUTIONS))}")
+    """Raise ``ValueError`` unless ``R`` is a block resolution the JAX
+    package takes: ``R^3`` a multiple of 128, that is ``R`` a positive
+    multiple of 8."""
+    if R <= 0 or R ** 3 % 128:
+        raise ValueError(f"{KERNEL}: block_resolution {R} is not supported; block_resolution^3 "
+                         "must be a multiple of 128 (block_resolution a positive multiple of 8)")
 
 
 def launch_grid(R: int) -> int:

@@ -157,13 +157,25 @@ worklist, odometry pyramid [20, 10, 5]):
    ``cli.calibrate_rig --source synthetic --views 8`` on the host, within
    4 cm / 3 deg of the truth, then ``cli.dual_fusion --rig-calib`` over 8
    pairs with the counters zeroed just before and read just after: the
-   calibration loaded, no auto-calibration attempt, B1 16, no overflow.
+   calibration loaded, no auto-calibration attempt, B1 16, no overflow;
+18. runs the port's ``bench.py`` (``bench_phase``): ``python -m
+   azurekinect3dreconstruction_tpu_torch.cli.bench`` in a subprocess, at
+   ``bench.py``'s sizes and by its methods, logging its JSON line and its
+   stderr marks: exit code 0, every key of ``bench.py``'s line plus an empty
+   ``"errors"``, the pool growing, no overflow, evictions in both corridors,
+   ATE <= 20 mm, both least fitnesses > 0.3, the relocalized position
+   within 50 mm, refinements accepted, and each of its 16 sections' kernel
+   launches equal to the count the section expects.
 
 After step 4 it times ``tsdf.streaming._compact`` over the main path's
 volume (the identity permutation) beside its bound. Between steps 1 and 2
-it runs one 1024x1024 (WFOV unbinned) frame pair
-through ``compute_odometry_fast``: B2 on its global-memory path against
-the plain version on the card, with its device time and bound.
+it holds B1 at R = 24 (a block resolution without an instance of its own)
+against its plain version, B2 over a 5-level pyramid ([20, 10, 5, 5, 5],
+and [0, 0, 0, 0, 5], where only the coarsest level moves the pose) against
+its plain version at 640x576, and runs one 1024x1024 (WFOV unbinned) frame
+pair through ``compute_odometry_fast``: B2 on its global-memory path
+against the plain version on the card, with its device time and bound,
+and the same 5-level schedules there.
 
 Prints the card's name and power limit, the build time, the launch counts,
 per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
@@ -308,6 +320,17 @@ SERVE_TURNS = 3
 RIG_T_LIMIT_M = 0.04
 RIG_R_LIMIT_DEG = 3.0
 N_RIG_CALIB_PAIRS = 8
+# the kernels at configurations beyond the main path's: B1 at a block resolution without an
+# instance of its own, B2 over a 5-level pyramid: the main path's schedule with two more
+# levels, and one in which only the coarsest level, the first past 4, moves the pose (the
+# finer levels converge to one optimum whatever the coarse ones did)
+B1_ODD_R = 24
+B2_FIVE_LEVEL_SCHEDULES = ((20, 10, 5, 5, 5), (0, 0, 0, 0, 5))
+# the port's bench.py (cli.bench): its time limit, and the bounds its line is held to
+# (PERF.md section 2; rung 0's 5 cm for the recovered position)
+BENCH_TIMEOUT_S = 900
+BENCH_MIN_FITNESS = 0.3
+BENCH_RELOC_ERR_LIMIT_MM = 50.0
 
 
 def _log(msg: str) -> None:
@@ -711,18 +734,6 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     return failures, counts
 
 
-def bench_rig():
-    """Camera 1 in camera 0's frame on the bench's two-camera rig: 35 cm to
-    the left, 5 cm forward, toed in 0.26 rad about y."""
-    import numpy as np
-
-    a = 0.26
-    rig = np.eye(4)
-    rig[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-    rig[:3, 3] = [-0.35, 0.0, 0.05]
-    return rig
-
-
 def _matched_rows(vg, vc):
     """Two volumes' pool rows matched by block key: None unless both hold
     the same non-empty key set, else ``rows(field) -> (g rows, c rows)`` as
@@ -767,6 +778,7 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     import numpy as np
     import torch
 
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import bench_rig
     from azurekinect3dreconstruction_tpu_torch.core import se3
     from azurekinect3dreconstruction_tpu_torch.core.device import upload
     from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
@@ -935,6 +947,101 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     return failures, launches
 
 
+def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str):
+    """B1 at ``B1_ODD_R`` (a block resolution the JAX package takes that has
+    no instance of its own: the kernel divides by R at run time): the third
+    main-path frame into a 2-frame volume of 5 mm voxels in 24^3 blocks,
+    one launch at M = 2048 against ``integrate_worklist_plain``, with B1's
+    tolerances. Returns (failures, keys for B1's entry of the kernels line)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+
+    cfg = TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=B1_ODD_R,
+                     block_capacity=4096, hash_capacity=16384)
+    vol = tsdf.create(cfg, dev)
+    for i in range(2):
+        vol = tsdf.integrate_frame(vol, dec[i][0], dec[i][1], rays, gt[i], intr, cfg)
+    d2, c2, _ = dec[2]
+    vol = tsdf.allocate(vol, d2, rays, gt[2], cfg)
+    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, gt[2], intr, cfg)
+    wl = wl[:2048].contiguous()
+    vk = vol._replace(**{k: getattr(vol, k).clone() for k in ("tsdf", "weight", "color")})
+    vp = vol._replace(**{k: getattr(vol, k).clone() for k in ("tsdf", "weight", "color")})
+    before = build.launches[tk.KERNEL]
+    tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, cfg, n_active)
+    launches = build.launches[tk.KERNEL] - before
+    tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, cfg)
+    torch.cuda.synchronize()
+    live = wl[: min(int(n_active), wl.shape[0]), 0].long()
+    agree = vk.weight[live] == vp.weight[live]
+    frac = float(agree.float().mean())
+    err_t = float((vk.tsdf[live] - vp.tsdf[live]).abs()[agree].max())
+    err_c = float((vk.color[live] - vp.color[live]).abs()[agree[:, None].expand(-1, 3, -1)].max())
+    bitwise = all(torch.equal(getattr(vk, k), getattr(vp, k)) for k in ("tsdf", "weight", "color"))
+    moved = int((vk.weight != vol.weight).sum())
+    ms_k = _time_ms(lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, cfg,
+                                                       n_active), 20)
+    _log(f"B1 at R={B1_ODD_R} (run-time R instance, {tk.launch_grid(B1_ODD_R)} CTAs): "
+         f"{int(n_active)} live rows, {moved} weights moved; weights equal on {frac:.6%}, max "
+         f"|dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g} where they agree; pools equal to the "
+         f"bit: {bitwise}; {launches} launch; wrapper {ms_k:.4f} ms (CUDA events, 20 calls)  "
+         f"[{gpu}]")
+    failures = []
+    if not (launches == 1 and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
+            and err_c <= B1_VALUE_TOL and moved > 100_000):
+        failures.append(f"B1 at R={B1_ODD_R} disagrees with its plain version")
+    return failures, dict(r24_max_abs_err=max(err_t, err_c), r24_weight_equal_fraction=frac,
+                          r24_bitwise=bitwise, r24_ms=ms_k, launches_r24=launches)
+
+
+def b2_five_level_check(args, ocfg, gpu: str, what: str):
+    """B2 over a 5-level pyramid at each of ``B2_FIVE_LEVEL_SCHEDULES`` on
+    one frame pair (``args`` as ``compute_odometry_fast`` takes them, the
+    configuration last, which this check replaces): the kernel against
+    ``pyramid_plain`` to B2's tolerances and a second launch equal to the
+    bit; the coarsest-only schedule must move the pose by more than 10x
+    the pose tolerance. Returns (failures, launches, the larger error)."""
+    import dataclasses
+
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+
+    H, W = args[1].shape
+    failures, launches, worst = [], 0, 0.0
+    for iters in B2_FIVE_LEVEL_SCHEDULES:
+        cfg5 = dataclasses.replace(ocfg, pyramid_iters=iters)
+        before = build.launches[odo.KERNEL]
+        rk = odo.odometry_pyramid(odo.pyramid_cuda, *args[:5], cfg5)
+        rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args[:5], cfg5)
+        n = build.launches[odo.KERNEL] - before
+        rp = odo.odometry_pyramid(odo.pyramid_plain, *args[:5], cfg5)
+        torch.cuda.synchronize()
+        err_T = float((rk.T_target_source - rp.T_target_source).abs().max())
+        err_f = abs(float(rk.fitness) - float(rp.fitness))
+        moved = float((rp.T_target_source - torch.eye(4, device=rp.T_target_source.device))
+                      .abs().max())
+        same = bool(torch.equal(rk.T_target_source, rk2.T_target_source))
+        _log(f"B2 over 5 levels {list(iters)} at {W}x{H} ({what}; coarsest level "
+             f"{W >> 4}x{H >> 4}): max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} (fitness "
+             f"kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); the pose moved "
+             f"{moved:.4g} from identity; a second launch equal to the bit: {same}; {n} "
+             f"launches  [{gpu}]")
+        full = iters == B2_FIVE_LEVEL_SCHEDULES[0]
+        if not (n == 2 and err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same
+                and (float(rk.fitness) > 0.5 if full else moved > 10 * B2_POSE_TOL)):
+            failures.append(f"B2 over 5 levels {list(iters)} at {W}x{H} disagrees with its "
+                            "plain version or with itself, or did not move the pose")
+        launches += n
+        worst = max(worst, err_T, err_f)
+    return failures, launches, worst
+
+
 def wfov_check(cfg, dev, gpu: str):
     """One 1024x1024 (WFOV unbinned) frame pair of the sweep through
     ``compute_odometry_fast`` (B2 on its global-memory path) against the
@@ -990,13 +1097,16 @@ def wfov_check(cfg, dev, gpu: str):
          f"{ODO_REPS}); bound {bound * 1e3:.3f} us ({by}: {pixels:.0f} level pixels, "
          f"{n_src:.0f} / {n_valid:.0f} source-valid / valid pixel-iterations, "
          f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)  [{gpu}]")
-    failures = []
+    failures, five_launches, five_err = b2_five_level_check(args, ocfg, gpu,
+                                                             "WFOV, global-memory path")
     if oversized != [0]:
         failures.append(f"the 1024x1024 pyramid's oversized levels are {oversized}, not [0]")
     if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same and float(rk.fitness) > 0.5):
         failures.append("B2 at 1024x1024 disagrees with its plain version or with itself")
     return failures, dict(wfov_max_abs_err=max(err_T, err_f), wfov_ms=ms_k, wfov_plain_ms=ms_p,
-                          wfov_device_us=us_k, wfov_bound_ms=bound, wfov_bound_by=by)
+                          wfov_device_us=us_k, wfov_bound_ms=bound, wfov_bound_by=by,
+                          wfov_five_level_max_abs_err=five_err,
+                          launches_wfov_five_level=five_launches)
 
 
 def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
@@ -1881,17 +1991,6 @@ def compact_timing(vol, tcfg, dev, gpu: str) -> list:
     return [] if same else ["_compact with the identity permutation changed the volume"]
 
 
-def _corridor_scene():
-    """bench.py's streaming corridor: a checkered wall 0.55 m ahead and 33
-    spheres along +x."""
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Plane, Scene, Sphere
-
-    return Scene(
-        planes=(Plane((0.0, 0.0, 0.55), (0.0, 0.0, -1.0), (0.7, 0.65, 0.6), checker=0.1),),
-        spheres=tuple(Sphere((0.3 * k, 0.1 * (-1) ** k, 0.5), 0.05,
-                             (0.3 + 0.5 * (k % 2), 0.4, 0.8 - 0.5 * (k % 2))) for k in range(33)))
-
-
 def _soup_rows(mesh):
     """A triangle soup as (9 xyz + 9 rgb) rows in canonical (lexsorted)
     order: slot order differs between pools."""
@@ -1937,6 +2036,7 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
 
     import numpy as np
 
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import corridor_scene
     from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
     from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
     from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
@@ -1952,7 +2052,7 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
         camera=cfg.camera.replace(depth_trunc=0.7))
     pcfg = dataclasses.replace(scfg, tsdf=scfg.tsdf.replace(
         block_capacity=STREAM_PLAIN_BLOCKS, hash_capacity=4 * STREAM_PLAIN_BLOCKS))
-    scene = _corridor_scene()
+    scene = corridor_scene()
     for scale, n, step, margin in runs:
         intr = Intrinsics.azure_kinect_depth_nfov().scaled(scale)
         cam = SyntheticCamera(scene=scene, intrinsics=intr, device=dev)
@@ -2082,6 +2182,7 @@ def sharded_phase(intr, cfg, cam, raw, mono_traj, mono_ms, dev, gpu: str,
     import numpy as np
     import torch
 
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import bench_rig
     from azurekinect3dreconstruction_tpu_torch.core import se3
     from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
     from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
@@ -3008,6 +3109,81 @@ def serve_phase(intr, cfg, raw, dev, gpu: str, turns: int = SERVE_TURNS):
     return failures, counts
 
 
+def bench_phase(dev, gpu: str):
+    """The port's ``bench.py``, ``python -m azurekinect3dreconstruction_tpu_torch.cli.bench``,
+    in a subprocess on ``dev``: logs its JSON line and its stderr marks
+    (progress and each section's launches). Checks: exit code 0; the last
+    line parses, with exactly ``cli.bench.KEYS`` and ``"errors"``, and
+    ``"errors"`` empty; ``blocks_growing``; no extraction or streaming
+    overflow; evictions in both corridors; ``slam_ate_rmse_mm`` <= 20 and
+    both least fitnesses > 0.3; ``reloc_err_mm`` in [0, 50); refinements
+    accepted; on a card, every section's launches equal to the count it
+    expects. Returns (failures, the bench's launches of each kernel)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import KEYS
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # this process's cached blocks, for the bench's volumes
+    cmd = [sys.executable, "-m", f"{PKG}.cli.bench", "--device", dev.type]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=REPO)
+    except subprocess.TimeoutExpired as e:
+        return [f"cli.bench did not finish in {BENCH_TIMEOUT_S} s: "
+                f"{(e.stderr or b'')[-1500:]!r}"], {}
+    wall = time.perf_counter() - t0
+    marks = [ln for ln in r.stderr.splitlines() if ln.startswith("[bench")]
+    for ln in marks:
+        _log(f"cli.bench stderr: {ln}")
+    lines = r.stdout.strip().splitlines()
+    _log(f"cli.bench line: {lines[-1] if lines else '(none)'}")
+    _log(f"cli.bench: rc {r.returncode}, {wall:.1f} s (host clock, process start and the "
+         f"render of its frames included)  [{gpu}]")
+    failures = []
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError) as e:
+        return [f"cli.bench printed no JSON line (rc {r.returncode}, {e}): "
+                f"{r.stderr[-1500:]}"], {}
+    if r.returncode != 0 or line.get("errors"):
+        failures.append(f"cli.bench: rc {r.returncode}, errors {line.get('errors')}")
+    if list(line) != [*KEYS, "errors"]:
+        odd = sorted(set(line) ^ {*KEYS, "errors"})
+        failures.append(f"cli.bench's keys differ from bench.py's: {odd}")
+    checks = {
+        "blocks_growing": line.get("blocks_growing") is True,
+        "extract_overflow": line.get("extract_overflow") is False,
+        "streaming_overflow": line.get("streaming_overflow") is False,
+        "streaming_n_evictions": (line.get("streaming_n_evictions") or 0) > 0,
+        "streaming_fullres_evictions": (line.get("streaming_fullres_evictions") or 0) > 0,
+        "slam_ate_rmse_mm": (line.get("slam_ate_rmse_mm") or 1e9) <= ATE_LIMIT_M * 1e3,
+        "min_odometry_fitness": (line.get("min_odometry_fitness") or 0) > BENCH_MIN_FITNESS,
+        "min_sharded_fitness": (line.get("min_sharded_fitness") or 0) > BENCH_MIN_FITNESS,
+        "reloc_err_mm": 0 <= (line.get("reloc_err_mm") if line.get("reloc_err_mm") is not None
+                              else -1) < BENCH_RELOC_ERR_LIMIT_MM,
+        "f2m_refines_ok": (line.get("f2m_refines_ok") or 0) > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        failures.append("cli.bench out of bounds: " + ", ".join(f"{k} {line.get(k)}" for k in bad))
+    totals = {}
+    sections = [json.loads(ln[len("[bench launches] "):]) for ln in marks
+                if ln.startswith("[bench launches] ")]
+    for sec in sections:
+        for k, v in sec["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        if dev.type == "cuda" and sec["launches"] != {k: sec["expected"].get(k, 0)
+                                                      for k in sec["launches"]}:
+            failures.append(f"cli.bench section {sec['section']}: launches {sec['launches']}, "
+                            f"expected {sec['expected']}")
+    if len(sections) != 16:
+        failures.append(f"cli.bench reported the launches of {len(sections)} sections, not 16")
+    _log(f"cli.bench launches over its 16 sections: {json.dumps(totals)}  [{gpu}]")
+    return failures, totals
+
+
 def rig_calib_phase(dev, gpu: str, n_pairs: int = N_RIG_CALIB_PAIRS, scale: float = 1.0):
     """The checkerboard route for a rig outside ICP's basin: ``cli.
     calibrate_rig --source synthetic --views 8`` into a temporary directory
@@ -3169,6 +3345,9 @@ def main() -> int:
                         device_us=us_k, weight_equal_fraction=frac, bitwise=bitwise,
                         grid=grid))
     del vol, vk, vp, base
+    r24_failures, r24 = b1_odd_r_check(dec, gt, intr, rays, dev, gpu)
+    failures += r24_failures
+    kernels[0].update(r24)
 
     # -- B2: one frame pair at [20,10,5], kernel vs plain ---------------------
     (d0, _, i0), (d1, _, i1) = dec[0], dec[1]
@@ -3240,6 +3419,9 @@ def main() -> int:
                         bound_ms=b2_bound, bound_by=b2_by, library_ms=None, device_us=us_k,
                         odometry_call_ms=ms_call, graph_replay_ms=ms_graph,
                         max_level_pixels=grid * band))
+    five_failures, five_launches, five_err = b2_five_level_check(args, ocfg, gpu, "NFOV")
+    failures += five_failures
+    kernels[1].update(five_level_max_abs_err=five_err, launches_five_level=five_launches)
     wfov_failures, wfov = wfov_check(cfg, dev, gpu)
     failures += wfov_failures
     kernels[1].update(wfov)
@@ -3349,6 +3531,10 @@ def main() -> int:
     for k in kernels:
         k["launches_serve"] = serve_counts[k["name"]]
         k["launches_rig_calib_dual"] = rig_counts[k["name"]]
+    bench_failures, bench_counts = bench_phase(dev, gpu)
+    failures += bench_failures
+    for k in kernels:
+        k["launches_bench"] = bench_counts.get(k["name"], 0)
     _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))

@@ -17,6 +17,7 @@ from azurekinect3dreconstruction_tpu.core import se3 as jse3
 from azurekinect3dreconstruction_tpu.core.camera import Intrinsics as JIntrinsics
 from azurekinect3dreconstruction_tpu.core.camera import pixel_rays as jpixel_rays
 from azurekinect3dreconstruction_tpu.core.types import RGBDFrame as JRGBDFrame
+from azurekinect3dreconstruction_tpu.io.synthetic import Scene as JScene
 from azurekinect3dreconstruction_tpu.io.synthetic import SyntheticCamera as JCamera
 from azurekinect3dreconstruction_tpu.io.synthetic import orbit_trajectory as jorbit
 from azurekinect3dreconstruction_tpu.ops import image as jimage
@@ -31,7 +32,11 @@ from azurekinect3dreconstruction_tpu_torch.core import se3 as tse3
 from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
 from azurekinect3dreconstruction_tpu_torch.core.device import resolve_device
 from azurekinect3dreconstruction_tpu_torch.core.types import RGBDFrame, decode_raw_frame
-from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera, orbit_trajectory
+from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+    Scene,
+    SyntheticCamera,
+    orbit_trajectory,
+)
 from azurekinect3dreconstruction_tpu_torch.ops import image as timage
 from azurekinect3dreconstruction_tpu_torch.tsdf import hash as thash
 from azurekinect3dreconstruction_tpu_torch.utils import evaluation as teval
@@ -158,6 +163,35 @@ def test_synthetic_render_matches_jax(pose):
         err = np.abs(a - b)
         assert (err <= 1e-5).mean() >= 0.998, (err > 1e-5).sum()
         assert err.max() <= 3e-4, err.max()
+
+
+def test_cluttered_scene_render_matches_jax():
+    """``Scene.cluttered()`` equals the JAX package's scene, and renders as
+    it does at an orbit pose, to the bounds of the default scene's render."""
+    assert dataclasses.asdict(Scene.cluttered()) == dataclasses.asdict(JScene.cluttered())
+    T = jorbit(5, radius=0.3, angle_span=1.0)[3]
+    zj, cj = JCamera(scene=JScene.cluttered(), intrinsics=JINTR).render(np.asarray(T, np.float32))
+    zt, ct = SyntheticCamera(scene=Scene.cluttered(), intrinsics=INTR, device="cpu").render(T)
+    zd, _ = SyntheticCamera(intrinsics=INTR, device="cpu").render(T)
+    assert not torch.equal(zt, zd)  # the boxes are in view
+    for a, b in ((zt.numpy(), _n(zj)), (ct.numpy(), _n(cj))):
+        err = np.abs(a - b)
+        assert (err <= 1e-5).mean() >= 0.998, (err > 1e-5).sum()
+        assert err.max() <= 3e-4, err.max()
+
+
+def test_rgbd_frame_valid_matches_jax(raw_frame):
+    """``RGBDFrame.valid`` on a frame with holes (zeroed depth and depth
+    beyond the truncation) equals the JAX package's."""
+    d_raw, c_raw = raw_frame
+    d_raw = np.array(d_raw)
+    d_raw[10:30, 20:60] = 0
+    d_raw[50:60, :] = 4000  # past depth_trunc 3.0 m
+    f_j = JRGBDFrame.from_raw(d_raw, c_raw)
+    f_t = RGBDFrame.from_raw(_t(d_raw), _t(c_raw))
+    assert f_t.valid.dtype == torch.bool
+    np.testing.assert_array_equal(f_t.valid.numpy(), _n(f_j.valid))
+    assert 0 < int(f_t.valid.sum()) < f_t.valid.numel() - 1000
 
 
 def test_synthetic_noise_needs_a_generator():

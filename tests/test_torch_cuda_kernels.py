@@ -108,6 +108,32 @@ def test_integrate_kernel_matches_plain_bitwise_at_r16(dev, frames):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
+# a block resolution without an instance of its own (the run-time-R instance)
+CFG24 = TSDFConfig(voxel_size=0.01, sdf_trunc=0.04, block_resolution=24, block_capacity=1024,
+                   hash_capacity=4096)
+
+
+def test_integrate_kernel_matches_plain_bitwise_at_r24(dev, frames):
+    """R = 24, which the JAX package takes and which runs the instance that
+    divides by R at run time: the kernel equals the plain version to the
+    bit, once on a compacted worklist and once on the whole pool."""
+    _, fr = frames
+    vol = _volume_before(fr, CFG24)
+    T, z, c = fr[2]
+    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, T, INTR, CFG24)
+    for M in (512, wl.shape[0]):
+        a, b = _clone(vol), _clone(vol)
+        before = build.launches[tk.KERNEL]
+        tk.integrate_worklist_cuda(a, wl[:M].contiguous(), z, c, T, INTR, CFG24, n_active)
+        assert build.launches[tk.KERNEL] == before + 1
+        tk.integrate_worklist_plain(b, wl[:min(M, int(n_active))], z, c, T, INTR, CFG24)
+        torch.cuda.synchronize()
+        assert 20 < int(n_active) < 512
+        for k in ("weight", "tsdf", "color"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), (M, k)
+        assert int((a.weight != vol.weight).sum()) > 10_000
+
+
 @pytest.mark.parametrize("cfg, size", [(CFG, 1024), (CFG16, 2048)], ids=["r8", "r16"])
 def test_integrate_whole_pool_worklist_equals_compacted(dev, frames, cfg, size):
     """The first frame's whole-pool worklist (the default) and a compacted
@@ -191,7 +217,7 @@ def test_integrate_persistent_grid(dev):
     """The persistent grid: a whole number of CTAs on every SM, the same on
     a second query; printed for the record."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for R in tk.BLOCK_RESOLUTIONS:
+    for R in (*tk.BLOCK_RESOLUTIONS, 24):
         grid = tk.launch_grid(R)
         print(f"B1 persistent grid at R={R}: {grid} CTAs ({grid // sms} a SM, {sms} SMs)")
         assert grid > 0 and grid % sms == 0 and tk.launch_grid(R) == grid
@@ -204,7 +230,7 @@ def test_integrate_wrapper_refuses_unsupported_r_and_misaligned_pools(dev, frame
     before = build.launches[tk.KERNEL]
     cfg4 = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=4, block_capacity=64,
                       hash_capacity=256)
-    with pytest.raises(ValueError, match="8, 16, 32"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         tk.integrate_worklist_cuda(tsdf.create(cfg4, dev), wl, z, c, T, INTR, cfg4)
     vol = tsdf.create(CFG, dev)
     shifted = torch.zeros(CFG.block_capacity * 512 + 1, device=dev)[1:].view(-1, 512)
@@ -236,13 +262,38 @@ def test_odometry_kernel_matches_plain(dev, frames):
     assert torch.equal(rk.fitness, rk2.fitness) and torch.equal(rk.rmse, rk2.rmse)
 
 
-def test_odometry_kernel_global_path_equals_shared_path(dev, frames, monkeypatch):
-    """The global-memory instance, forced on a pyramid that fits shared
-    memory, does the same arithmetic in the same order: the same pose,
-    fitness and rmse to the bit."""
+@pytest.mark.parametrize("iters", [(8, 8, 8, 4, 4), (0, 0, 0, 0, 4)],
+                         ids=["all", "coarsest-only"])
+def test_odometry_kernel_matches_plain_at_five_levels(dev, frames, iters):
+    """A 5-level pyramid (the kernel takes up to 16; its coarsest level here
+    is 10x9): one launch, pose <= 1e-5 and fitness <= 1e-4 against the plain
+    version, the same pose to the bit on a second launch. The finest levels
+    converge to one optimum whatever the coarse ones did, so in the
+    (0, 0, 0, 0, 4) schedule only the coarsest level, the first past 4,
+    moves the pose."""
     _, fr = frames
     args = _odometry_args(fr)
-    cfg = OdometryConfig(pyramid_iters=(8, 8, 8))
+    cfg = OdometryConfig(pyramid_iters=iters)
+    before = build.launches[odo.KERNEL]
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
+    assert build.launches[odo.KERNEL] == before + 1
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args, cfg)
+    assert float((rp.T_target_source - torch.eye(4, device=dev)).abs().max()) > 1e-3
+    torch.testing.assert_close(rk.T_target_source, rp.T_target_source, atol=1e-5, rtol=0)
+    assert abs(float(rk.fitness) - float(rp.fitness)) <= 1e-4
+    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
+    assert torch.equal(rk.T_target_source, rk2.T_target_source)
+
+
+@pytest.mark.parametrize("iters", [(8, 8, 8), (8, 8, 8, 4, 4)], ids=["3-level", "5-level"])
+def test_odometry_kernel_global_path_equals_shared_path(dev, frames, monkeypatch, iters):
+    """The global-memory instance, forced on a pyramid that fits shared
+    memory, does the same arithmetic in the same order: the same pose,
+    fitness and rmse to the bit (for pyramids of up to 4 levels and the
+    deeper ones, which run instances of their own)."""
+    _, fr = frames
+    args = _odometry_args(fr)
+    cfg = OdometryConfig(pyramid_iters=iters)
     shared = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
     monkeypatch.setattr(odo, "oversized_levels", lambda dims, grid, band: [0])
     glob = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)

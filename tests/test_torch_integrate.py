@@ -54,19 +54,63 @@ def no_library(monkeypatch):
     monkeypatch.setattr(build, "library", refuse)
 
 
-@pytest.mark.parametrize("R", [4, 12, 64])
+@pytest.mark.parametrize("R", [4, 12, 20])
 def test_wrapper_refuses_an_unsupported_block_resolution(frames, no_library, R):
+    """The JAX package's rule (``block_resolution^3`` a multiple of 128, so
+    R a multiple of 8), which refuses these three too."""
     T, z, c = frames[0]
     cfg = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=R, block_capacity=4,
                      hash_capacity=16)
     vol = tsdf.create(cfg, "cpu")
     wl = torch.zeros((4, 4), dtype=torch.int32)
     before = build.launches[tk.KERNEL]
-    with pytest.raises(ValueError, match=f"block_resolution {R} .* 8, 16, 32"):
+    with pytest.raises(ValueError, match=f"block_resolution {R} .* multiple of 128"):
         tk.integrate_worklist_cuda(vol, wl, _t(z), _t(c), _t(T), INTR, cfg)
-    with pytest.raises(ValueError, match="8, 16, 32"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         tk.launch_grid(R)
+    with pytest.raises(AssertionError, match="multiple of 128"):
+        jtsdf.create(JTSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=R,
+                                 block_capacity=4, hash_capacity=16))
     assert build.launches[tk.KERNEL] == before
+
+
+@pytest.mark.parametrize("R", [24, 64])
+def test_wrapper_takes_every_multiple_of_8(frames, no_library, R):
+    """R = 24 and 64 pass the wrapper's check: on CPU tensors the wrapper
+    then refuses the device, not the block resolution."""
+    T, z, c = frames[0]
+    cfg = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=R, block_capacity=4,
+                     hash_capacity=16)
+    tk.check_block_resolution(R)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tk.integrate_worklist_cuda(tsdf.create(cfg, "cpu"), torch.zeros((4, 4), dtype=torch.int32),
+                                   _t(z), _t(c), _t(T), INTR, cfg)
+
+
+def test_plain_integrate_at_r24_matches_jax_by_key(frames):
+    """B1's plain version at R = 24 (the run-time-R instance's block
+    resolution on the card) against the JAX package's integrate, two frames:
+    the same block keys and every voxel equal to the bit."""
+    kw = dict(voxel_size=0.01, sdf_trunc=0.04, block_resolution=24, block_capacity=512,
+              hash_capacity=2048)
+    cfg, jcfg = TSDFConfig(**kw), JTSDFConfig(**kw)
+    vt, vj = tsdf.create(cfg, "cpu"), jtsdf.create(jcfg)
+    for T, z, c in frames:
+        vj = jtsdf.allocate(vj, z, jpixel_rays(JINTR), jnp.asarray(T), jcfg)
+        vj = jtsdf.integrate(vj, z, c, jnp.asarray(T), JINTR, jcfg)
+        vt = tsdf.allocate(vt, _t(z), RAYS, _t(T), cfg)
+        vt = tk.integrate_worklist(vt, _t(z), _t(c), _t(T), INTR, cfg)
+    n = int(vt.n_blocks)
+    assert 10 < n == int(vj.n_blocks) and not bool(vt.overflow)
+    ours = {tuple(k): s for s, k in enumerate(vt.block_coords[:n].tolist())}
+    theirs = {tuple(k): s for s, k in enumerate(np.asarray(vj.block_coords)[:n].tolist())}
+    assert ours.keys() == theirs.keys()
+    a = [getattr(vt, k).numpy() for k in ("tsdf", "weight", "color")]
+    b = [np.asarray(getattr(vj, k)) for k in ("tsdf", "weight", "color")]
+    for key, s in ours.items():
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x[s].reshape(-1), y[theirs[key]].reshape(-1))
+    assert int((vt.weight > 0).sum()) > 10_000
 
 
 def test_wrapper_refuses_cpu_tensors(frames, no_library):

@@ -71,6 +71,25 @@ def test_plain_matches_pallas_kernel(pair):
     assert abs(int(res_t.inliers) - int(res_j.inliers)) <= 0.001 * int(res_j.inliers)
 
 
+def test_plain_matches_pallas_kernel_at_five_levels(pair):
+    """A 5-level pyramid (the kernel takes up to 16): the plain version
+    against the Pallas kernel at a (2, 2, 2, 2, 2) schedule, at the bounds
+    of the 3-level case, and ``pack_levels`` takes the 5 levels."""
+    arrs, _ = pair
+    cfg = OdometryConfig(pyramid_iters=(2,) * 5)
+    res_j = compute_odometry_tpu(*arrs, JINTR, JOdometryConfig(pyramid_iters=(2,) * 5),
+                                 interpret=True)
+    res_t = _port(arrs, cfg)
+    np.testing.assert_allclose(res_t.T_target_source.numpy(),
+                               np.asarray(res_j.T_target_source), atol=1e-4)
+    assert abs(float(res_t.fitness) - float(res_j.fitness)) <= 1e-3
+    assert abs(float(res_t.rmse) - float(res_j.rmse)) <= 1e-3
+    assert abs(int(res_t.inliers) - int(res_j.inliers)) <= 0.001 * int(res_j.inliers)
+    pyr_s, pyr_t = _pyramids(arrs, 5)
+    _, dims, _ = odo.pack_levels(pyr_s, pyr_t, INTR, cfg, torch.device("cpu"))
+    assert dims[-3:] == [INTR.height >> 4, INTR.width >> 4, 2]
+
+
 def test_plain_converges_like_reference(pair):
     """The bounds of tests/test_pallas_odometry.py against the XLA reference."""
     arrs, T_true = pair
@@ -191,14 +210,15 @@ def _bad_inputs(arrs):
     wrong_dtype[0] = (pyr_t[0][0].double(), pyr_t[0][1])
     strided = list(pyr_s)
     strided[2] = (pyr_s[2][0], torch.zeros((40, 36)).t())
-    five = OdometryConfig(pyramid_iters=(1,) * 5)
+    # pack_levels checks the configured count before the pyramids' depth
+    seventeen = OdometryConfig(pyramid_iters=(1,) * 17)
     deep_s, deep_t = _pyramids(arrs, 5)
     return {
         "cpu": (state, pyr_s, pyr_t, cfg, "needs CUDA tensors"),
         "shape": (state, wrong_shape, pyr_t, cfg, "level 1 source depth"),
         "dtype": (state, pyr_s, wrong_dtype, cfg, "level 0 target intensity"),
         "contiguity": (state, strided, pyr_t, cfg, "non-contiguous"),
-        "levels": (state, deep_s, deep_t, five, "5 pyramid levels"),
+        "levels": (state, deep_s, deep_t, seventeen, "17 pyramid levels"),
         "depth": (state, pyr_s[:2], pyr_t[:2], cfg, "pyramids of 2 and 2"),
         "state": (torch.zeros(12), pyr_s, pyr_t, cfg, "state"),
     }
