@@ -572,6 +572,18 @@ def bench_rig() -> np.ndarray:
     return rig
 
 
+# extrinsics (se3 log of camera 1's frame into camera 0's) that the two-camera
+# auto-calibration accepted on this rig at quarter resolution while its only
+# gate was the overlap, with their scenes: 0.420 m / 0.351 rad, 0.401 m /
+# 0.289 rad and a slide of 0.087 m / 0.002 rad along the wall and floor off
+# the truth. The free-space gate must reject each.
+BENCH_RIG_WRONG_XI = {
+    "off_0.42m": ("default", (0.06687, -0.00057, -0.00319, -0.00043, -0.09111, 0.00004)),
+    "off_0.40m": ("cluttered", (0.04738, 0.00003, -0.00226, -0.00024, -0.02864, -0.00029)),
+    "slide_0.087m": ("cluttered", (-0.26811, 0.00006, 0.01571, -0.0002, 0.25845, -0.00067)),
+}
+
+
 def dual_section(b: Inputs, expect, n_pairs: int = 24, n_moving: int = 24,
                  n_warm: int = 2) -> dict:
     """``bench.py:426-515``: ``DualCameraFusion`` at the bench rig's known

@@ -12,7 +12,8 @@ two attached Azure Kinects (``io.streams.MultiCameraRig`` over two
 first camera's color calibration. Each pair uploads while the previous one
 computes (``io.streams.prefetch_to_device``). The first good pair calibrates camera 1's extrinsic (FPFH +
 RANSAC + ICP; ``--colored-calib`` refines with colored ICP), unless
-``--rig-calib DIR`` loads the newest rig calibration there. Every pair is
+``--rig-calib DIR`` loads the newest rig calibration there; a run that no
+pair calibrated names that route in its summary line. Every pair is
 fused (``DualCameraFusion``); on exit the merged cloud and the TSDF mesh
 are saved and the extrinsic's roll, pitch and yaw logged. ``--sharded``
 puts each camera on its own row of a grid of the visible cards with the
@@ -50,7 +51,10 @@ from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
 from azurekinect3dreconstruction_tpu_torch.core.device import resolve_device
 from azurekinect3dreconstruction_tpu_torch.io.streams import MultiCameraRig, prefetch_to_device
 from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
-from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import (
+    RIG_CALIB_ADVICE,
+    DualCameraFusion,
+)
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info
 
 RIG_XI = (0.12, 0.02, -0.02, 0.03, -0.1, 0.02)  # camera 1 of the synthetic rig
@@ -147,7 +151,8 @@ def main(argv=None) -> int:
         log_info(f"{pipe.frame_index} pairs, calibrated {pipe.calibrated}, sharded "
                  f"{pipe.sharded}, n_blocks {int(pipe.volume.n_blocks.sum())}, "
                  f"overflow {bool(pipe.volume.overflow.any())}, "
-                 f"calibration events {json.dumps(pipe.counts)}")
+                 f"calibration events {json.dumps(pipe.counts)}"
+                 + ("" if pipe.calibrated else f"; no pair calibrated: {RIG_CALIB_ADVICE}"))
         pipe.save_current_state()
     finally:
         viewer.close()

@@ -51,9 +51,13 @@ from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
 from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
 from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
 from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+    FREE_SPACE_BAND_M,
+    FREE_SPACE_MAX_SHARE,
     TargetMaps,
     colored_icp,
     evaluate_registration,
+    free_space_band,
+    free_space_shares,
     icp_point_to_plane,
 )
 from azurekinect3dreconstruction_tpu_torch.tracking.ransac import (
@@ -68,6 +72,10 @@ from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 log = logging.getLogger(__name__)
 
 _UNIFORM_COLORS = ((0.9, 0.4, 0.2), (0.2, 0.5, 0.9))
+# the route for a rig the auto-calibration rejects
+RIG_CALIB_ADVICE = ("calibrate the rig with a checkerboard (python -m "
+                    "azurekinect3dreconstruction_tpu_torch.cli.calibrate_rig) and fuse with "
+                    "cli.dual_fusion --rig-calib DIR")
 
 
 class DualCameraFusion:
@@ -80,7 +88,10 @@ class DualCameraFusion:
     refines with colored ICP instead of point-to-plane. RANSAC draws from
     ``generator``, a ``torch.Generator`` on the device seeded with 7.
     ``calib_stage_ms`` holds the last calibration's stage times, each closed by
-    a device synchronization.
+    a device synchronization, and ``calib_scores`` the overlap and the
+    free-space shares (``in_front``, ``agree``) of the pose it accepted or,
+    when it rejected, of the one that came nearest, and the free-space
+    band at camera 0's median depth (``band_m``).
 
     ``sharded``: camera ``c`` on row ``c`` of a ``2 x n // 2`` grid of
     ``devices`` (default: every visible card on ``"cuda"``, ``[device]`` on
@@ -112,6 +123,7 @@ class DualCameraFusion:
         self.generator = torch.Generator(device=self.device).manual_seed(7)
         self.frame_index = 0
         self.calib_stage_ms = {}
+        self.calib_scores = {}
         self.telemetry = Telemetry()  # pair rate, calibration events, step times (host clock)
         self._last_frames: List[Optional[RGBDFrame]] = [None, None]
         self._last_raw = [None, None]  # device (depth_raw, color_raw) of the last pair
@@ -150,21 +162,53 @@ class DualCameraFusion:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t = time.perf_counter()
-        self.calib_stage_ms[name] = (t - t0) * 1e3
+        self.calib_stage_ms[name] = self.calib_stage_ms.get(name, 0.0) + (t - t0) * 1e3
         return t
+
+    def _score(self, frames, poses, fits, band):
+        """Candidate extrinsics ``T01`` on the host, float64: their (n, 4)
+        rows (overlap, the larger of the two directions' free-space shares
+        in front, the smaller of their shares that agree, and the band in m
+        at camera 0's median depth) and the poses as numpy 4x4s. ``band``
+        from ``free_space_band``. One read of the host."""
+        (d0, d1), (r0, r1) = (frames[0].depth, frames[1].depth), self.rays
+        band_m = band * torch.where(d0 > 0, d0, float("nan")).nanmedian()
+        rows = []
+        for T, fit in zip(poses, fits):
+            f10, a10 = free_space_shares(d0, self.intr[0], d1, r1, T, band)
+            f01, a01 = free_space_shares(d1, self.intr[1], d0, r0, se3.inverse(T), band)
+            rows.append(torch.cat([torch.stack([fit.to(torch.float32), torch.maximum(f10, f01),
+                                                torch.minimum(a10, a01), band_m]),
+                                   T.reshape(16)]))
+        host = torch.stack(rows).cpu().numpy().astype(np.float64)
+        return host[:, :4], list(host[:, 4:].reshape(-1, 4, 4))
 
     def calibrate(self, frames: Tuple[RGBDFrame, RGBDFrame], refine_only: bool = False,
                   colored: bool = False) -> bool:
         """Estimate camera 1's extrinsic from one decoded frame pair.
 
         ``refine_only`` (the 'R' key) refines from the current extrinsic by
-        ICP alone; otherwise FPFH + RANSAC find it and ICP refines it.
-        ``colored`` refines with colored ICP on camera 1's stride-2 cloud
-        and intensity: on a flat textured wall point-to-plane leaves two
-        in-plane translations and the in-plane rotation free, and the
-        photometric term pins them to the texture. The result is accepted
-        when its overlap clears ``min_overlap_extrinsic`` and it is a
-        proper rigid transform other than the identity."""
+        ICP alone; otherwise FPFH + RANSAC find it and ICP refines it, from
+        the RANSAC pose and from the identity. ``colored`` refines with
+        colored ICP on camera 1's stride-2 cloud and intensity: on a flat
+        textured wall point-to-plane leaves two in-plane translations and
+        the in-plane rotation free, and the photometric term pins them to
+        the texture.
+
+        A pose passes when its overlap clears ``min_overlap_extrinsic``, at
+        most ``FREE_SPACE_MAX_SHARE`` of either camera's pixels land in
+        front of what the other measured, by a band that grows with the
+        frames' own depth noise (``tracking.icp.free_space_shares``), and
+        it is a proper rigid transform other than the identity. The
+        candidate of best overlap is taken when it passes and the band at
+        camera 0's median depth is at its 3 cm floor (a wider band lets a
+        pose slid a few cm along the scene's planes pass). Otherwise each
+        candidate is refined again by colored ICP (stage
+        ``colored_refine``), the result with the fewest pixels in front
+        once more, and of all that pass the one with the fewest pixels in
+        front wins. When none passes, or a ``refine_only`` refinement
+        fails, the extrinsic stays as it was, ``calib_reject``
+        counts, and the warning names the checkerboard route."""
         reg = self.cfg.registration
         self.calib_stage_ms = {}
         t = time.perf_counter()
@@ -176,21 +220,32 @@ class DualCameraFusion:
         t = self._stage_done("downsample", t)
         (p0, m0), (p1, m1) = clouds
         tgt = TargetMaps.from_depth(frames[0].depth, self.rays[0],
-                                    intensity=frames[0].intensity if colored else None)
+                                    intensity=frames[0].intensity)
 
-        def refine(init):
+        def refine(init, colored):
             if colored:
                 sp = backproject_depth(frames[1].depth, self.rays[1])[::2, ::2].reshape(-1, 3)
                 si = frames[1].intensity[::2, ::2].reshape(-1)
                 return colored_icp(sp, si, sp[:, 2] > 0, tgt, self.intr[0], init=init, cfg=reg)
             return icp_point_to_plane(p1, m1, tgt, self.intr[0], init=init, cfg=reg)
 
-        if refine_only and self.extrinsics[1] is not None:
+        def overlap(T):
+            return evaluate_registration(p1, m1, p0, m0, T, dist_thr=0.03)[0]
+
+        def passes(row, T01):
+            return (row[0] >= reg.min_overlap_extrinsic
+                    and row[1] <= FREE_SPACE_MAX_SHARE
+                    and se3.is_valid_transform(T01)
+                    and abs(np.trace(T01) - 4.0) >= 1e-6)  # the identity: degenerate
+
+        band = free_space_band(frames[0].depth, frames[1].depth)
+        refine_only = refine_only and self.extrinsics[1] is not None
+        if refine_only:
             init = np.linalg.inv(self.extrinsics[0]) @ self.extrinsics[1]
-            res = refine(torch.as_tensor(init, dtype=torch.float32).to(self.device))
-            T01 = res.T.cpu().numpy().astype(np.float64)
-            fit = float(res.fitness)
+            res = refine(torch.as_tensor(init, dtype=torch.float32).to(self.device), colored)
             t = self._stage_done("icp_refine", t)
+            rows, host = self._score(frames, [res.T], [res.fitness], band)
+            t = self._stage_done("evaluate", t)
         else:
             cam = np.zeros(3)  # normals face each camera's center
             n0 = estimate_normals_knn(p0, m0, radius=0.04, k=12, orient_to=cam)
@@ -208,27 +263,46 @@ class DualCameraFusion:
             # FPFH of flat or round surfaces is ambiguous, and RANSAC then
             # returns a pose that depends on its draw, from which the
             # refinement may not recover; so the identity (both cameras view
-            # the scene) is refined as well, and the better overlap wins
-            refined = [refine(init) for init in (g.T, torch.eye(4, device=self.device))]
+            # the scene) is refined as well
+            poses = [refine(init, colored).T
+                     for init in (g.T, torch.eye(4, device=self.device))]
             t = self._stage_done("icp_refine", t)
-            fits = [float(evaluate_registration(p1, m1, p0, m0, r.T, dist_thr=0.03)[0])
-                    for r in refined]
-            fit = max(fits)
-            T01 = refined[fits.index(fit)].T.cpu().numpy().astype(np.float64)
+            rows, host = self._score(frames, poses, [overlap(T) for T in poses], band)
             t = self._stage_done("evaluate", t)
-
-        if fit < reg.min_overlap_extrinsic or not se3.is_valid_transform(T01):
-            log.warning("calibration rejected (overlap %.2f)", fit)
+        k = int(np.argmax(rows[:, 0]))
+        if not refine_only and (not passes(rows[k], host[k]) or rows[k, 3] > FREE_SPACE_BAND_M):
+            # point-to-plane slides planes along themselves and stops short in
+            # a wide baseline's basin, and on noisy depth it settles cm off,
+            # under a band the noise widened; the texture pins all three. From
+            # a start 0.35 m off the iterations can run out cm short, so the
+            # result with the fewest pixels in front starts a second pass
+            starts = poses
+            for _ in range(2):
+                more = [refine(T, True).T for T in starts]
+                t = self._stage_done("colored_refine", t)
+                rows2, host2 = self._score(frames, more, [overlap(T) for T in more], band)
+                t = self._stage_done("evaluate", t)
+                rows, host = np.concatenate([rows, rows2]), host + host2
+                starts = [more[int(np.argmin(rows2[:, 1]))]]
+            ok = [i for i in range(len(host)) if passes(rows[i], host[i])]
+            k = min(ok, key=lambda i: rows[i, 1]) if ok else int(np.argmin(rows[:, 1]))
+        fit, front, agree, band_m = rows[k]
+        T01 = host[k]
+        self.calib_scores = {"overlap": fit, "in_front": front, "agree": agree, "band_m": band_m}
+        if not passes(rows[k], T01):
+            log.warning("calibration rejected: overlap %.2f (gate %.2f), %.2f %% of the pixels "
+                        "more than %.1f cm in front of the other camera's surface (gate %.2f "
+                        "%%), %.2f %% on it; %s", fit, reg.min_overlap_extrinsic, 100 * front,
+                        100 * max(band_m, FREE_SPACE_BAND_M), 100 * FREE_SPACE_MAX_SHARE,
+                        100 * agree, RIG_CALIB_ADVICE)
             self.telemetry.count("calib_reject")
-            return False
-        if abs(np.trace(T01) - 4.0) < 1e-6:  # the identity: a degenerate registration
-            log.warning("calibration returned identity; rejected")
             return False
         self.extrinsics[1] = self.extrinsics[0] @ T01
         self.calibrated = True
         r, p, y = np.degrees(se3.rpy_from_matrix(T01[:3, :3]))
-        log.info("calibrated: overlap %.2f, t = %s, rpy = (%.1f, %.1f, %.1f) deg", fit,
-                 T01[:3, 3], r, p, y)
+        log.info("calibrated: overlap %.2f, %.2f %% in front, %.2f %% on the surface (band "
+                 "%.1f cm), t = %s, rpy = (%.1f, %.1f, %.1f) deg", fit, 100 * front,
+                 100 * agree, 100 * max(band_m, FREE_SPACE_BAND_M), T01[:3, 3], r, p, y)
         self.telemetry.count("calib_ok")
         return True
 

@@ -2,7 +2,9 @@
 projective point-to-plane and colored ICP against a camera's organized
 maps, and, for two unorganized clouds, point-to-plane (``icp_grid``) and
 point-to-point ICP and ``evaluate_registration`` with nearest neighbors
-from the grid hash of ``ops.neighbors``.
+from the grid hash of ``ops.neighbors``; ``free_space_shares`` checks a
+transform between two depth images against the space each camera sees as
+empty.
 
 Correspondences are projective: the source cloud, moved by the current
 estimate, projects into the target camera's organized maps (points,
@@ -341,6 +343,67 @@ def evaluate_registration(src_points, src_mask, tgt_points, tgt_mask, T,
     nn, dist = knn_gather(cells, tgt, p, src_mask, k=1, max_radius=dist_thr)
     fit, rmse, _ = _stats(src_mask & (nn[:, 0] >= 0), dist[:, 0], src_mask)
     return fit, rmse
+
+
+# the free-space gate: a pixel is in front of the other camera's surface
+# when it lies more than max(3 cm, 3.5 sigma of the difference of the two
+# depths) in front of it, sigma from each frame's own noise
+# (``relative_depth_noise``), and a transform passes when at most 3 % of
+# either camera's pixels do
+FREE_SPACE_BAND_M = 0.03
+FREE_SPACE_BAND_SIGMAS = 3.5
+FREE_SPACE_MAX_SHARE = 0.03
+# the median of |n[i-1] - 2 n[i] + n[i+1]| for unit gaussian n: the median
+# of |N(0, 1)| times sqrt(6)
+_MAD_D2 = 0.6744897501960817 * 6.0 ** 0.5
+
+
+def relative_depth_noise(depth):
+    """The relative noise sigma (noise sd over depth) of one depth image,
+    a float32 scalar: the median of ``|z[i-1] - 2 z[i] + z[i+1]| / z[i]``
+    over the rows' and columns' runs of three valid pixels, over
+    ``_MAD_D2``. Smooth surfaces leave second differences near 0 and
+    edges are too few to move the median, so it reads the sensor's noise
+    from the frame itself (0 for mm-quantized noise-free depth)."""
+    runs = []
+    for a, b, c in ((depth[:, :-2], depth[:, 1:-1], depth[:, 2:]),
+                    (depth[:-2], depth[1:-1], depth[2:])):
+        d2 = ((a - 2.0 * b + c) / torch.where(b > 0, b, 1.0)).abs()
+        runs.append(torch.where((a > 0) & (b > 0) & (c > 0), d2, float("nan")).reshape(-1))
+    return torch.nan_to_num(torch.cat(runs).nanmedian()) / _MAD_D2
+
+
+def free_space_band(depth_a, depth_b):
+    """The band's relative part for two depth images, a float32 scalar:
+    ``FREE_SPACE_BAND_SIGMAS`` sigma of the difference of their depths,
+    ``FREE_SPACE_BAND_SIGMAS * hypot(sigma_a, sigma_b)`` with each sigma
+    the image's ``relative_depth_noise``."""
+    return FREE_SPACE_BAND_SIGMAS * torch.hypot(relative_depth_noise(depth_a),
+                                                relative_depth_noise(depth_b))
+
+
+def free_space_shares(depth_a, intr_a: Intrinsics, depth_b, rays_b, T_ab, band):
+    """Free-space consistency of ``T_ab`` (camera b's frame to camera a's):
+    b's valid depth pixels, moved into a's frame, go to their nearest pixel
+    of a's depth image ``depth_a``. Of those that land on a valid pixel with
+    positive depth on both sides, returns two float32 shares: ``in_front``,
+    more than the band ``max(FREE_SPACE_BAND_M, band * z_a)`` in front of
+    a's measured depth ``z_a`` (``band`` from ``free_space_band``), in
+    space camera a sees as empty (at the true transform only noise tails and edge pixels
+    land there); and ``agree``, within the band of it. Nearest-neighbor
+    overlap cannot see a surface slid along itself or through empty space;
+    this can."""
+    p = se3.transform_points(T_ab.to(torch.float32),
+                             backproject_depth(depth_b, rays_b).reshape(-1, 3))
+    uv, _ = _project(p, intr_a)
+    z_a, inb = nearest_sample(depth_a, uv)
+    seen = (depth_b.reshape(-1) > 0) & inb & (p[:, 2] > 1e-4) & (z_a > 0)
+    tol = torch.clamp_min(z_a * band, FREE_SPACE_BAND_M)
+    gap = z_a - p[:, 2]
+    n = torch.clamp_min(seen.to(torch.int32).sum(), 1)
+    in_front = (seen & (gap > tol)).to(torch.int32).sum() / n
+    agree = (seen & (gap.abs() <= tol)).to(torch.int32).sum() / n
+    return in_front, agree
 
 
 def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,

@@ -31,9 +31,15 @@ worklist, odometry pyramid [20, 10, 5]):
    times the phases of one frame-to-model frame;
 6. drives two-camera fusion, ``DualCameraFusion(..., device="cuda")``:
    auto-calibrates the rig of ``tests/test_pipelines.py`` (within 2 cm /
-   0.03 rad of the truth) and times its stages; fuses the bench's rig
-   (camera 1 35 cm left, toed in 0.26 rad) with its extrinsics set by
-   hand, the static pair 24 times and the moving rig over the first 24
+   0.03 rad of the truth) and times its stages; auto-calibrates the bench's
+   rig in the default and the cluttered scene from 4 RANSAC seeds each, at
+   640x576 and at quarter resolution (where only the colored fallback finds
+   it), and from 2 seeds at relative depth noise 0.005 and 0.01, and the
+   test rig at 0.01, every one accepted within 2 cm / 0.03 rad, with its
+   free-space shares and stage times, and rejects a calibration whose
+   refinements are scripted to a wrong pose, in full and on the R key;
+   fuses the bench's rig (camera 1 35 cm left, toed in 0.26 rad) with its
+   extrinsics set by hand, the static pair 24 times and the moving rig over the first 24
    sweep poses, each synchronized per pair and with one sync at the end,
    the launch counters zeroed just before the moving pass and read just
    after: B1 launched exactly twice a pair, blocks allocated throughout, no
@@ -202,6 +208,15 @@ stated input (the third sweep frame into a 2-frame volume through
 whole-pool worklist (``integrate_frame``), and over the 16-frame mono loop,
 with the bound and its bytes (null for a version without
 ``updated_voxels``).
+
+    python3 chip_smoke.py --calibration [--device cpu] [--scale 0.25]
+        [--noise 0 0.01] [--seeds 0 1]
+
+runs only the two-camera auto-calibration (``calibration_main``), on the
+card unless ``--device cpu``: one JSON line a calibration of the test rig
+and of the bench rig, then the free-space shares at the bench rig's truth
+and at the poses an overlap-only gate accepted. Copied into a parent
+checkout it measures the parent, as ``--odometry`` does.
 """
 
 from __future__ import annotations
@@ -250,6 +265,17 @@ N_DUAL_CPU_PAIRS = 4
 CALIB_RIG_XI = (0.12, 0.03, -0.02, 0.05, -0.12, 0.04)
 CALIB_T_LIMIT_M = 0.02
 CALIB_R_LIMIT_RAD = 0.03
+# the bench rig's auto-calibration: RANSAC generator seeds in each scene at
+# 640x576 and at quarter resolution (at the first the point-to-plane
+# candidate already lands on the truth, at the second only the colored
+# fallback does); then, from seeds 0 and 1 at 640x576, relative depth noise
+# on the bench rig, and the test rig at the largest; the scripted reject at
+# quarter resolution, where the scripted pose clears the overlap gate
+BENCH_CALIB_SEEDS = (0, 1, 2, 3)
+BENCH_CALIB_SCALES = (1.0, 0.25)
+BENCH_CALIB_NOISES = (0.005, 0.01)
+BENCH_CALIB_NOISE_SEEDS = (0, 1)
+BENCH_CALIB_REJECT_SCALE = 0.25
 N_REC_FRAMES = 32
 # tests/test_pipelines.py's keyframe jump and its bounds there (at its registration budgets)
 JUMP_T_LIMIT_M = 0.06
@@ -766,10 +792,137 @@ def _volumes_by_key(vg, vc):
     return True, float(agree.mean()), err_t, err_c
 
 
+def calibration_runs(intr, cfg, dev, out_dir: str, rig, scenes, seeds, scale: float = 1.0,
+                     noise: float = 0.0) -> list:
+    """Auto-calibrations of a rig, camera 0 at the origin and camera 1 at
+    ``rig``, through ``DualCameraFusion.process_frames`` on its first pair:
+    in each ``io.synthetic.Scene`` named in ``scenes``, at ``scale`` of
+    ``intr``, from each RANSAC generator seed in ``seeds``, with relative
+    depth noise ``noise`` drawn from a generator seeded alike. Returns one
+    record a calibration: accepted or not, the error against ``rig``
+    (None when rejected), the scores (``calib_scores``), whether the
+    colored fallback ran, the stage ms and the first pair's host ms
+    (calibration + fuse). Uses only calls every version of the port has;
+    a version without ``calib_scores`` gives none."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Scene, SyntheticCamera
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+
+    at = intr if scale == 1.0 else intr.scaled(scale)
+    records = []
+    for name in scenes:
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(seed) if noise else None
+            cam = SyntheticCamera(scene=getattr(Scene, name)(), intrinsics=at,
+                                  depth_noise=noise, generator=gen, device=dev)
+            pair = cam.capture(np.eye(4)), cam.capture(rig)
+            p = DualCameraFusion((at, at), cfg, device=dev, output_dir=out_dir)
+            p.generator = torch.Generator(device=dev).manual_seed(seed)
+            t0 = time.perf_counter()
+            p.process_frames(pair)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            err = None
+            if p.calibrated:
+                d = se3.se3_log(torch.as_tensor(np.linalg.inv(rig) @ p.extrinsics[1])).numpy()
+                err = [float(np.linalg.norm(d[:3])), float(np.linalg.norm(d[3:]))]
+            records.append({
+                "size": f"{at.width}x{at.height}", "scene": name, "noise": noise, "seed": seed,
+                "calibrated": p.calibrated, "err_m_rad": err,
+                "scores": {k: round(float(v), 6) for k, v in getattr(p, "calib_scores",
+                                                                     {}).items()},
+                "colored_fallback": "colored_refine" in p.calib_stage_ms,
+                "stage_ms": {k: round(v, 3) for k, v in p.calib_stage_ms.items()},
+                "first_pair_ms": round(ms, 3)})
+            del p
+    return records
+
+
+def bench_calibration(intr, cfg, dev, gpu: str, out_dir: str) -> list:
+    """Auto-calibration of the bench rig (``cli.bench.bench_rig``: camera 1
+    35 cm left of camera 0, toed in 0.26 rad) by ``calibration_runs`` in
+    ``Scene.default()`` and ``Scene.cluttered()``: from each seed of
+    ``BENCH_CALIB_SEEDS`` at each of ``BENCH_CALIB_SCALES`` of ``intr``, and
+    from each of ``BENCH_CALIB_NOISE_SEEDS`` at each depth noise of
+    ``BENCH_CALIB_NOISES``; then the test rig at the largest noise. Each must be accepted within 2 cm / 0.03 rad
+    and is logged with its scores and stage ms. Then, at
+    ``BENCH_CALIB_REJECT_SCALE``, every ICP refinement scripted to the pose
+    ``cli.bench.BENCH_RIG_WRONG_XI["off_0.42m"]``: the first pair's
+    calibration and the R key's refinement must both be rejected, the
+    extrinsic left as it was. Returns failures."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import BENCH_RIG_WRONG_XI, bench_rig
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Scene, SyntheticCamera
+    from azurekinect3dreconstruction_tpu_torch.pipelines import dual_fusion as df
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import ICPResult
+
+    failures = []
+    rig = bench_rig()
+    test_rig = se3.se3_exp(torch.tensor(CALIB_RIG_XI, dtype=torch.float64)).numpy()
+    scenes = ("default", "cluttered")
+    runs = [("bench rig", rig, scenes, BENCH_CALIB_SEEDS, s, 0.0) for s in BENCH_CALIB_SCALES]
+    runs += [("bench rig", rig, scenes, BENCH_CALIB_NOISE_SEEDS, 1.0, n)
+             for n in BENCH_CALIB_NOISES]
+    runs += [("test rig", test_rig, ("default",), BENCH_CALIB_NOISE_SEEDS, 1.0,
+              BENCH_CALIB_NOISES[-1])]
+    for name, T, names, seeds, scale, noise in runs:
+        for r in calibration_runs(intr, cfg, dev, out_dir, T, names, seeds, scale, noise):
+            stages = r["stage_ms"]
+            et, er = r["err_m_rad"] or (float("inf"),) * 2
+            _log(f"dual calibration ({name}, {r['size']}, {r['scene']} scene, depth noise "
+                 f"{noise}, seed {r['seed']}): calibrated {r['calibrated']}, extrinsic error "
+                 f"{et * 1e3:.4f} mm / {er * 1e3:.4f} mrad; scores {json.dumps(r['scores'])}; "
+                 f"colored fallback {r['colored_fallback']}; first pair "
+                 f"{r['first_pair_ms']:.3f} ms (host clock, calibration + fuse); stage ms "
+                 f"(synchronized after each): {json.dumps(stages)} (sum "
+                 f"{sum(stages.values()):.3f})  [{gpu}]")
+            if not (r["calibrated"] and et <= CALIB_T_LIMIT_M and er <= CALIB_R_LIMIT_RAD):
+                failures.append(f"{name} calibration ({r['size']}, {r['scene']}, noise "
+                                f"{noise}, seed {r['seed']}): calibrated {r['calibrated']}, "
+                                f"{et:.4f} m / {er:.4f} rad")
+
+    scale = BENCH_CALIB_REJECT_SCALE
+    at = intr.scaled(scale)
+    wrong = se3.se3_exp(torch.tensor(BENCH_RIG_WRONG_XI["off_0.42m"][1], dtype=torch.float64))
+    d = se3.se3_log(torch.as_tensor(np.linalg.inv(rig) @ wrong.numpy())).numpy()
+    wt, wr = float(np.linalg.norm(d[:3])), float(np.linalg.norm(d[3:]))
+    scripted = lambda *a, **k: ICPResult(
+        T=wrong.to(device=dev, dtype=torch.float32), fitness=torch.ones((), device=dev),
+        inlier_rmse=torch.zeros((), device=dev),
+        inliers=torch.ones((), dtype=torch.int32, device=dev))
+    cam = SyntheticCamera(scene=Scene.default(), intrinsics=at, device=dev)
+    saved = df.icp_point_to_plane, df.colored_icp
+    df.icp_point_to_plane = df.colored_icp = scripted
+    try:
+        p = df.DualCameraFusion((at, at), cfg, device=dev, output_dir=out_dir)
+        p.process_frames((cam.capture(np.eye(4)), cam.capture(rig)))
+        full = (p.calibrated, p.extrinsics[1] is None, dict(p.calib_scores))
+        p.extrinsics[1], p.calibrated = rig.copy(), True
+        kept = not p.recalibrate() and np.array_equal(p.extrinsics[1], rig)
+        counts = dict(p.counts)
+    finally:
+        df.icp_point_to_plane, df.colored_icp = saved
+    _log(f"dual calibration scripted to the bench rig {wt:.3f} m / {wr:.3f} rad off "
+         f"({scale} resolution): first pair calibrated {full[0]}, extrinsic left unset "
+         f"{full[1]}, scores {json.dumps({k: round(float(v), 6) for k, v in full[2].items()})}"
+         f"; R key rejected with the extrinsic kept {kept}; counts {json.dumps(counts)}  "
+         f"[{gpu}]")
+    if full[0] or not full[1] or not kept or counts != {"calib_reject": 2}:
+        failures.append("the scripted wrong calibration was not rejected")
+    return failures
+
+
 def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
                cpu_pairs: int = N_DUAL_CPU_PAIRS):
     """Two-camera fusion, ``DualCameraFusion(..., device=dev)``: (a) auto-
-    calibration of the test rig with its stage times; (b) fusion at the
+    calibration of the test rig with its stage times, then of the bench rig
+    (``bench_calibration``); (b) fusion at the
     bench rig with its extrinsics set by hand, the static pair and the
     moving rig over the sweep, synchronized per pair and with one sync at
     the end; (c) the first ``cpu_pairs`` moving pairs on the card against
@@ -825,6 +978,8 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
         failures.append(f"dual calibration off: calibrated {pc.calibrated}, "
                         f"{et:.4f} m / {er:.4f} rad")
     del pc
+
+    failures += bench_calibration(intr, cfg, dev, gpu, tmp.name)
 
     # -- b. fusion at the bench rig, extrinsics set by hand ------------------------
     poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n_pairs]
@@ -3547,13 +3702,13 @@ def main() -> int:
     return 0
 
 
-def _port_beside():
-    """Why the package beside this script cannot be timed on a card (no
+def _port_beside(device: str = "cuda"):
+    """Why the package beside this script cannot run on ``device`` (no
     card, no package, another copy imported), or None; puts it on the
     import path."""
     import torch
 
-    if not torch.cuda.is_available():
+    if device == "cuda" and not torch.cuda.is_available():
         return "no CUDA device is available"
     pkg_dir = os.path.join(REPO, PKG)
     if not os.path.isdir(pkg_dir):
@@ -3694,6 +3849,80 @@ def integrate_main() -> int:
     return 0
 
 
+def calibration_main(device: str, scale: float, noises, seeds) -> int:
+    """``--calibration``: the two-camera auto-calibration of the package
+    beside this script (``calibration_runs``) on the test rig in
+    ``Scene.default()`` and the bench rig in both scenes, at ``scale`` of
+    640x576, at each relative depth noise in ``noises``, from each seed in
+    ``seeds``: one JSON line a calibration; then, for each scene and noise,
+    the larger share of pixels in front (``tracking.icp.
+    free_space_shares``, both directions; null in a version without it)
+    at the truth and at ``cli.bench.BENCH_RIG_WRONG_XI``'s poses of that
+    scene (noise drawn from the last seed). The registration defaults
+    with a 2 cm TSDF; on the CPU, 2 torch threads."""
+    import numpy as np
+    import torch
+
+    why = _port_beside(device)
+    if why:
+        return _fail(why)
+    from azurekinect3dreconstruction_tpu_torch.cli import bench
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.core.types import RGBDFrame
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Scene, SyntheticCamera
+    from azurekinect3dreconstruction_tpu_torch.tracking import icp
+
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(2)
+    gpu = _gpu_line() if dev.type == "cuda" else "cpu"
+    _log(f"gpu: {gpu}")
+    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=8,
+                                         block_capacity=2048, hash_capacity=8192))
+    intr = Intrinsics.azure_kinect_depth_nfov()
+    at = intr.scaled(scale)
+    rays = pixel_rays(at, dev)
+    pose = lambda xi: se3.se3_exp(torch.tensor(xi, dtype=torch.float64)).numpy()
+    rigs = (("test rig", pose(CALIB_RIG_XI), ("default",)),
+            ("bench rig", bench.bench_rig(), ("default", "cluttered")))
+    tmp = tempfile.TemporaryDirectory()
+    for noise in noises:
+        for name, rig, scenes in rigs:
+            for r in calibration_runs(intr, cfg, dev, tmp.name, rig, scenes, seeds, scale,
+                                      noise):
+                _log(json.dumps({"rig": name, **r, "gpu": gpu}))
+        if not hasattr(icp, "free_space_shares"):
+            continue
+        rig = bench.bench_rig()
+        for name in ("default", "cluttered"):
+            gen = torch.Generator(device=dev).manual_seed(seeds[-1]) if noise else None
+            cam = SyntheticCamera(scene=getattr(Scene, name)(), intrinsics=at,
+                                  depth_noise=noise, generator=gen, device=dev)
+            cc = cfg.camera
+            d0, d1 = (RGBDFrame.from_raw(*(torch.from_numpy(a).to(dev) for a in cam.capture(T)),
+                                         cc.depth_scale, cc.depth_trunc, cc.depth_min).depth
+                      for T in (np.eye(4), rig))
+
+            band = icp.free_space_band(d0, d1)
+
+            def in_front(T):
+                T = torch.as_tensor(T, dtype=torch.float32, device=dev)
+                return round(max(float(icp.free_space_shares(d0, at, d1, rays, T, band)[0]),
+                                 float(icp.free_space_shares(d1, at, d0, rays,
+                                                             torch.linalg.inv(T), band)[0])), 6)
+
+            _log(json.dumps({
+                "rig": "bench rig", "scene": name, "noise": noise, "noise_seed": seeds[-1],
+                "in_front_at_truth": in_front(rig),
+                "in_front_at": {k: in_front(pose(xi))
+                                for k, (s, xi) in bench.BENCH_RIG_WRONG_XI.items() if s == name},
+                "gpu": gpu}))
+    tmp.cleanup()
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -3701,6 +3930,18 @@ if __name__ == "__main__":
                       help="time only the odometry of the package beside this script")
     mode.add_argument("--integrate", action="store_true",
                       help="time only B1 (TSDF integrate) of the package beside this script")
+    mode.add_argument("--calibration", action="store_true",
+                      help="only the two-camera auto-calibration of the package beside this "
+                           "script, on the test rig and the bench rig")
+    ap.add_argument("--device", default="cuda", help="with --calibration: cuda or cpu")
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="with --calibration: of the 640x576 depth camera")
+    ap.add_argument("--noise", type=float, nargs="+", default=[0.0],
+                    help="with --calibration: relative depth noise levels")
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(BENCH_CALIB_SEEDS),
+                    help="with --calibration: RANSAC (and noise) generator seeds")
     args = ap.parse_args()
+    if args.calibration:
+        sys.exit(calibration_main(args.device, args.scale, args.noise, args.seeds))
     sys.exit(odometry_main() if args.odometry else integrate_main() if args.integrate
              else main())

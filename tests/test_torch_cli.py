@@ -3,7 +3,8 @@
 subprocesses on the CPU: the counterparts of tests/test_scripts.py's tests
 of ``live_mono`` (with and without ``--streaming``), ``dual_fusion``
 (auto-calibration, the ``--sharded`` fallback on one device,
-``--rig-calib``), ``record_reconstruction``, ``offline_bundle`` and its
+``--rig-calib``, the route it names when no pair calibrates),
+``record_reconstruction``, ``offline_bundle`` and its
 ``--resume``, ``fragments``, ``cloud_accumulate``, ``depth_to_cloud`` into
 ``cloud_to_mesh``, ``eval_trajectory`` and ``device_test``, and the
 ``mkv:`` source's error without pyk4a; and of the live viewer: ``live_mono``'s
@@ -155,6 +156,36 @@ def test_dual_fusion_reads_a_port_rig_calibration(tmp_path):
     assert "rig calibration loaded: baseline 0.1233 m" in out, out
     assert "calibrated: overlap" not in out and "calibrated True" in out, out
     assert "latest_mesh.obj" in os.listdir(tmp_path / "out")
+
+
+def test_dual_fusion_names_the_rig_route_when_uncalibrated(tmp_path, monkeypatch, capsys):
+    """In-process, every calibration refinement scripted to land camera 1
+    40 cm in front of the truth: no pair passes the free-space gate, and
+    the summary line says so and names the checkerboard route."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli import dual_fusion
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.pipelines import dual_fusion as pipeline
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import ICPResult
+
+    wrong = se3.se3_exp(torch.tensor(dual_fusion.RIG_XI, dtype=torch.float64)).float()
+    wrong[2, 3] -= 0.4
+    scripted = lambda *a, **k: ICPResult(T=wrong.clone(), fitness=torch.tensor(0.9),
+                                         inlier_rmse=torch.tensor(0.01),
+                                         inliers=torch.tensor(1000, dtype=torch.int32))
+    monkeypatch.setattr(pipeline, "icp_point_to_plane", scripted)
+    monkeypatch.setattr(pipeline, "colored_icp", scripted)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # as the subprocesses' OMP_NUM_THREADS
+    try:
+        assert dual_fusion.main([*QUICK, "--frames", "1", "--output", str(tmp_path)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "calibrated False" in out and '"calib_reject": 1' in out, out
+    assert "no pair calibrated" in out and "cli.calibrate_rig" in out and "--rig-calib" in out, out
+    assert "latest_mesh.obj" in os.listdir(tmp_path)
 
 
 def test_record_reconstruction_saves(tmp_path):

@@ -7,6 +7,7 @@ calibration, and the modules the slice adds beside it (``transformed_depth``,
 the SMALL_CFG of tests/test_pipelines.py. Each tolerance is stated where it
 is used."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -35,6 +36,8 @@ from azurekinect3dreconstruction_tpu.pipelines.dual_fusion import (
 from azurekinect3dreconstruction_tpu.tsdf import volume as jtsdf
 from azurekinect3dreconstruction_tpu_torch import interop
 from azurekinect3dreconstruction_tpu_torch.calib.extrinsics import RigCalibration
+from azurekinect3dreconstruction_tpu_torch.cli.bench import BENCH_RIG_WRONG_XI, bench_rig
+from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig
 from azurekinect3dreconstruction_tpu_torch.core import se3
 from azurekinect3dreconstruction_tpu_torch.core.camera import (
     CameraCalibration,
@@ -47,10 +50,21 @@ from azurekinect3dreconstruction_tpu_torch.ops.backproject import (
     backproject_intrinsics,
 )
 from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+from azurekinect3dreconstruction_tpu_torch.io.synthetic import Scene, SyntheticCamera
 from azurekinect3dreconstruction_tpu_torch.ops.image import depth_gradient_colors
+from azurekinect3dreconstruction_tpu_torch.pipelines import dual_fusion
 from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import (
     DualCameraFusion,
     make_raw_dual_step,
+)
+from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+    FREE_SPACE_BAND_M,
+    FREE_SPACE_BAND_SIGMAS,
+    FREE_SPACE_MAX_SHARE,
+    ICPResult,
+    free_space_band,
+    free_space_shares,
+    relative_depth_noise,
 )
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
 from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver, read_obj, read_ply
@@ -193,6 +207,203 @@ def test_calibration_does_not_depend_on_the_draw(rig, seed, tmp_path):
     assert pipe.calibrated
     et, er = _rig_error(pipe.extrinsics[1], T1)
     assert et < 0.02 and er < 0.03, (et, er)
+
+
+# -- the bench rig (ROADMAP.md C4) -------------------------------------------------
+
+# the registration defaults: the colored refinement needs its 100 iterations
+# to come back from 0.4 m off
+BENCH_CFG = dataclasses.replace(CFG, registration=RegistrationConfig())
+SCENES = {"default": Scene.default, "cluttered": Scene.cluttered}
+
+
+def _pose(xi) -> np.ndarray:
+    return se3.se3_exp(torch.tensor(xi, dtype=torch.float64)).numpy()
+
+
+def _rig_frames(scene: str, T1, noise: float = 0.0, seed: int = 0):
+    """The pair of a rig in ``scene``: camera 0 at the origin, camera 1 at
+    ``T1``, decoded; ``noise`` relative depth noise drawn from a generator
+    seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed) if noise else None
+    cam = SyntheticCamera(scene=SCENES[scene](), intrinsics=INTR, depth_noise=noise,
+                          generator=gen, device="cpu")
+    return tuple(RGBDFrame.from_raw(*map(torch.from_numpy, cam.capture(T)), CAMC.depth_scale,
+                                    CAMC.depth_trunc, CAMC.depth_min) for T in (np.eye(4), T1))
+
+
+def _bench_frames(scene: str, noise: float = 0.0, seed: int = 0):
+    return _rig_frames(scene, bench_rig(), noise, seed)
+
+
+def _calibrate(frames, seed, tmp_path, cfg=BENCH_CFG):
+    pipe = DualCameraFusion((INTR, INTR), cfg, device="cpu", output_dir=str(tmp_path))
+    pipe.generator = torch.Generator().manual_seed(seed)
+    ok = pipe.calibrate(frames)
+    return pipe, ok
+
+
+@pytest.mark.parametrize("scene, seed", [("default", 0), ("default", 1), ("cluttered", 0),
+                                         ("cluttered", 1)])
+def test_bench_rig_autocalibrates(scene, seed, tmp_path):
+    """bench.py's rig, 35 cm apart and toed in 0.26 rad: the geometric
+    candidates are wrong (with only the overlap gate the calibration
+    accepted 0.420 m / 0.351 rad off in the default scene, 0.087 m / 0.002
+    rad and 0.401 m / 0.289 rad off in the cluttered one), the free-space
+    gate rejects them, and the colored refinement lands within
+    tests/test_pipelines.py's 2 cm / 0.03 rad."""
+    pipe, ok = _calibrate(_bench_frames(scene), seed, tmp_path)
+    assert ok and pipe.counts == {"calib_ok": 1}
+    et, er = _rig_error(pipe.extrinsics[1], bench_rig())
+    assert et < 0.02 and er < 0.03, (et, er)
+    assert "colored_refine" in pipe.calib_stage_ms
+
+
+@pytest.mark.parametrize("scene, noise", [("default", 0.002), ("cluttered", 0.005),
+                                          ("default", 0.01), ("cluttered", 0.01)])
+def test_bench_rig_autocalibrates_with_depth_noise(scene, noise, tmp_path):
+    """With relative depth noise on both cameras the band grows with the
+    noise each frame shows, so the truth stays under the gate: accepted
+    within 2 cm / 0.03 rad."""
+    pipe, ok = _calibrate(_bench_frames(scene, noise, seed=0), 0, tmp_path)
+    assert ok
+    et, er = _rig_error(pipe.extrinsics[1], bench_rig())
+    assert et < 0.02 and er < 0.03, (et, er)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_noisy_test_rig_takes_the_colored_route(seed, tmp_path):
+    """The test rig at relative depth noise 0.01, at the test rig's
+    registration budgets: the band at camera 0's median depth is ~13 cm,
+    wider than its 3 cm floor, so a point-to-plane pose that settled cm off
+    would pass the gate (3.7-4.7 cm off at the registration defaults); the
+    colored refinements join the candidates and the one with the fewest
+    pixels in front is accepted within 2 cm / 0.03 rad. With the overlap
+    gate alone the point-to-plane pose was taken."""
+    T1 = _pose(RIG_XI)
+    pipe, ok = _calibrate(_rig_frames("default", T1, 0.01, seed), seed, tmp_path, cfg=CFG)
+    assert ok and pipe.counts == {"calib_ok": 1}
+    assert pipe.calib_scores["band_m"] > FREE_SPACE_BAND_M
+    assert "colored_refine" in pipe.calib_stage_ms
+    et, er = _rig_error(pipe.extrinsics[1], T1)
+    assert et < 0.02 and er < 0.03, (et, er)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.002, 0.005, 0.01])
+def test_relative_depth_noise_reads_the_frames_noise(noise):
+    """Each camera's frame of the bench rig's cluttered scene: the estimate
+    is within 10 % of the relative noise drawn (the scene's curvature and
+    edges and the mm quantization raise it by 2-5 %), and under 1e-3 on
+    noise-free, mm-quantized depth; the band is 3.5 sigma of the difference
+    of the two."""
+    f0, f1 = _bench_frames("cluttered", noise, seed=3)
+    sig = [float(relative_depth_noise(f.depth)) for f in (f0, f1)]
+    for s in sig:
+        assert (s < 1e-3) if noise == 0.0 else abs(s / noise - 1.0) < 0.1, (sig, noise)
+    np.testing.assert_allclose(float(free_space_band(f0.depth, f1.depth)),
+                               FREE_SPACE_BAND_SIGMAS * np.hypot(*sig), rtol=1e-6)
+
+
+def _free_space_numpy(depth_a, intr, depth_b, rays_b, T):
+    """(in front, agree) shares, the band, and the share of pixels within
+    10 um of the band's edges, in float64 numpy, written from the
+    definition: each image's relative noise from the lower median of its
+    second differences, b's pixels moved by T, rounded to a's nearest
+    pixel. (The port moves them in float32, ~1 um apart: a pixel that
+    close to an edge may fall on either side.)"""
+    def noise(z):
+        d2 = []
+        for a, b, c in ((z[:, :-2], z[:, 1:-1], z[:, 2:]), (z[:-2], z[1:-1], z[2:])):
+            ok = (a > 0) & (b > 0) & (c > 0)
+            d2.append(np.abs((a[ok] - 2.0 * b[ok] + c[ok]) / b[ok]))
+        d2 = np.sort(np.concatenate(d2))
+        return d2[(d2.size - 1) // 2] / (0.6744897501960817 * np.sqrt(6.0)) if d2.size else 0.0
+
+    z_a64, z_b = depth_a.astype(np.float64), depth_b.astype(np.float64)
+    band = FREE_SPACE_BAND_SIGMAS * np.hypot(noise(z_a64), noise(z_b))
+    pts = np.concatenate([rays_b * z_b[..., None], z_b[..., None]], -1).reshape(-1, 3)
+    p = pts @ T[:3, :3].T + T[:3, 3]
+    z = np.maximum(p[:, 2], 1e-6)
+    u = np.rint(p[:, 0] / z * intr.fx + intr.cx)
+    v = np.rint(p[:, 1] / z * intr.fy + intr.cy)
+    h, w = depth_a.shape
+    inb = (u >= 0) & (v >= 0) & (u < w) & (v < h)
+    z_a = np.where(inb, z_a64[np.clip(v, 0, h - 1).astype(int), np.clip(u, 0, w - 1).astype(int)],
+                   0.0)
+    seen = (z_b.reshape(-1) > 0) & inb & (p[:, 2] > 1e-4) & (z_a > 0)
+    tol = np.maximum(band * z_a, FREE_SPACE_BAND_M)
+    gap = z_a - p[:, 2]
+    n = max(seen.sum(), 1)
+    edge = seen & (np.abs(np.abs(gap) - tol) < 1e-5)
+    return ((seen & (gap > tol)).sum() / n, (seen & (np.abs(gap) <= tol)).sum() / n, band,
+            edge.sum() / n)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.01])
+@pytest.mark.parametrize("case", ["truth", *BENCH_RIG_WRONG_XI])
+def test_free_space_shares_match_numpy_and_gate(case, noise):
+    """``free_space_shares`` in both directions, with ``free_space_band``,
+    equals the numpy version to 1e-6 but for the pixels within 10 um of
+    the band's edges (the band to 1e-6 relative), at the
+    case's pose and at a random pose near it, on noise-free frames and at
+    relative depth noise 0.01 (band ~13 cm at the median depth). The larger
+    share in front is under ``FREE_SPACE_MAX_SHARE`` at the bench rig's
+    truth (in both scenes) and over it at each extrinsic that the overlap
+    gate alone accepted."""
+    scene, T = (("default", bench_rig()) if case == "truth"
+                else (BENCH_RIG_WRONG_XI[case][0], _pose(BENCH_RIG_WRONG_XI[case][1])))
+    rng = np.random.RandomState(len(case))
+    near = T @ _pose(rng.normal(0.0, 0.02, 6))
+    rays = pixel_rays(INTR, "cpu")
+    for name in ((scene, "cluttered") if case == "truth" else (scene,)):
+        f0, f1 = _bench_frames(name, noise, seed=1)
+        d0, d1, r = f0.depth.numpy(), f1.depth.numpy(), rays.numpy()
+        band = free_space_band(f0.depth, f1.depth)
+        fronts = []
+        for pose in (T, near):
+            got = [free_space_shares(f0.depth, INTR, f1.depth, rays, torch.as_tensor(pose), band),
+                   free_space_shares(f1.depth, INTR, f0.depth, rays,
+                                     torch.as_tensor(np.linalg.inv(pose)), band)]
+            want = [_free_space_numpy(d0, INTR, d1, r, pose),
+                    _free_space_numpy(d1, INTR, d0, r, np.linalg.inv(pose))]
+            for g, w in zip(got, want):
+                assert abs(float(g[0]) - w[0]) <= w[3] + 1e-6, (g, w)
+                assert abs(float(g[1]) - w[1]) <= w[3] + 1e-6, (g, w)
+            np.testing.assert_allclose(float(band), want[0][2], rtol=1e-6, atol=1e-9)
+            fronts.append(max(float(got[0][0]), float(got[1][0])))
+        assert (fronts[0] < FREE_SPACE_MAX_SHARE) == (case == "truth"), (name, fronts[0])
+
+
+@pytest.mark.parametrize("refine_only", [False, True])
+def test_scripted_wrong_candidate_is_rejected(refine_only, monkeypatch, tmp_path, caplog):
+    """Every refinement scripted to return the 0.42 m / 0.35 rad pose: its
+    overlap clears the gate but a third of camera 1's pixels land in front
+    of camera 0's surface, so ``calibrate`` returns False, counts
+    ``calib_reject``, names the checkerboard route and leaves camera 1's
+    extrinsic as it was (``None``; after an accepted calibration, that
+    one)."""
+    frames = _bench_frames("default")
+    wrong = torch.as_tensor(_pose(BENCH_RIG_WRONG_XI["off_0.42m"][1]), dtype=torch.float32)
+    scripted = lambda *a, **k: ICPResult(T=wrong.clone(), fitness=torch.tensor(0.9),
+                                         inlier_rmse=torch.tensor(0.01),
+                                         inliers=torch.tensor(1000, dtype=torch.int32))
+    monkeypatch.setattr(dual_fusion, "icp_point_to_plane", scripted)
+    monkeypatch.setattr(dual_fusion, "colored_icp", scripted)
+    pipe = DualCameraFusion((INTR, INTR), CFG, device="cpu", output_dir=str(tmp_path))
+    before = None
+    if refine_only:
+        before = bench_rig()
+        pipe.extrinsics[1], pipe.calibrated = before.copy(), True
+    with caplog.at_level("WARNING"):
+        assert not pipe.calibrate(frames, refine_only=refine_only)
+    assert pipe.counts == {"calib_reject": 1}
+    assert "--rig-calib" in caplog.text and "in front" in caplog.text, caplog.text
+    if refine_only:
+        np.testing.assert_array_equal(pipe.extrinsics[1], before)
+        assert set(pipe.calib_stage_ms) == {"downsample", "icp_refine", "evaluate"}
+    else:
+        assert pipe.extrinsics[1] is None and not pipe.calibrated
+        assert "colored_refine" in pipe.calib_stage_ms
 
 
 def test_hot_loop_defers_decode(rig, calibrated):
