@@ -629,7 +629,12 @@ def make_raw_f2m_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int 
     decode -> odometry -> gate -> projective point-to-plane ICP of the
     model's world-frame samples onto this frame's organized maps, from
     ``inv(T_odo)`` -> refinement gate -> allocate -> worklist -> integrate at
-    the pose the gate chose. The refinement is accepted on inlier count
+    the pose the gate chose. The refinement keeps its correction only along
+    the directions the model's geometry holds (eigenvalues of its
+    point-to-plane normal matrix at least ``tracking.icp.F2M_HELD_RATIO``
+    of the largest; :func:`tracking.icp.keep_held_directions`): along a
+    wall and about its normal the odometry pose stands, where the
+    refinement would slide and spin. It is accepted on inlier count
     (most of a grown map lies outside one frame, so not on fitness), a
     finite transform, and a jump from the odometry pose under ``max_jump``
     on the se3 log; otherwise the odometry pose stands. An all-false

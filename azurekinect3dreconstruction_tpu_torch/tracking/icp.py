@@ -82,11 +82,11 @@ def _normal_equations(J, r):
     return (J[:, :, None] * J[:, None, :]).sum(dim=0), (J * r[:, None]).sum(dim=0)
 
 
-def _gn_step(T, src_pts, src_int, src_mask, tgt: TargetMaps, intr: Intrinsics,
-             dist_thr: float, lambda_geometric: float, colored: bool):
-    """One Gauss-Newton step: (T_new, (fitness, rmse, inliers), |delta|)."""
+def _associate(T, src_pts, src_mask, tgt: TargetMaps, intr: Intrinsics, dist_thr: float):
+    """Projective association of the source moved by ``T``: (moved points,
+    their pixels, clamped depths, the target normals there, point-to-plane
+    residuals, distances, the valid mask)."""
     p = se3.transform_points(T, src_pts)
-    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
     uv, zs = _project(p, intr)
     q, inb = nearest_sample(tgt.points, uv)
     n, _ = nearest_sample(tgt.normals, uv)
@@ -94,7 +94,15 @@ def _gn_step(T, src_pts, src_int, src_mask, tgt: TargetMaps, intr: Intrinsics,
     diff = p - q
     dist = torch.linalg.vector_norm(diff, dim=-1)
     r_g = (diff * n).sum(dim=-1)
-    valid = src_mask & inb & (pz > 1e-4) & (q[..., 2] > 0) & has_n & (dist < dist_thr)
+    valid = src_mask & inb & (p[..., 2] > 1e-4) & (q[..., 2] > 0) & has_n & (dist < dist_thr)
+    return p, uv, zs, n, r_g, dist, valid
+
+
+def _gn_step(T, src_pts, src_int, src_mask, tgt: TargetMaps, intr: Intrinsics,
+             dist_thr: float, lambda_geometric: float, colored: bool):
+    """One Gauss-Newton step: (T_new, (fitness, rmse, inliers), |delta|)."""
+    p, uv, zs, n, r_g, dist, valid = _associate(T, src_pts, src_mask, tgt, intr, dist_thr)
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
 
     w = valid.to(torch.float32)
     J_g = torch.cat([n, torch.linalg.cross(p, n)], dim=-1)  # (N, 6): [n, p x n]
@@ -165,17 +173,45 @@ def icp_projective(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, init
     return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, inliers=n_in)
 
 
+# frame-to-model's refinement keeps its correction along the directions
+# whose point-to-plane information is at least this share of the largest
+# (on a wall the rest slid and spun the pose off the scene)
+F2M_HELD_RATIO = 0.02
+
+
+def keep_held_directions(T, init, src_points, src_mask, tgt: TargetMaps, intr: Intrinsics,
+                         dist_thr: float, ratio: float):
+    """``T``, a point-to-plane ICP result from ``init``, with its correction
+    (the twist of ``T @ init^-1``) kept only along the directions the
+    geometry holds: the eigenvectors of the point-to-plane normal matrix at
+    ``T`` whose eigenvalue is at least ``ratio`` of the largest. A plane
+    holds nothing along itself or about its normal; there the correction is
+    whatever the iterations drifted to, and ``init`` stands instead. When
+    every direction is held, ``T`` is returned as it is."""
+    p, _, _, n, _, _, valid = _associate(T, src_points, src_mask, tgt, intr, dist_thr)
+    J = torch.cat([n, torch.linalg.cross(p, n)], dim=-1) * valid.to(torch.float32)[..., None]
+    JtJ, _ = _normal_equations(J, torch.zeros_like(J[:, 0]))
+    lam, V = linalg.eigh_sym6(JtJ.to(torch.float64))
+    held = (lam >= ratio * lam.max()).to(torch.float64)
+    T64, init64 = T.to(torch.float64), init.to(torch.float64)
+    xi = se3.se3_log(T64 @ se3.inverse(init64))
+    kept = se3.se3_exp(V @ (held * (V.T @ xi))) @ init64
+    return torch.where(held.bool().all(), T, kept.to(torch.float32))
+
+
 class GraphedICP:
-    """Point-to-plane :func:`icp_projective` with fixed parameters, replayed
-    as one CUDA graph on CUDA tensors.
+    """Frame-to-model's refinement: point-to-plane :func:`icp_projective`
+    with fixed parameters, its correction then kept only along the
+    directions the geometry holds (:func:`keep_held_directions` at
+    :data:`F2M_HELD_RATIO`), replayed as one CUDA graph on CUDA tensors.
 
     An ICP of ``max_iters`` steps is ~600 small PyTorch operations a step,
     so on the card it is bound by the host issuing them, not by the device.
-    Every shape is static and nothing waits on the host, so the whole loop
+    Every shape is static and nothing waits on the host, so the whole chain
     is captured once per input shape and replayed: the host then enqueues six
-    copies and one graph launch. On CPU tensors it calls
-    :func:`icp_projective`. A replay computes what the eager loop computes,
-    launch for launch, so the two agree to the bit."""
+    copies and one graph launch. On CPU tensors it runs the chain op by op.
+    A replay computes what the eager chain computes, launch for launch, so
+    the two agree to the bit."""
 
     def __init__(self, intr: Intrinsics, max_iters: int, dist_thr: float,
                  rel_tol: float = 1e-6):
@@ -184,8 +220,10 @@ class GraphedICP:
         self._graphs = {}  # (device, shapes) -> (static inputs, graph, static outputs)
 
     def _run(self, src_points, src_mask, points, normals, init) -> ICPResult:
-        return icp_projective(src_points, src_mask, TargetMaps(points, normals), self.intr,
-                              init=init, **self.kw)
+        tgt = TargetMaps(points, normals)
+        r = icp_projective(src_points, src_mask, tgt, self.intr, init=init, **self.kw)
+        return r._replace(T=keep_held_directions(r.T, init, src_points, src_mask, tgt, self.intr,
+                                                 self.kw["dist_thr"], F2M_HELD_RATIO))
 
     def _capture(self, inputs):
         static = tuple(t.clone() for t in inputs)

@@ -9,7 +9,9 @@ in a constant device footprint (up to the key space of ``hash.pack_key``,
 block coords in [-512, 512)^3, which binds every volume of the package).
 
 - **evict**: when the pool passes ``high_water``, the blocks farther than
-  ``evict_dist`` from the camera are gathered on the device and copied into
+  ``evict_dist`` from the camera (and, while those leave it over high water,
+  the farthest of the blocks beyond ``reload_dist``: a revisit holds blocks
+  on both sides of the camera) are gathered on the device and copied into
   the host store (page-locked host tensors on a card, ``non_blocking``,
   each batch with the CUDA event recorded after its copy), then the pool is
   compacted on the device: the survivors re-packed into a dense prefix and a
@@ -20,7 +22,8 @@ block coords in [-512, 512)^3, which binds every volume of the package).
   inserted again (``hash.insert``); their batch goes back to the device with
   a stream-ordered copy. A fresh slot restores the stored payload to the
   bit; a key that is live again merges by weight; a full pool defers the
-  reload and keeps the payload in the store.
+  reload and keeps the payload in the store (an eviction of that key, live
+  again meanwhile, merges it first).
 - **frozen geometry**: a marching-cubes cell of block B reads corner values
   from B's positive-corner neighbors, so evicting V changes what B = V -
   corner would emit. The manager keeps a frozen set with the invariant
@@ -139,10 +142,15 @@ def _scatter_reload(vol: TSDFVolume, keys, coords, bt, bw, bc, cfg: TSDFConfig):
     again merges by integration weight, ``fma(t, w, t_k * w_k) / (w + w_k)``
     as the JAX package's compiled merge rounds it. The last pool row stays
     the worklist's trash slot. Returns (vol, per-key slots as a host array,
-    -1 where the pool was full: the caller keeps those in the store)."""
+    -1 where the pool was full: the caller keeps those in the store, and
+    the number of keys that merged into a live block)."""
     cap = vol.tsdf.shape[0]
     table, counter, vals, _ = vhash.insert(vol.table, vol.n_blocks, keys, cap - 1)
-    v = vals.cpu().numpy()
+    # one read: the slots, and the count before the insert (a slot below it
+    # was live already)
+    v = torch.cat([vals, vol.n_blocks.reshape(1).to(vals.dtype)]).cpu().numpy()
+    v, n_before = v[:-1], int(v[-1])
+    n_merged = int(((v >= 0) & (v < n_before)).sum())
     ok = torch.from_numpy(v >= 0).to(vol.tsdf.device)
     slots = vals[ok].to(torch.int64)
     w_old = vol.weight[slots]
@@ -155,7 +163,7 @@ def _scatter_reload(vol: TSDFVolume, keys, coords, bt, bw, bc, cfg: TSDFConfig):
         fma(vol.color[slots], w_old[:, None], cK * wK[:, None]) / denom[:, None])
     vol.weight[slots] = torch.clamp_max(w_old + wK, cfg.max_integration_weight)
     vol.block_coords[slots] = coords[ok].to(torch.int32)
-    return vol._replace(table_keys=table.keys, table_vals=table.vals, n_blocks=counter), v
+    return vol._replace(table_keys=table.keys, table_vals=table.vals, n_blocks=counter), v, n_merged
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +259,8 @@ class StreamingTSDF:
         self.max_tris = max_tris
         self.n_evictions = 0
         self.n_reloads = 0
+        self.n_blocks_reloaded = 0  # blocks a reload put back into the pool
+        self.n_reload_merged = 0  # of those, the ones that merged into a live key
         self.n_stale_refreshes = 0
         # cumulative wall ms per tick stage, over all ticks
         self.tick_ms: Dict[str, float] = {}
@@ -556,12 +566,14 @@ class StreamingTSDF:
             keys = torch.tensor([k for k, _ in items], dtype=torch.int32, device=dev)
             crd = torch.from_numpy(b.coords[[r for _, r in items]]).to(dev)
             bt, bw, bc = (a.to(dev, non_blocking=True) for a in (b.tsdf, b.weight, b.color))
-            self.vol, vals = _scatter_reload(self.vol, keys, crd, bt[rows], bw[rows], bc[rows],
-                                             self.cfg)
+            self.vol, vals, n_merged = _scatter_reload(self.vol, keys, crd, bt[rows], bw[rows],
+                                                       bc[rows], self.cfg)
+            self.n_reload_merged += n_merged
             for i, (k, _r) in enumerate(items):
                 if vals[i] < 0:
                     n_deferred += 1
                     continue
+                self.n_blocks_reloaded += 1
                 del self.store[k]
                 self._stored_cks.pop(k, None)
                 b.live -= 1
@@ -576,13 +588,31 @@ class StreamingTSDF:
         surviving live keys."""
         live = coords[:n]
         live_keys = pack_np(live)
-        far = self._block_dist(live, cam) > self.evict_dist
+        dist = self._block_dist(live, cam)
+        far = dist > self.evict_dist
+        excess = n - int(far.sum()) - self.high_water
+        if excess > 0:
+            # still over high water: the blocks within evict_dist outgrow the
+            # pool, as on a revisit, which holds blocks on both sides of the
+            # camera. The farthest blocks of the hysteresis band go too; they
+            # are beyond reload_dist, so no tick reloads them before the
+            # camera comes back within it.
+            band = np.flatnonzero(~far & (dist > self.reload_dist))
+            far[band[np.argsort(-dist[band], kind="stable")[:excess]]] = True
         victims = np.flatnonzero(far)
         if not len(victims):
-            log_warning("streaming: pool over high water but nothing beyond evict_dist; the "
+            log_warning("streaming: pool over high water but nothing beyond reload_dist; the "
                         "working set exceeds the pool")
             return live_keys
         vkeys = live_keys[victims]
+        dup = [int(k) for k in vkeys.tolist() if int(k) in self.store]
+        if dup:
+            # a reload the full pool deferred, whose key the camera has
+            # allocated again: merge the stored payload into the live block
+            # (its slot stays), so that storing the victim keeps both
+            log_warning(f"streaming: {len(dup)} evicted blocks merge their deferred payloads")
+            self._reload_keys(np.asarray(dup, np.int32))
+            cks = self._pull_state()[2]
         vset = set(vkeys.tolist())
         frozen = self.soups.keys()
         # newly frozen: victims not yet frozen, and live blocks with a victim

@@ -28,7 +28,9 @@ worklist, odometry pyramid [20, 10, 5]):
    poses beside it, the launch counters zeroed just before and read just
    after: ATE <= 2 cm and <= the frame-to-frame ATE + 0.5 mm, refinements
    accepted, no gate rejection, no overflow, both kernels launched; then
-   times the phases of one frame-to-model frame;
+   times the phases of one frame-to-model frame, its refinement's CUDA
+   graph (built as the step builds it) equal to the same chain op by op to
+   the bit;
 6. drives two-camera fusion, ``DualCameraFusion(..., device="cuda")``:
    auto-calibrates the rig of ``tests/test_pipelines.py`` (within 2 cm /
    0.03 rad of the truth) and times its stages; auto-calibrates the bench's
@@ -107,7 +109,26 @@ worklist, odometry pyramid [20, 10, 5]):
    no overflow, evictions, B1 exactly once a frame and B2 once a tracked
    frame, the trajectory and the sorted ``extract_mesh`` soup equal to the
    plain pass's to the bit, the point cloud's rows equal; frames/s of both,
-   tick ms by stage, the host store's bytes; then
+   tick ms by stage, the host store's bytes; then the revisit, each pass
+   against a plain pool to the bit and held to reload only blocks it
+   evicted, no key live and stored, every stored block beyond the reload
+   ring at the last tick, the host store losing each batch's bytes with
+   its last row: the 640x576 run out and back (119 frames back) through the
+   live loop; the quarter-resolution run out and back at the true poses
+   through the manager, and its first 60 frames out and back through the
+   live loop in a 768-block pool; the thrash at the true poses (3 swings
+   across the reload / evict band, a block through 3 evict -> reload
+   cycles); a loss on the 640x576 way back (6 dark frames, declared once,
+   nothing fused while latched, recovered by the hint rung within 6 cm /
+   0.12 rad); frame-to-model on the short quarter revisit (ATE <= 2 cm,
+   streamed and plain); a reload into a full pool (deferred, then restored
+   to the bit) and a batch reloaded behind a busy stream; each pass's
+   frames/s, tick ms by stage, ``_scatter_reload``'s ms by CUDA events,
+   one whole batch's copy, deferred reloads and the trajectory against the
+   truth; two open faults are run and printed without failing the run
+   (ROADMAP C15: the loss again with the relocalizer's first attempt 2
+   frames after the resumed pose; C16: the whole quarter-resolution run
+   out and back through the live loop, its deferrals and soup); then
    ``python -m azurekinect3dreconstruction_tpu_torch.cli.live_mono --source
    synthetic --frames 24 --streaming`` in a subprocess must save a mesh, a
    cloud and a trajectory;
@@ -140,8 +161,11 @@ worklist, odometry pyramid [20, 10, 5]):
    (``bench.py:259-290``: ``pipeline_fps``, the trajectory equal to the
    unfed loop's to the bit, B1 32 and B2 31, ``h2d_mbps``, the fed loop's
    device idle share and the share of its copy time under a kernel from
-   ``torch.profiler``), each with the counters zeroed just before and read
-   just after;
+   ``torch.profiler``; with torch's sync-debug mode at "warn", no
+   synchronizing call after the fed loop's first frame, the feeder's own
+   included, and its staging-ring reuse waits, which are event waits,
+   counted apart), each with the counters zeroed
+   just before and read just after;
 16. drives the live session (``serve_phase``): ``cli.live_mono``'s loop
    (``LiveSession``) over the 32 quantized sweep frames, headless and then
    served by a ``BrowserLiveViewer`` on 127.0.0.1 with a thread polling
@@ -209,6 +233,13 @@ whole-pool worklist (``integrate_frame``), and over the 16-frame mono loop,
 with the bound and its bytes (null for a version without
 ``updated_voxels``).
 
+    python3 chip_smoke.py --f2m
+
+runs only frame-to-model tracking (``f2m_main``): step 5's frame-to-model
+pass with its refinement's phase ms, then ``cli.bench``'s ``pipeline``
+section and three times its ``frame_to_model`` section (``f2m_fps``); the
+same in a parent checkout.
+
     python3 chip_smoke.py --calibration [--device cpu] [--scale 0.25]
         [--noise 0 0.01] [--seeds 0 1]
 
@@ -217,6 +248,12 @@ card unless ``--device cpu``: one JSON line a calibration of the test rig
 and of the bench rig, then the free-space shares at the bench rig's truth
 and at the poses an overlap-only gate accepted. Copied into a parent
 checkout it measures the parent, as ``--odometry`` does.
+
+    python3 chip_smoke.py --streaming [--device cpu] [--scale 0.25]
+
+runs only host streaming's checks (``streaming_main``: step 13 without
+the CLI subprocess), on the card unless ``--device cpu``, at both runs or
+only the one at ``--scale``; the same in a parent checkout.
 """
 
 from __future__ import annotations
@@ -317,6 +354,22 @@ SPLAT_TOL = 1e-5
 # plain comparators take the same frames into a 4,096-block pool
 STREAM_RUNS = ((1.0, 120, 0.045, 0.4), (0.25, 240, 0.04, 0.3))
 STREAM_PLAIN_BLOCKS = 4096
+# the revisit: a run's frames out, then back over them in reverse to the first; 6 dark
+# frames about 40 % of the way back in the loss run; the thrash at the quarter-resolution
+# run's rings: out THRASH_OUT frames, then THRASH_SWINGS times back THRASH_BACK frames and
+# out again
+REVISIT_LOOP_SCALE = REVISIT_LOSS_SCALE = 1.0
+REVISIT_THRASH_SCALE = REVISIT_F2M_SCALE = 0.25
+# at quarter resolution the live loop's way back drifts off the way out (ROADMAP C16) and
+# maps a second corridor, more than any pool under the plain one holds: there the whole run
+# goes back at the true poses through the manager, and the live loop (frame to frame, and
+# frame to model) revisits its first REVISIT_SHORT_OUT frames in a pool of
+# REVISIT_SHORT_BLOCKS that evicts from REVISIT_SHORT_HIGH_WATER; the whole run through the
+# live loop is only reported
+REVISIT_SHORT_OUT, REVISIT_SHORT_BLOCKS, REVISIT_SHORT_HIGH_WATER = 60, 768, 0.75
+N_REVISIT_DARK = 6
+REVISIT_DARK_AT = 0.4
+THRASH_OUT, THRASH_BACK, THRASH_SWINGS = 110, 50, 3
 N_CLI_FRAMES = 24
 # the sharded volume: the dual pipeline's pairs; the 1 x 1 batch's trajectory against the
 # mono loop's (the same arithmetic: to the bit expected); the 2 x 2 grid's poses against
@@ -642,8 +695,11 @@ def mesh_phase(pipe, tcfg, dev, gpu: str) -> list:
 
 def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     """Frame-to-model tracking over ``raw`` beside frame-to-frame, checked
-    against the ground truth ``gt``, then a phase breakdown of one frame.
-    Returns (failures, launch counts of the frame-to-model pass)."""
+    against the ground truth ``gt``, then a phase breakdown of one frame:
+    the refinement's CUDA graph, built as ``make_raw_f2m_step`` builds it,
+    against the same chain op by op (held to it to the bit). Returns
+    (failures, launch counts of the frame-to-model pass, phase ms, ms/frame
+    with one sync)."""
     import numpy as np
     import torch
 
@@ -656,6 +712,7 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         MonoOdometryTSDF,
         apply_odometry_gate,
     )
+    from azurekinect3dreconstruction_tpu_torch.tracking import icp
     from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
         GraphedICP,
         TargetMaps,
@@ -706,8 +763,9 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     for d, c in raw:
         pm.process_frame(d, c)
     _sync(dev)
-    _log(f"frame_to_model ms/frame (host clock, one sync after {n} frames): "
-         f"{(time.perf_counter() - t0) * 1e3 / n:.3f}  [{gpu}]")
+    loop_ms = (time.perf_counter() - t0) * 1e3 / n
+    _log(f"frame_to_model ms/frame (host clock, one sync after {n} frames): {loop_ms:.3f}  "
+         f"[{gpu}]")
 
     failures = []
     if not (a_m["rmse"] <= ATE_LIMIT_M and a_m["rmse"] <= a_f["rmse"] + F2M_ATE_SLACK_M):
@@ -735,9 +793,27 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     res = odo.compute_odometry_fast(prev[2], prev[0], inten, d, intr, cfg.odometry)
     T_odo, _ = apply_odometry_gate(T_prev, res, pm.MIN_FITNESS)
     dist_thr = cfg.registration.icp_distance_threshold
-    refine = GraphedICP(intr, 10, dist_thr)
-    maps = TargetMaps.from_depth(d, pm.rays)
-    refine(mp, mm, maps, se3.inverse(T_odo))  # capture outside the timing
+    refine = GraphedICP(intr, 10, dist_thr)  # as make_raw_f2m_step builds it
+    # the same chain op by op (a version of the port without the held
+    # directions runs the ICP alone, as its graph does)
+    held = getattr(icp, "keep_held_directions", None)
+
+    def refine_eager(maps, init):
+        r = icp_projective(mp, mm, maps, intr, init=init, max_iters=10, dist_thr=dist_thr)
+        if held is None:
+            return r
+        return r._replace(T=held(r.T, init, mp, mm, maps, intr, dist_thr, icp.F2M_HELD_RATIO))
+
+    maps, init = TargetMaps.from_depth(d, pm.rays), se3.inverse(T_odo)
+    got = refine(mp, mm, maps, init)  # the capture, outside the timing
+    replay = refine(mp, mm, maps, init)
+    want = refine_eager(maps, init)
+    same = [bool(torch.equal(a, b)) for r in (got, replay) for a, b in zip(r, want)]
+    _log(f"frame_to_model refinement: the CUDA graph equal to its chain op by op to the bit, "
+         f"at the capture and a replay: {all(same)} ({int(want.inliers)} inliers)  [{gpu}]")
+    if not all(same):
+        failures.append("the frame-to-model refinement's CUDA graph differs from its chain op "
+                        "by op")
     phases = {
         "decode": lambda: decode_raw_frame(up(raw[-1][0]), up(raw[-1][1]), *scal),
         "odometry": lambda: odo.compute_odometry_fast(prev[2], prev[0], inten, d, intr,
@@ -745,9 +821,8 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         "gate": lambda: apply_odometry_gate(T_prev, res, pm.MIN_FITNESS),
         "icp_refine": lambda: refine(mp, mm, TargetMaps.from_depth(d, pm.rays),
                                      se3.inverse(T_odo)),
-        "icp_refine_eager": lambda: icp_projective(
-            mp, mm, TargetMaps.from_depth(d, pm.rays), intr, init=se3.inverse(T_odo),
-            max_iters=10, dist_thr=dist_thr),
+        "icp_refine_eager": lambda: refine_eager(TargetMaps.from_depth(d, pm.rays),
+                                                 se3.inverse(T_odo)),
         "fuse": lambda: tk.integrate_step(vol, d, c, T_odo, pm.rays, intr, cfg.tsdf, 2048),
         "model_refresh": lambda: mc.extract_sampled_surface_model(
             pm.volume, cfg.tsdf, pm.model_points, pm._T, pm._model_reach(),
@@ -755,9 +830,9 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
     }
     times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
     _log(f"frame_to_model phase ms (synchronized after each, median of 5; icp_refine = the "
-         f"CUDA-graph replay the step runs, icp_refine_eager = the same loop launched op by op; "
+         f"CUDA-graph replay the step runs, icp_refine_eager = the same chain launched op by op; "
          f"fuse = allocate + worklist + B1): {json.dumps(times)}  [{gpu}]")
-    return failures, counts
+    return failures, counts, times, loop_ms
 
 
 def _matched_rows(vg, vc):
@@ -2156,37 +2231,55 @@ def _soup_rows(mesh):
     return t[np.lexsort(t.T[::-1])]
 
 
-def _corridor_pass(intr, cfg, raw, dev, streaming):
+def _corridor_pass(intr, cfg, raw, dev, streaming, on_frame=None, **kw):
     """``raw`` through ``MonoOdometryTSDF(..., worklist_size=2048,
-    streaming=streaming)`` with one sync at the end: (pipeline, seconds)."""
+    streaming=streaming, **kw)`` with one sync at the end, calling
+    ``on_frame(i, pipe)`` (host work only) after frame ``i``: (pipeline,
+    seconds)."""
     from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
         MonoOdometryTSDF,
     )
 
-    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048, streaming=streaming)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048, streaming=streaming, **kw)
+    pipe.telemetry.sink = lambda line: None
     _sync(dev)
     t0 = time.perf_counter()
-    for d, c in raw:
+    for i, (d, c) in enumerate(raw):
         pipe.process_frame(d, c)
+        if on_frame is not None:
+            on_frame(i, pipe)
     _sync(dev)
     return pipe, time.perf_counter() - t0
 
 
-def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
+def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True,
+                    revisit: bool = True, warm: bool = True):
     """Host streaming on bench.py's corridor runs (``STREAM_RUNS``):
     ``MonoOdometryTSDF(..., streaming=StreamingTSDF.for_pipeline(cfg,
     check_interval=8, margin=...))`` into the 1,024-block pool, one warm
-    pass and one timed pass with the launch counters zeroed just before and
-    read just after, then the same frames (warm, timed) into a plain
-    4,096-block pool. Checks: no overflow and at least one eviction; B1
-    exactly once a frame and B2 once a tracked frame; the trajectory equal
-    to the comparator's to the bit; the assembled ``extract_mesh`` soup,
-    sorted, equal to the comparator's to the bit; ``extract_point_cloud``
-    with the comparator's row count. Prints frames/s of both and their
-    ratio, tick ms by stage, the host store's bytes. Then, with ``cli``,
-    runs the port's ``live_mono`` entry point with ``--streaming`` in a
-    subprocess. Returns (failures, launch counts of each timed streamed
-    pass)."""
+    pass (with ``warm``) and one timed pass with the launch counters zeroed
+    just before and read just after, then the same frames (warm, timed)
+    into a plain 4,096-block pool. Checks: no overflow and at least one
+    eviction; B1 exactly once a frame and B2 once a tracked frame; the
+    trajectory equal to the comparator's to the bit; the assembled
+    ``extract_mesh`` soup, sorted, equal to the comparator's to the bit;
+    ``extract_point_cloud`` with the comparator's row count. Prints
+    frames/s of both and their ratio, tick ms by stage, the host store's
+    bytes. With ``revisit``, each run's frames then go out and back: through
+    the live loop on the ``REVISIT_LOOP_SCALE`` run (``revisit_run``), at the
+    true poses through the manager on the other, with the live loop over
+    its first ``REVISIT_SHORT_OUT`` frames (``manager_revisit_run``,
+    ``revisit_run``), and over the whole run only reported (ROADMAP C16:
+    its misses are printed and fail nothing); the loss and recovery run on
+    the ``REVISIT_LOSS_SCALE`` run (or the only one), then once more with
+    the relocalizer's first attempt 2 frames after the resumed pose, only
+    reported (C15); the thrash and the frame-to-model revisit on the
+    ``REVISIT_THRASH_SCALE`` and ``REVISIT_F2M_SCALE`` runs, and the
+    full-pool deferral once (``deferral_check``). Then, with ``cli``, runs
+    the port's ``live_mono`` entry point with ``--streaming`` in a
+    subprocess. Returns (failures, launch counts by pass: ``one_way`` and
+    ``revisit`` a list a run, ``revisit_short``, ``loss``, ``thrash``,
+    ``f2m`` when they ran)."""
     import dataclasses
 
     import numpy as np
@@ -2200,7 +2293,8 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
     from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
 
-    failures, all_counts = [], []
+    failures = []
+    all_counts = {"one_way": [], "revisit": []}
     scfg = dataclasses.replace(
         cfg, tsdf=TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16,
                              block_capacity=1024, hash_capacity=8192),
@@ -2208,22 +2302,25 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
     pcfg = dataclasses.replace(scfg, tsdf=scfg.tsdf.replace(
         block_capacity=STREAM_PLAIN_BLOCKS, hash_capacity=4 * STREAM_PLAIN_BLOCKS))
     scene = corridor_scene()
+    scales = [r[0] for r in runs]
+    loss_scale = REVISIT_LOSS_SCALE if REVISIT_LOSS_SCALE in scales else scales[0]
+    t_revisit = t_faults = 0.0
     for scale, n, step, margin in runs:
         intr = Intrinsics.azure_kinect_depth_nfov().scaled(scale)
         cam = SyntheticCamera(scene=scene, intrinsics=intr, device=dev)
-        poses = [np.eye(4) for _ in range(n)]
-        for i, T in enumerate(poses):
-            T[0, 3] = step * i
-        raw = [_quantize(cam.render(T)) for T in poses]
+        xs = [step * i for i in range(n)]
+        raw = [_quantize(cam.render(_corridor_pose(x))) for x in xs]
         manager = lambda: StreamingTSDF.for_pipeline(scfg, check_interval=8, margin=margin,
                                                      device=dev)
         what = f"streaming {intr.width}x{intr.height}, {n} frames at {step} m"
-        _corridor_pass(intr, scfg, raw, dev, manager())  # warm: set-up, the eviction path
+        if warm:
+            _corridor_pass(intr, scfg, raw, dev, manager())  # set-up, the eviction path
         build.launches.clear()
         sp, s_sec = _corridor_pass(intr, scfg, raw, dev, manager())
         counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
-        all_counts.append(counts)
-        _corridor_pass(intr, pcfg, raw, dev, None)
+        all_counts["one_way"].append(counts)
+        if warm:
+            _corridor_pass(intr, pcfg, raw, dev, None)
         pp, p_sec = _corridor_pass(intr, pcfg, raw, dev, None)
         sv = sp.streaming
         t0 = time.perf_counter()
@@ -2240,7 +2337,7 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
         _log(f"{what} launches: {json.dumps(counts)} (the timed streamed pass)  [{gpu}]")
         _log(f"{what}: streamed {n / s_sec:.3f} frames/s, plain ({STREAM_PLAIN_BLOCKS}-block "
              f"pool) {n / p_sec:.3f} frames/s, ratio {p_sec / s_sec:.4f} (host clock, one sync "
-             f"at the end, warm passes first); reload<{sv.reload_dist:.3f} m, "
+             f"at the end{', warm passes first' if warm else ''}); reload<{sv.reload_dist:.3f} m, "
              f"evict>{sv.evict_dist:.3f} m, high water {sv.high_water}; {sv.n_ticks} ticks, "
              f"{sv.n_evictions} evictions, {sv.n_reloads} reloads, {sv.n_stored} blocks stored, "
              f"{sv.n_frozen} frozen, {int(sp.volume.n_blocks)} live (plain "
@@ -2262,7 +2359,68 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
             failures.append(f"{what}: the streamed pass differs from the plain pass "
                             f"(trajectory {same_traj}, soup {same_soup}, cloud rows "
                             f"{sp_pts.shape[0]} / {pp_pts.shape[0]})")
-        del sp, pp, sv, raw
+        del sp, pp, sv, ms_, mp, soups
+        if not revisit:
+            continue
+        # -- the revisit: out and back over the same frames ------------------------------
+        t0 = time.perf_counter()
+        size = f"{intr.width}x{intr.height}"
+        if scale == REVISIT_LOOP_SCALE:
+            f, c = revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu, margin, 0.85,
+                               f"revisit {size} ({scfg.tsdf.block_capacity} blocks)")
+        else:
+            f, c = manager_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu, margin)
+            failures += f
+            short = dataclasses.replace(scfg, tsdf=scfg.tsdf.replace(
+                block_capacity=REVISIT_SHORT_BLOCKS))
+            f, all_counts["revisit_short"] = revisit_run(
+                intr, short, pcfg, raw[:REVISIT_SHORT_OUT], xs, dev, gpu, margin,
+                REVISIT_SHORT_HIGH_WATER, f"revisit {size}, {REVISIT_SHORT_OUT} frames out "
+                f"({REVISIT_SHORT_BLOCKS} blocks)")
+            failures += f
+            # C16, open: the whole run out and back through the live loop, as at 640x576;
+            # its state is printed, and its misses do not fail the run
+            t1 = time.perf_counter()
+            f, _ = revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu, margin, 0.85,
+                               f"C16 (open; reported, not checked): revisit {size} through the "
+                               f"live loop ({scfg.tsdf.block_capacity} blocks)")
+            _log(f"C16 (open; reported, not checked): {len(f)} of the revisit's checks missed"
+                 f"{': ' + '; '.join(f) if f else ''}  [{gpu}]")
+            f = []
+            t_faults += time.perf_counter() - t1
+        failures += f
+        all_counts["revisit"].append(c)
+        if scale == REVISIT_THRASH_SCALE:
+            f, all_counts["thrash"] = thrash_run(intr, scfg, pcfg, raw, xs, dev, gpu, margin)
+            failures += f
+        if scale == loss_scale:
+            args = ((intr, scfg, pcfg, raw, xs, dev, gpu, margin)
+                    if scale == REVISIT_LOOP_SCALE else
+                    (intr, short, pcfg, raw[:REVISIT_SHORT_OUT], xs, dev, gpu, margin,
+                     REVISIT_SHORT_HIGH_WATER))
+            f, all_counts["loss"] = loss_run(*args)
+            failures += f
+            # C15, open: the relocalizer's first attempt 2 frames after the resumed pose;
+            # its state is printed, and its misses do not fail the run
+            t1 = time.perf_counter()
+            f, _ = loss_run(*args, shift=2, plain=False)
+            _log(f"C15 (open; reported, not checked): {len(f)} of the loss checks missed"
+                 f"{': ' + '; '.join(f) if f else ''}  [{gpu}]")
+            t_faults += time.perf_counter() - t1
+        if scale == REVISIT_F2M_SCALE:
+            f, all_counts["f2m"] = f2m_revisit_run(
+                intr, short, pcfg, raw[:REVISIT_SHORT_OUT], xs, dev, gpu, margin,
+                REVISIT_SHORT_HIGH_WATER)
+            failures += f
+        gc.collect()
+        t_revisit += time.perf_counter() - t0
+        del raw
+    if revisit:
+        t0 = time.perf_counter()
+        failures += deferral_check(dev, gpu)
+        t_revisit += time.perf_counter() - t0
+        _log(f"streaming revisit checks wall time {t_revisit - t_faults:.1f} s, and the open "
+             f"faults' reports (C15, C16) {t_faults:.1f} s (host clock)  [{gpu}]")
     if cli:
         with tempfile.TemporaryDirectory() as out:
             args = ["--source", "synthetic", "--frames", str(N_CLI_FRAMES), "--streaming",
@@ -2282,6 +2440,815 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True):
                 failures.append(f"cli.live_mono --streaming: rc {r.returncode}, wrote {names}; "
                                 f"{r.stderr[-1500:]}")
     return failures, all_counts
+
+class _StreamWatch:
+    """What a ``StreamingTSDF`` did over one pass, read by wrapping its
+    instance's ``_evict``, ``_reload_keys`` and ``tick`` (the manager's code
+    is unchanged): the keys each eviction stored and how often each key was
+    evicted and restored; the keys each reload call restored, and those no
+    eviction of this pass had stored (``foreign``); each batch a reload
+    copied whole, against the rows it wanted; per tick the camera, the host
+    store's bytes before and after, whether it evicted, and the least
+    distance of a stored block from the camera. ``timing()`` also times
+    every ``_scatter_reload`` by CUDA events on a card (the host clock on
+    the CPU)."""
+
+    def __init__(self, sv, dev):
+        import collections
+
+        import numpy as np
+
+        from azurekinect3dreconstruction_tpu_torch.tsdf import streaming as st
+
+        self.sv, self.dev, self.st = sv, dev, st
+        self.evicted, self.foreign = set(), set()
+        self.n_evicted, self.n_restored = collections.Counter(), collections.Counter()
+        self.restored, self.batch_rows, self.ticks, self._scatter = [], [], [], []
+        self.emptied = []  # per reload call: (batches emptied, their bytes, bytes the store lost)
+        evict, reload, tick = sv._evict, sv._reload_keys, sv.tick
+
+        def _evict(*a, **k):
+            before = set(sv.store)
+            out = evict(*a, **k)
+            new = set(sv.store) - before
+            self.evicted |= new
+            self.n_evicted.update(new)
+            return out
+
+        def _reload_keys(want):
+            before, p0 = set(sv.store), sv.pinned_bytes
+            per = collections.Counter(sv.store[int(k)][0] for k in want)
+            self.batch_rows += [(sv._pbatch[b].tsdf.shape[0], m) for b, m in per.items()]
+            size = {b: sum(t.numel() * t.element_size()
+                           for t in (sv._pbatch[b].tsdf, sv._pbatch[b].weight, sv._pbatch[b].color))
+                    for b in per}
+            reload(want)
+            gone = [b for b in per if b not in sv._pbatch]
+            self.emptied.append((len(gone), sum(size[b] for b in gone), p0 - sv.pinned_bytes))
+            back = before - set(sv.store)
+            self.restored.append(back)
+            self.n_restored.update(back)
+            self.foreign |= back - self.evicted
+
+        def _tick(cam_pos, _state=None):
+            p0, e0 = sv.pinned_bytes, sv.n_evictions
+            tick(cam_pos, _state=_state)
+            c = cam_pos.detach().cpu().numpy() if hasattr(cam_pos, "detach") else cam_pos
+            c = np.asarray(c, np.float64)
+            c = c[:3, 3] if c.shape == (4, 4) else c.reshape(3)
+            keys = np.fromiter(sv.store, np.int32, len(sv.store))
+            d = float(sv._block_dist(st.unpack_np(keys), c).min()) if len(keys) else float("inf")
+            self.ticks.append(dict(cam=c, pinned=(p0, sv.pinned_bytes),
+                                   evicted=sv.n_evictions != e0, stored_min_dist=d))
+
+        sv._evict, sv._reload_keys, sv.tick = _evict, _reload_keys, _tick
+
+    @contextlib.contextmanager
+    def timing(self):
+        import torch
+
+        orig = self.st._scatter_reload
+
+        def timed(*a, **k):
+            if self.dev.type == "cuda":
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = orig(*a, **k)
+                ev[1].record()
+                self._scatter.append(ev)
+            else:
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                self._scatter.append((t0, time.perf_counter()))
+            return out
+
+        self.st._scatter_reload = timed
+        try:
+            yield self
+        finally:
+            self.st._scatter_reload = orig
+
+    def scatter_ms(self) -> float:
+        """``_scatter_reload``'s total ms over the pass."""
+        _sync(self.dev)
+        if self.dev.type == "cuda":
+            return sum(a.elapsed_time(b) for a, b in self._scatter)
+        return sum((b - a) * 1e3 for a, b in self._scatter)
+
+    def reload_calls(self) -> int:
+        """Reload calls that brought back at least one block."""
+        return sum(1 for r in self.restored if r)
+
+    def cycles(self) -> int:
+        """The most evict -> restore cycles one key went through."""
+        return max((min(n, self.n_restored[k]) for k, n in self.n_evicted.items()), default=0)
+
+    def pinned_falls(self):
+        """(ticks whose host store grew without an eviction, batches the
+        reloads emptied, reload calls after which the store did not shrink
+        by exactly the emptied batches' bytes): the store only grows by an
+        eviction, and a batch leaves it with its last row."""
+        grew = sum(1 for t in self.ticks if not t["evicted"] and t["pinned"][1] > t["pinned"][0])
+        emptied = sum(g for g, _, _ in self.emptied)
+        wrong = sum(1 for _, want, got in self.emptied if want != got)
+        return grew, emptied, wrong
+
+
+def _live_and_stored(sv, vol) -> int:
+    """Keys that are both in ``vol``'s pool and in ``sv``'s host store."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key_np
+
+    n = int(vol.n_blocks)
+    live = set(pack_key_np(vol.block_coords[:n].cpu().numpy()).tolist())
+    return len(live & set(sv.store))
+
+
+def _map_weight(sv, vol):
+    """The whole map's (keys, weight sum): the pool's live blocks and the
+    host store's, in float64 (weights are whole observation counts, so the
+    sums are exact and an eviction or a reload moves none)."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key_np
+
+    n = int(vol.n_blocks)
+    keys = set(pack_key_np(vol.block_coords[:n].cpu().numpy()).tolist()) | set(sv.store)
+    w = float(vol.weight[:n].double().sum())
+    for key in sv.store:
+        w += float(np.asarray(sv._stored_payload(key)[1], np.float64).sum())
+    return keys, w
+
+
+def _pose_err(T, G):
+    """(m, rad) between two 4x4 poses."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+
+    xi = se3.se3_log(torch.as_tensor(np.linalg.inv(G) @ np.asarray(T, np.float64))).numpy()
+    return float(np.linalg.norm(xi[:3])), float(np.linalg.norm(xi[3:]))
+
+
+def _batch_copy_ms(sv, dev):
+    """The host-to-device copy of the host store's largest batch, whole,
+    as ``_reload_keys`` copies a batch: (rows, MB, ms by CUDA events, median
+    of 5), or None without a batch or a card."""
+    import statistics
+
+    import torch
+
+    if dev.type != "cuda" or not sv._pbatch:
+        return None
+    b = max(sv._pbatch.values(), key=lambda b: b.tsdf.shape[0])
+    parts = (b.tsdf, b.weight, b.color)
+    times = []
+    for _ in range(6):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = [a.to(dev, non_blocking=True) for a in parts]
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        del out
+    mb = sum(a.numel() * a.element_size() for a in parts) / 1e6
+    return b.tsdf.shape[0], mb, statistics.median(times[1:])
+
+
+def _storage_checks(what: str, sv, watch, vol, dev, gpu: str, turn=None) -> list:
+    """What every revisit pass holds the manager to, printed with its
+    numbers: evictions, and reload calls that restore only blocks this pass
+    evicted; no key both live and stored; at the last tick every stored
+    block farther than ``reload_dist`` from the camera; the host store
+    never grows without an eviction, loses each batch's bytes with its last
+    row, and holds no empty batch. Also prints blocks reloaded and merged,
+    the store's bytes at the turn (``turn``) and at the end,
+    ``_scatter_reload``'s ms, the batches the reloads copied whole against
+    the rows they wanted, and one whole batch's copy to the card."""
+    both = _live_and_stored(sv, vol)
+    last = watch.ticks[-1] if watch.ticks else dict(stored_min_dist=float("inf"))
+    empty = (sum(1 for b in sv._pbatch.values() if b.live <= 0)
+             + sum(1 for b in sv._sbatch.values() if b.refs <= 0))
+    grew, emptied, wrong = watch.pinned_falls()
+    scatter_ms = watch.scatter_ms()
+    rows = sum(r for r, _ in watch.batch_rows)
+    wanted = sum(m for _, m in watch.batch_rows)
+    turn = turn or {}
+    ticks = max(sv.n_ticks, 1)
+    stage = {k: round(v / ticks, 3) for k, v in sorted(sv.tick_ms.items(), key=lambda kv: -kv[1])}
+    _log(f"{what}: reload<{sv.reload_dist:.3f} m, evict>{sv.evict_dist:.3f} m, high water "
+         f"{sv.high_water}; {sv.n_ticks} ticks, {sv.n_evictions} evictions, "
+         f"{watch.reload_calls()} reload calls restoring {sum(len(r) for r in watch.restored)} "
+         f"blocks (n_blocks_reloaded {getattr(sv, 'n_blocks_reloaded', None)}), "
+         f"{len(watch.foreign)} of them not evicted earlier in this pass, "
+         f"{getattr(sv, 'n_reload_merged', None)} merged into a live key; at the turn "
+         f"{turn.get('stored')} blocks stored, host store {turn.get('pinned', 0) / 2**20:.3f} MiB, "
+         f"at the end {sv.n_stored} stored, {sv.pinned_bytes / 2**20:.3f} MiB "
+         f"({'page-locked' if dev.type == 'cuda' else 'CPU memory'}); batches the reloads "
+         f"emptied {emptied}, reload calls after which the store did not shrink by their bytes "
+         f"{wrong}, ticks where it grew without an eviction {grew}, empty batches held {empty}; "
+         f"live and stored keys {both}; the last tick's nearest stored block "
+         f"{last['stored_min_dist']:.3f} m from the camera; {int(vol.n_blocks)} live  [{gpu}]")
+    _log(f"{what}: tick ms per tick by stage (host clock) {json.dumps(stage)}; _scatter_reload "
+         f"{scatter_ms:.3f} ms over {len(watch._scatter)} calls "
+         f"({'CUDA events' if dev.type == 'cuda' else 'host clock'}); the reloads copied "
+         f"{len(watch.batch_rows)} batches whole, {rows} rows for the {wanted} they wanted  "
+         f"[{gpu}]")
+    copy = _batch_copy_ms(sv, dev)
+    if copy is not None:
+        r, mb, ms = copy
+        _log(f"{what}: one whole batch to the card as _reload_keys copies it ({r} rows, "
+             f"{mb:.2f} MB, page-locked): {ms:.4f} ms ({mb / ms:.2f} GB/s; CUDA events, median "
+             f"of 5)  [{gpu}]")
+    failures = []
+    if sv.n_evictions == 0 or watch.reload_calls() == 0 or watch.foreign:
+        failures.append(f"{what}: {sv.n_evictions} evictions, {watch.reload_calls()} reload "
+                        f"calls, {len(watch.foreign)} blocks reloaded that this pass had not "
+                        "evicted")
+    if both or not last["stored_min_dist"] > sv.reload_dist:
+        failures.append(f"{what}: {both} keys live and stored; the last tick's nearest stored "
+                        f"block {last['stored_min_dist']:.3f} m, not beyond {sv.reload_dist:.3f}")
+    if grew or not emptied or wrong or empty:
+        failures.append(f"{what}: the host store grew without an eviction at {grew} ticks; "
+                        f"{emptied} batches emptied, {wrong} reloads not freeing their bytes; "
+                        f"{empty} empty batches held")
+    return failures
+
+
+def _equal_to_plain(what: str, soups, clouds, trajs=None) -> list:
+    """Sorted soups equal to the bit, point cloud rows equal, and, with
+    ``trajs``, trajectories equal to the bit; printed."""
+    import numpy as np
+
+    same_soup = soups[0].shape == soups[1].shape and np.array_equal(*soups)
+    same_traj = trajs is None or np.array_equal(*trajs)
+    _log(f"{what}: trajectory equal to the plain pass's to the bit: "
+         f"{'n/a' if trajs is None else same_traj}; sorted soup equal to the bit: {same_soup} "
+         f"({soups[0].shape[0]} / {soups[1].shape[0]} triangles); point cloud rows "
+         f"{clouds[0]} / {clouds[1]}")
+    if not (same_traj and same_soup and clouds[0] == clouds[1]):
+        return [f"{what}: the streamed pass differs from the plain pass (trajectory "
+                f"{same_traj}, soup {same_soup}, cloud rows {clouds[0]} / {clouds[1]})"]
+    return []
+
+
+def _track_report(traj, gt, n_out: int) -> str:
+    """The trajectory ``traj`` (one pose a frame) against the truth ``gt``
+    on an out-and-back pass of ``n_out`` frames out: ATE RMSE and the
+    largest error, and the error at the turn and at the end (x, y, z in mm
+    and rotation in mrad, from the se3 log of truth^-1 @ estimate)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+
+    xi = np.stack([se3.se3_log(torch.as_tensor(np.linalg.inv(G) @ np.asarray(T, np.float64)))
+                   .numpy() for T, G in zip(traj, gt)])
+    err = np.stack([np.asarray(T, np.float64)[:3, 3] - G[:3, 3] for T, G in zip(traj, gt)]) * 1e3
+    at = lambda i: (f"x {err[i, 0]:.2f} y {err[i, 1]:.2f} z {err[i, 2]:.2f} mm, rotation "
+                    f"{np.linalg.norm(xi[i, 3:]) * 1e3:.2f} mrad")
+    norm = np.linalg.norm(err, axis=1)
+    return (f"against the truth: ATE RMSE {np.sqrt(np.mean(norm ** 2)):.3f} mm, largest "
+            f"{norm.max():.3f} mm; at the turn {at(n_out - 1)}; at the end {at(-1)}")
+
+
+def revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float, high_water: float,
+                what: str):
+    """Host streaming's revisit through the live loop: ``raw`` out, then
+    back over the same frames in reverse to the first (no frame rendered
+    again), through ``MonoOdometryTSDF(..., streaming=StreamingTSDF.
+    for_pipeline(scfg, high_water=high_water, check_interval=8,
+    margin=margin))`` with the counters zeroed just before and read just
+    after, and into a plain pool (``pcfg``). Checks: ``_storage_checks``;
+    no overflow; B1 exactly once a frame and B2 once a tracked frame; the
+    trajectory and the sorted ``extract_mesh`` soup equal to the plain
+    pass's to the bit, ``extract_point_cloud`` with its rows. Prints
+    frames/s of both, the reloads a full pool deferred, and the streamed
+    trajectory against the truth (``xs``, the frames' positions along the
+    corridor; ``_track_report``). Returns (failures, launch counts)."""
+    import re
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf import streaming as st
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    n_out = len(raw)
+    frames = list(raw) + list(raw[-2::-1])
+    gt = [_corridor_pose(xs[i]) for i in list(range(n_out)) + list(range(n_out - 2, -1, -1))]
+    n = len(frames)
+    sv = StreamingTSDF.for_pipeline(scfg, high_water=high_water, check_interval=8,
+                                    margin=margin, device=dev)
+    watch = _StreamWatch(sv, dev)
+    turn = {}
+
+    def on_frame(i, pipe):
+        if i == n_out - 1:
+            turn.update(pinned=sv.pinned_bytes, stored=sv.n_stored)
+
+    deferred = []  # blocks a full pool deferred, a warning each
+    warn = st.log_warning
+
+    def log_warning(msg):
+        m = re.search(r"deferred reload of (\d+) blocks", msg)
+        if m:
+            deferred.append(int(m.group(1)))
+        warn(msg)
+
+    build.launches.clear()
+    st.log_warning = log_warning
+    try:
+        with watch.timing():
+            sp, s_sec = _corridor_pass(intr, scfg, frames, dev, sv, on_frame)
+    finally:
+        st.log_warning = warn
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    failures = _storage_checks(what, sv, watch, sp.volume, dev, gpu, turn)
+    pp, p_sec = _corridor_pass(intr, pcfg, frames, dev, None)
+    overflow = bool(sp.volume.overflow) or bool(pp.volume.overflow)
+    _log(f"{what} launches: {json.dumps(counts)} over {n} frames ({n_out} out, {n - n_out} back); "
+         f"streamed {n / s_sec:.3f} frames/s, plain {n / p_sec:.3f} frames/s (host clock, one "
+         f"sync at the end); {int(pp.volume.n_blocks)} blocks in the plain pool; gate rejections "
+         f"{sp.odometry_failures}; overflow {overflow}; reloads a full pool deferred "
+         f"{len(deferred)} times ({sum(deferred)} blocks)  [{gpu}]")
+    _log(f"{what}: {_track_report(sp.trajectory[1:], gt, n_out)}  [{gpu}]")
+    import numpy as np
+
+    failures += _equal_to_plain(
+        what, (_soup_rows(sp.extract_mesh()), _soup_rows(pp.extract_mesh().compact())),
+        (sp.extract_point_cloud()[0].shape[0], pp.extract_point_cloud()[0].shape[0]),
+        (np.stack(sp.trajectory), np.stack(pp.trajectory)))
+    if overflow:
+        failures.append(f"{what}: overflow")
+    if counts[tk.KERNEL] != n or counts[odo.KERNEL] != n - 1:
+        failures.append(f"{what}: launches {counts}, not B1 once a frame and B2 once a tracked "
+                        "frame")
+    return failures, counts
+
+
+def _manager_pass(intr, scfg, pcfg, raw, xs, idx, dev, margin: float):
+    """The frames ``raw[i]`` for ``i`` in ``idx`` at their true poses
+    through ``StreamingTSDF.for_pipeline(scfg, check_interval=8,
+    margin=margin)``'s own ``integrate_frame`` (B1 once a frame over the
+    pool), with the counters zeroed just before and read just after, and
+    through ``integrate_step`` (B1 once a frame) into a plain pool
+    (``pcfg``): (manager, watch, plain volume, streamed seconds, launch
+    counts, the store at the turn: the last index of the largest x)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    rays = pixel_rays(intr, dev)
+    dec = {i: _decode(raw[i], scfg, dev)[:2] for i in sorted(set(idx))}
+    pose = {i: torch.as_tensor(_corridor_pose(xs[i]), dtype=torch.float32, device=dev)
+            for i in dec}
+    turn_at = max(range(len(idx)), key=lambda j: (idx[j], -j))
+    sv = StreamingTSDF.for_pipeline(scfg, check_interval=8, margin=margin, device=dev)
+    watch = _StreamWatch(sv, dev)
+    turn = {}
+    _sync(dev)
+    build.launches.clear()
+    t0 = time.perf_counter()
+    with watch.timing():
+        for j, i in enumerate(idx):
+            sv.integrate_frame(*dec[i], rays, pose[i], intr)
+            if j == turn_at:
+                turn.update(pinned=sv.pinned_bytes, stored=sv.n_stored)
+        _sync(dev)
+    s_sec = time.perf_counter() - t0
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    vol = tsdf.create(pcfg.tsdf, dev)
+    for i in idx:
+        vol = tk.integrate_step(vol, *dec[i], pose[i], rays, intr, pcfg.tsdf, 2048, 2)
+    return sv, watch, vol, s_sec, counts, turn
+
+
+def _manager_soups(sv, vol, pcfg):
+    """(sorted soups, point cloud rows) of the manager and the plain pool."""
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+
+    soups = _soup_rows(sv.extract_mesh()), _soup_rows(mc.extract_mesh(vol, pcfg.tsdf).compact())
+    rows = (sv.extract_point_cloud()[0].shape[0],
+            tsdf.extract_point_cloud(vol, pcfg.tsdf)[0].shape[0])
+    return soups, rows
+
+
+def manager_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float):
+    """The revisit of every frame of ``raw`` at the true poses
+    (``_manager_pass``): out, then back in reverse to the first. Checks:
+    ``_storage_checks``, no overflow, B1 exactly once a frame, the sorted
+    soup and the cloud's rows equal to the plain pool's. Returns (failures,
+    launch counts)."""
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+
+    idx = list(range(len(raw))) + list(range(len(raw) - 2, -1, -1))
+    n = len(idx)
+    what = f"revisit at the true poses {intr.width}x{intr.height} ({scfg.tsdf.block_capacity} blocks)"
+    sv, watch, vol, s_sec, counts, turn = _manager_pass(intr, scfg, pcfg, raw, xs, idx, dev,
+                                                        margin)
+    failures = _storage_checks(what, sv, watch, sv.vol, dev, gpu, turn)
+    overflow = bool(sv.vol.overflow) or bool(vol.overflow)
+    _log(f"{what} (the manager's integrate_frame, no tracking): launches {json.dumps(counts)} "
+         f"over {n} frames, {n / s_sec:.3f} frames/s (host clock, one sync at the end); "
+         f"{int(vol.n_blocks)} blocks in the plain pool; overflow {overflow}  [{gpu}]")
+    failures += _equal_to_plain(what, *_manager_soups(sv, vol, pcfg))
+    if overflow:
+        failures.append(f"{what}: overflow")
+    if counts != {tk.KERNEL: n, odo.KERNEL: 0}:
+        failures.append(f"{what}: launches {counts}, not B1 once a frame")
+    return failures, counts
+
+
+def thrash_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float):
+    """The thrash pattern of ``tests/test_torch_streaming.py``'s slow test
+    at the corridor's quarter-resolution rings, as that test runs it: at
+    the true poses through the manager's own ``integrate_frame``
+    (``_manager_pass``). Out over ``raw[:THRASH_OUT]`` (past the eviction
+    ring), then ``THRASH_SWINGS`` times back ``THRASH_BACK`` frames and out
+    again, across the reload / evict band. Checks: at least 3 reload calls
+    restoring blocks this pass evicted, and none other; one key through at
+    least 3 evict -> restore cycles; no key live and stored; the sorted soup
+    equal to the plain pool's to the bit; no overflow; B1 once a frame.
+    Returns (failures, launch counts)."""
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+
+    idx = list(range(THRASH_OUT))
+    for _ in range(THRASH_SWINGS):
+        idx += list(range(THRASH_OUT - 2, THRASH_OUT - 2 - THRASH_BACK, -1))
+        idx += list(range(THRASH_OUT - THRASH_BACK, THRASH_OUT))
+    n = len(idx)
+    what = f"thrash {intr.width}x{intr.height}"
+    sv, watch, vol, s_sec, counts, _ = _manager_pass(intr, scfg, pcfg, raw, xs, idx, dev,
+                                                     margin)
+    both = _live_and_stored(sv, sv.vol)
+    overflow = bool(sv.vol.overflow) or bool(vol.overflow)
+    calls, cycles = watch.reload_calls(), watch.cycles()
+    _log(f"{what} (the manager's integrate_frame at the true poses): out to x = "
+         f"{xs[THRASH_OUT - 1]:.2f} m, then {THRASH_SWINGS} x ({THRASH_BACK} frames back, "
+         f"{THRASH_BACK} out), {n} frames, {n / s_sec:.3f} frames/s; launches "
+         f"{json.dumps(counts)}; {sv.n_evictions} evictions, {calls} reload calls restoring "
+         f"evicted blocks ({len(watch.foreign)} blocks not evicted earlier), the most cycles of "
+         f"one key {cycles}; live and stored keys {both}; overflow {overflow}  [{gpu}]")
+    failures = _equal_to_plain(what, *_manager_soups(sv, vol, pcfg))
+    if not (calls >= 3 and cycles >= 3 and not watch.foreign and not both and not overflow):
+        failures.append(f"{what}: {calls} reload calls, {cycles} cycles, {len(watch.foreign)} "
+                        f"foreign, {both} live and stored, overflow {overflow}")
+    if counts != {tk.KERNEL: n, odo.KERNEL: 0}:
+        failures.append(f"{what}: launches {counts}, not B1 once a frame")
+    return failures, counts
+
+
+def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
+             high_water: float = 0.85, shift: int = 0, plain: bool = True):
+    """A loss and a recovery in a streamed map: the revisit's frames with
+    ``N_REVISIT_DARK`` dark frames on the way back, starting about
+    ``REVISIT_DARK_AT`` of the way back, then the scan resumed at the pose
+    where it went dark, through ``MonoOdometryTSDF(...,
+    relocalize=True, reloc_window=2, reloc_interval=4)`` streamed, and the
+    same into a plain pool. Checks (``PERF.md`` §2's relocalization row):
+    the loss declared once and one recovery; nothing fused from the first
+    dark frame until the recovery (the map's keys and weight sum, live and
+    stored, unchanged); the stream given the stale pose on every lost
+    frame, and a tick among them; the hint rung's recovered pose within 6
+    cm / 0.12 rad; the
+    pipeline's pool the manager's afterwards; B2 once a frame through the
+    step, B1 once a frame through the step plus the first and the recovery;
+    no overflow. Prints the recovered pose's difference from the plain
+    run's (the relocalizer samples its model by slot: reported, not
+    bounded; with ``plain`` False no plain run). ``shift`` starts the dark
+    frames that many frames earlier than the alignment below, so that the
+    relocalizer's first attempt with a frame comes ``shift`` frames after
+    the resumed pose. Returns (failures, launch counts)."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+
+    n_out = len(raw)
+    back = list(range(n_out - 2, -1, -1))
+    k = int(REVISIT_DARK_AT * len(back))
+    # the dark frames start 2 frames after a tracking check (every 4): the
+    # check after the second declares the loss, the relocalizer's next
+    # attempt (every 4th lost frame) is the first resumed frame, and one of
+    # the lost frames is a tick's (every 8 frames through the stream)
+    k -= (n_out + k - 2) % 4 + shift
+    H, W = intr.height, intr.width
+    dark = (np.zeros((H, W), np.uint16), np.zeros((H, W, 3), np.uint8))
+    idx = list(range(n_out)) + back[:k] + [None] * N_REVISIT_DARK + back[k - 1:]
+    frames = [dark if i is None else raw[i] for i in idx]
+    s = n_out + k  # the first dark frame
+    what = f"streamed loss {W}x{H}, {n_out} frames out"
+    if shift:
+        what = (f"C15 (open; reported, not checked): {what}, the first attempt {shift} frames "
+                "after the resumed pose")
+    kw = dict(relocalize=True, reloc_window=2, reloc_interval=4)
+    sv = StreamingTSDF.for_pipeline(scfg, high_water=high_water, check_interval=8,
+                                    margin=margin, device=dev)
+    watch = _StreamWatch(sv, dev)
+    rec = dict(lost_at=None, recovered_at=None, stepped=0, lost_poses=[], lost_ticks=0,
+               latched=[])
+
+    def on_frame(i, pipe):
+        if pipe.lost and rec["lost_at"] is None:
+            rec["lost_at"] = i
+        if rec["lost_at"] is not None and not pipe.lost and rec["recovered_at"] is None:
+            rec["recovered_at"] = i
+        if i == s - 1:
+            rec["stretch"] = [(float(c[0]) + 0.5) * scfg.tsdf.block_size
+                              for c in _unpack(list(watch.evicted))]
+            rec["stored"] = sv.n_stored
+        if i >= s - 1 and rec["recovered_at"] is None:
+            rec["latched"].append(_map_weight(sv, pipe.volume))
+
+    def stepped_process(pipe):
+        """Count the frames through the step, and what the stream is given
+        on a lost frame: the pose ``maybe_tick`` reads against the stale
+        pose, and whether a tick ran."""
+        process, maybe_tick = pipe.process_frame, sv.maybe_tick
+        seen = []
+
+        def tick_seen(cam_pos):
+            seen.append(np.asarray(cam_pos().detach().cpu().numpy(), np.float64)[:3, 3])
+            return maybe_tick(cam_pos)
+
+        def process_counted(d, c):
+            was_lost, t0 = pipe.lost, len(watch.ticks)
+            stale = pipe.T_world_cam[:3, 3].copy()
+            rec["stepped"] += int(pipe._prev_int is not None and not was_lost)
+            seen.clear()
+            out = process(d, c)
+            if was_lost:
+                rec["lost_poses"] += [float(np.abs(p - stale).max()) for p in seen]
+                rec["lost_ticks"] += len(watch.ticks) - t0
+            return out
+
+        pipe.process_frame, sv.maybe_tick = process_counted, tick_seen
+
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+
+    pipe = MonoOdometryTSDF(intr, scfg, device=dev, worklist_size=2048, streaming=sv, **kw)
+    pipe.telemetry.sink = lambda line: None
+    stepped_process(pipe)
+    _sync(dev)
+    build.launches.clear()
+    for i, (d, c) in enumerate(frames):
+        pipe.process_frame(d, c)
+        on_frame(i, pipe)
+    _sync(dev)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    ev = pipe.counts
+    rel = pipe._relocalizer
+    ra = rec["recovered_at"]
+    traj = pipe.trajectory
+    err = (_pose_err(traj[ra + 1], _corridor_pose(xs[idx[ra]])) if ra is not None
+           else (float("inf"),) * 2)
+    first = rec["latched"][0] if rec["latched"] else None
+    unfused = bool(first) and all(kk == first[0] and w == first[1] for kk, w in rec["latched"])
+    lost_ticks = rec["lost_ticks"]
+    at_stale = bool(rec["lost_poses"]) and max(rec["lost_poses"]) == 0.0 and lost_ticks > 0
+    one_pool = pipe.volume is sv.vol
+    overflow = bool(pipe.volume.overflow)
+    want_b1 = rec["stepped"] + 1 + ev.get("relocalized", 0)
+    # the stretch evicted before the camera went dark, and where it went dark
+    ev_x = sorted(rec.get("stretch", []))
+    x_dark = xs[back[k - 1]]
+    # the same frames into a plain pool
+    p_ra = None
+    diff = "n/a"
+    if plain:
+        pp = MonoOdometryTSDF(intr, pcfg, device=dev, worklist_size=2048, **kw)
+        pp.telemetry.sink = lambda line: None
+        for d, c in frames:
+            pp.process_frame(d, c)
+    if plain and ra is not None:
+        pdiff = _pose_err(traj[ra + 1], pp.trajectory[ra + 1])
+        diff = f"{pdiff[0] * 1e3:.3f} mm / {pdiff[1] * 1e3:.3f} mrad"
+        p_ra = pp.counts.get("relocalized", 0)
+    _log(f"{what} launches: {json.dumps(counts)} over {len(frames)} frames ({rec['stepped']} "
+         f"through the step)  [{gpu}]")
+    _log(f"{what}: {N_REVISIT_DARK} dark frames from frame {s} (the way back at x = "
+         f"{x_dark:.3f} m, inside the {len(ev_x)} blocks the pass had evicted by then, x "
+         f"{ev_x[0] if ev_x else float('nan'):.2f} to {ev_x[-1] if ev_x else float('nan'):.2f} m, "
+         f"{rec.get('stored')} of them still stored), "
+         f"resumed at that pose at frame {s + N_REVISIT_DARK}; loss declared at frame "
+         f"{rec['lost_at']}, recovered at frame {ra} by rung {'0 (hint)' if rel is not None and rel.n_hint_success else 'global'}; events "
+         f"{json.dumps(ev)}; map keys and weight unchanged from the first dark frame to the "
+         f"recovery: {unfused} ({len(rec['latched'])} frames read); {lost_ticks} ticks while lost, "
+         f"the stream given the stale pose on every lost frame and a tick among them: "
+         f"{at_stale}; recovered pose off by {err[0] * 1e3:.3f} mm / "
+         f"{err[1] * 1e3:.3f} mrad; the pipeline's pool is the manager's: {one_pool}; "
+         f"{sv.n_evictions} evictions, {watch.reload_calls()} reload calls; overflow {overflow}; "
+         f"against the same run into a plain pool (recovered {p_ra}): {diff}  [{gpu}]")
+    failures = []
+    if not (ev.get("tracking_lost", 0) == 1 and ev.get("relocalized", 0) == 1 and unfused
+            and at_stale and one_pool and not overflow):
+        failures.append(f"{what}: events {ev}, nothing fused while latched {unfused}, ticks while "
+                        f"lost at the stale pose {at_stale} ({lost_ticks} ticks, "
+                        f"{rec['lost_poses']}), one pool {one_pool}, overflow {overflow}")
+    if not (rel is not None and rel.n_hint_success >= 1 and err[0] <= RELOC_T_LIMIT_M
+            and err[1] <= RELOC_R_LIMIT_RAD):
+        failures.append(f"{what}: not recovered by the hint rung within the bounds ({err})")
+    if counts[odo.KERNEL] != rec["stepped"] or counts[tk.KERNEL] != want_b1:
+        failures.append(f"{what}: launches {counts}, not B2 {rec['stepped']} and B1 {want_b1}")
+    return failures, counts
+
+
+def f2m_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
+                    high_water: float):
+    """Frame-to-model tracking on the revisit: the out-and-back frames with
+    ``tracking="frame_to_model"``, streamed and into a plain pool. Its model
+    refresh samples the blocks within ``model_reach``, reloaded ones on the
+    way back. Checks: both ATE RMSE <= 20 mm, no overflow, B1 once a frame
+    and B2 once a tracked frame. Prints the largest pose difference between
+    the two and whether they were equal to the bit (the sample is ordered
+    by slot, and compaction reorders slots). Returns (failures, launch
+    counts)."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import StreamingTSDF
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+
+    idx = list(range(len(raw))) + list(range(len(raw) - 2, -1, -1))
+    frames = [raw[i] for i in idx]
+    n = len(frames)
+    gt = [_corridor_pose(xs[i]) for i in idx]
+    what = f"frame-to-model revisit {intr.width}x{intr.height}, {len(raw)} frames out"
+    sv = StreamingTSDF.for_pipeline(scfg, high_water=high_water, check_interval=8,
+                                    margin=margin, device=dev)
+    watch = _StreamWatch(sv, dev)
+    build.launches.clear()
+    sp, s_sec = _corridor_pass(intr, scfg, frames, dev, sv, tracking="frame_to_model")
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    pp, p_sec = _corridor_pass(intr, pcfg, frames, dev, None, tracking="frame_to_model")
+    ts, tp = np.stack(sp.trajectory[1:]), np.stack(pp.trajectory[1:])
+    a_s, a_p = ate(list(ts), gt)["rmse"], ate(list(tp), gt)["rmse"]
+    worst = max((_pose_err(a, b) for a, b in zip(ts, tp)), key=lambda e: e[0] + e[1])
+    equal = np.array_equal(ts, tp)
+    cs, cp = sp.counts, pp.counts
+    overflow = bool(sp.volume.overflow) or bool(pp.volume.overflow)
+    _log(f"{what}: {n} frames, streamed {n / s_sec:.3f} frames/s, plain {n / p_sec:.3f}; launches "
+         f"{json.dumps(counts)}; ATE rmse streamed {a_s * 1e3:.3f} mm, plain {a_p * 1e3:.3f} mm; "
+         f"largest pose difference {worst[0] * 1e3:.4f} mm / {worst[1] * 1e3:.4f} mrad, equal to "
+         f"the bit: {equal}; refinements accepted {cs.get('model_icp_ok', 0)} / "
+         f"{cp.get('model_icp_ok', 0)}, model samples over budget {cs.get('model_truncated', 0)} / "
+         f"{cp.get('model_truncated', 0)}; {sv.n_evictions} evictions, {watch.reload_calls()} "
+         f"reload calls; overflow {overflow}  [{gpu}]")
+    _log(f"{what}: streamed {_track_report(ts, gt, len(raw))}; plain "
+         f"{_track_report(tp, gt, len(raw))}  [{gpu}]")
+    failures = []
+    if not (a_s <= ATE_LIMIT_M and a_p <= ATE_LIMIT_M and not overflow
+            and sv.n_evictions and watch.reload_calls()):
+        failures.append(f"{what}: ATE {a_s:.4f} / {a_p:.4f} m, overflow {overflow}, "
+                        f"{sv.n_evictions} evictions, {watch.reload_calls()} reload calls")
+    if counts[tk.KERNEL] != n or counts[odo.KERNEL] != n - 1:
+        failures.append(f"{what}: launches {counts}, not B1 once a frame and B2 once a tracked "
+                        "frame")
+    return failures, counts
+
+
+def deferral_check(dev, gpu: str):
+    """A reload into a full pool (``tests/test_torch_streaming.py``'s
+    ``test_reload_defers_when_pool_full`` on the phase's device): a 64-block
+    pool of 2 cm voxels filled by corridor frames, a stored payload far
+    away; a tick there defers its reload (the payload kept in the store,
+    unchanged, the warning logged) and evicts the pool; the next tick's
+    reload restores the block to the bit. Then a batch reloaded whole while
+    the stream is busy, freed as its reload returns, and page-locked memory
+    allocated and overwritten at once: every reloaded block equal to what
+    was evicted, to the bit. Returns the failures."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import corridor_scene
+    from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
+    from azurekinect3dreconstruction_tpu_torch.tsdf import streaming as st
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key_np
+
+    cfg = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, block_resolution=8, block_capacity=64,
+                     hash_capacity=256)
+    intr = Intrinsics.azure_kinect_depth_nfov().scaled(0.25)
+    cam = SyntheticCamera(scene=corridor_scene(), intrinsics=intr, device=dev)
+    rays = pixel_rays(intr, dev)
+    R3 = cfg.block_resolution ** 3
+
+    def fill(sv):
+        for i in range(40):
+            T = _corridor_pose(0.08 * i)
+            z, c = cam.render(T)
+            sv.vol = tsdf.integrate_frame(sv.vol, z, c, rays, torch.as_tensor(
+                T, dtype=torch.float32, device=dev), intr, cfg)
+            if int(sv.vol.n_blocks) == cfg.block_capacity - 1:
+                return True
+        return False
+
+    warnings_ = []
+    orig_warn = st.log_warning
+    st.log_warning = warnings_.append
+    try:
+        sv = st.StreamingTSDF(cfg, evict_dist=1.4, reload_dist=1.1, high_water=0.5, device=dev)
+        full = fill(sv)
+        crd = np.array([50, 0, 3], np.int32)
+        key = int(pack_key_np(crd[None])[0])
+        rng = np.random.default_rng(0)
+        payload = (rng.uniform(-1, 1, R3).astype(np.float32),
+                   rng.integers(1, 30, R3).astype(np.float32),
+                   rng.uniform(0, 1, (3, R3)).astype(np.float32))
+        sv._store_payload(key, *payload, crd)
+        sv._stored_cks[key] = 123
+        far = (crd + 0.5) * cfg.block_size
+        sv.tick(far)
+        kept = key in sv.store and all(np.array_equal(a, b) for a, b in
+                                       zip(sv._stored_payload(key)[:3], payload))
+        logged = any("deferred reload" in w for w in warnings_)
+        evicted = int(sv.vol.n_blocks)
+        sv.tick(far)
+        restored = False
+        if key not in sv.store:
+            n = int(sv.vol.n_blocks)
+            keys = pack_key_np(sv.vol.block_coords[:n].cpu().numpy())
+            slot = int(np.flatnonzero(keys == key)[0]) if (keys == key).any() else None
+            restored = slot is not None and all(
+                np.array_equal(getattr(sv.vol, f)[slot].cpu().numpy(), a)
+                for f, a in zip(("tsdf", "weight", "color"), payload))
+        _log(f"deferral: pool full {full}; the reload into it deferred, the warning logged "
+             f"{logged}, the payload kept in the store unchanged {kept}; the tick's eviction left "
+             f"{evicted} live; the next tick restored the block to the bit {restored}  [{gpu}]")
+        failures = []
+        if not (full and kept and logged and restored):
+            failures.append(f"deferral: full {full}, kept {kept}, logged {logged}, restored "
+                            f"{restored}")
+
+        # a whole batch reloaded behind a busy stream and freed at once
+        sv = st.StreamingTSDF(cfg, evict_dist=1.4, reload_dist=1.1, high_water=0.5, device=dev)
+        fill(sv)
+        n = int(sv.vol.n_blocks)
+        ref = {int(k): tuple(getattr(sv.vol, f)[s].cpu().numpy() for f in ("tsdf", "weight", "color"))
+               for s, k in enumerate(pack_key_np(sv.vol.block_coords[:n].cpu().numpy()))}
+        sv.tick(far)  # evicts all into one batch
+        stored = np.fromiter(sv.store, np.int32, len(sv.store))
+        busy = None
+        if dev.type == "cuda":
+            busy = torch.randn(4096, 4096, device=dev)
+            for _ in range(20):
+                busy = busy @ busy / 4096.0
+        sv._reload_keys(stored)
+        freed = not sv._pbatch
+        churn = [torch.empty((len(stored), R3), pin_memory=dev.type == "cuda").fill_(float("nan"))
+                 for _ in range(16)]
+        _sync(dev)
+        n = int(sv.vol.n_blocks)
+        keys = pack_key_np(sv.vol.block_coords[:n].cpu().numpy())
+        same = len(keys) == len(ref) and all(
+            all(np.array_equal(getattr(sv.vol, f)[s].cpu().numpy(), ref[int(k)][j])
+                for j, f in enumerate(("tsdf", "weight", "color")))
+            for s, k in enumerate(keys))
+        behind = " behind 20 queued 4096^2 matmuls" if busy is not None else ""
+        del churn, busy
+        _log(f"deferral: {len(stored)} blocks evicted into one batch, reloaded whole{behind}, the "
+             f"batch freed as the reload returned {freed}, "
+             f"{'page-locked' if dev.type == 'cuda' else 'host'} memory allocated and overwritten "
+             f"at once; every block equal to what was evicted, to the bit: {same}  [{gpu}]")
+        if not (freed and same):
+            failures.append(f"deferral: a batch freed after its reload {freed}, blocks equal "
+                            f"{same}")
+    finally:
+        st.log_warning = orig_warn
+    return failures
+
+
+def _corridor_pose(x):
+    """The corridor's camera pose at ``x`` m along it (4x4 float64)."""
+    import numpy as np
+
+    T = np.eye(4)
+    T[0, 3] = x
+    return T
+
+
+def _unpack(keys):
+    from azurekinect3dreconstruction_tpu_torch.tsdf.hash import unpack_key_np
+    import numpy as np
+
+    return unpack_key_np(np.asarray(keys, np.int32)) if keys else np.zeros((0, 3), np.int32)
 
 
 def _centroid_set(soup):
@@ -2637,6 +3604,53 @@ def _feeder_overlap(prof):
     return idle, (overlapped / copy_time if copy_time > 0 else None), len(copies), len(kernels)
 
 
+def fed_loop_syncs(pipe, host, dev):
+    """``pipe`` (reset) over ``host`` frames fed through ``prefetch_to_device``
+    with torch's sync-debug mode at "warn" on a card: the synchronizing
+    calls of each frame (a list of warnings a frame, the feeder's puts for
+    the next frame included), and how many of the feeder's puts found
+    their staging set's last copy still in flight (the reuse wait, an
+    event wait, which the mode does not report)."""
+    import warnings
+
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.io import streams
+
+    pipe.reset()
+    _sync(dev)
+    orig = streams.DeviceFeeder._upload
+    waits = {"puts": 0, "busy": 0}
+
+    def upload(self, leaves):
+        waits["puts"] += 1
+        slot = self._staging[self._n_put % self.depth]
+        waits["busy"] += int(slot is not None and not slot[1].query())
+        return orig(self, leaves)
+
+    syncs = []
+    streams.DeviceFeeder._upload = upload
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                seen = 0
+                for d, c in streams.prefetch_to_device(iter(host), device=dev):
+                    pipe.process_frame(d, c)
+                    syncs.append([w for w in caught[seen:] if "synchroniz" in str(w.message)
+                                  and "prototype feature" not in str(w.message)])
+                    seen = len(caught)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+    finally:
+        streams.DeviceFeeder._upload = orig
+    _sync(dev)
+    return syncs, waits
+
+
 def device_step_phase(cfg, cam, raw, mono_traj, dev, gpu: str, n_sweep: int = N_SWEEP,
                       n_slam: int = N_SLAM_BATCH, n_fed: int = N_FED):
     """The device-resident step and batches and the frame feeder, by
@@ -2865,6 +3879,19 @@ def device_step_phase(cfg, cam, raw, mono_traj, dev, gpu: str, n_sweep: int = N_
             fed_loop(True)
         idle, overlap, n_copies, n_kernels = _feeder_overlap(prof)
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    syncs, waits = fed_loop_syncs(pipe, host, dev)
+    later = sum(len(x) for x in syncs[1:])
+    where = sorted({f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                    for x in syncs for w in x})
+    _log(f"fed loop synchronizing calls (torch.cuda.set_sync_debug_mode('warn'), by frame): first "
+         f"frame {len(syncs[0]) if syncs else 0}, frames 1-{len(syncs) - 1} {later} "
+         f"({' '.join(str(len(x)) for x in syncs)}) at {where}, the feeder's included; its "
+         f"staging-ring reuse waited on a copy in flight at "
+         f"{waits['busy']} of {waits['puts']} puts (an event wait, which the sync-debug mode "
+         f"does not report)  [{gpu}]")
+    if later:
+        failures.append(f"the fed loop synchronized {later} times after its first frame: "
+                        f"{where}")
     _log(f"feeder launches: {json.dumps(counts['fed'])} over {n_fed} fed frames  [{gpu}]")
     ms = lambda ts: ", ".join(f"{t * 1e3:.3f}" for t in ts)
     _log(f"feeder (bench.py's method, MonoOdometryTSDF over prefetch_to_device, one sync): "
@@ -3418,7 +4445,6 @@ def main() -> int:
     import numpy as np
 
     from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
     from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
@@ -3630,11 +4656,8 @@ def main() -> int:
     failures += mesh_phase(pipe, tcfg, dev, gpu)
     failures += compact_timing(pipe.volume, tcfg, dev, gpu)
     del pipe
-    poses32 = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_F2M_FRAMES]
-    raw32 = raw + [_quantize(cam.render(T)) for T in poses32[N_FRAMES:]]
-    gt32 = [torch.as_tensor(np.linalg.inv(poses32[0]) @ T, dtype=torch.float32, device=dev)
-            for T in poses32]
-    f2m_failures, f2m_counts = f2m_phase(intr, cfg, raw32, gt32, dev, gpu)
+    poses32, raw32, gt32 = _f2m_frames(cam, raw, dev)
+    f2m_failures, f2m_counts, _, _ = f2m_phase(intr, cfg, raw32, gt32, dev, gpu)
     failures += f2m_failures
     for k in kernels:
         k["launches_frame_to_model"] = f2m_counts[k["name"]]
@@ -3664,8 +4687,12 @@ def main() -> int:
     stream_failures, stream_counts = streaming_phase(cfg, dev, gpu)
     failures += stream_failures
     for k in kernels:
-        k["launches_streaming"] = stream_counts[0][k["name"]]
-        k["launches_streaming_quarter"] = stream_counts[1][k["name"]]
+        k["launches_streaming"] = stream_counts["one_way"][0][k["name"]]
+        k["launches_streaming_quarter"] = stream_counts["one_way"][1][k["name"]]
+        k["launches_streaming_revisit"] = stream_counts["revisit"][0][k["name"]]
+        k["launches_streaming_revisit_quarter"] = stream_counts["revisit"][1][k["name"]]
+        for part in ("revisit_short", "loss", "thrash", "f2m"):
+            k[f"launches_streaming_{part}"] = stream_counts[part][k["name"]]
     sharded_failures, sharded_counts = sharded_phase(intr, cfg, cam, raw, traj[1:], mono_ms, dev,
                                                      gpu)
     failures += sharded_failures
@@ -3765,6 +4792,68 @@ def odometry_main() -> int:
         "pose": res.T_target_source.cpu().numpy().round(7).tolist(),
         "fitness": float(res.fitness)}))
     return 0
+
+
+def _f2m_frames(cam, raw, dev):
+    """The frame-to-model pass's frames: ``raw`` (the first ``N_FRAMES``
+    of the bench sweep) and the sweep's next ones to ``N_F2M_FRAMES``:
+    (the sweep's poses, the frames, the poses relative to the first as the
+    ground truth)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+
+    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:N_F2M_FRAMES]
+    frames = raw + [_quantize(cam.render(T)) for T in poses[len(raw):]]
+    gt = [torch.as_tensor(np.linalg.inv(poses[0]) @ T, dtype=torch.float32, device=dev)
+          for T in poses]
+    return poses, frames, gt
+
+
+def f2m_main(repeats: int = 3) -> int:
+    """``--f2m``: frame-to-model tracking of the package beside this
+    script, through calls every version of the port has: ``f2m_phase`` on
+    the bench sweep's first 32 frames (its checks, ms/frame, the
+    refinement's graph and op-by-op ms), then ``cli.bench``'s
+    ``pipeline`` section and ``repeats`` times its ``frame_to_model``
+    section (``f2m_fps`` by bench.py's method). Prints one JSON line; exits
+    1 on a failed check."""
+    import torch
+
+    why = _port_beside()
+    if why:
+        return _fail(why)
+    from azurekinect3dreconstruction_tpu_torch.cli import bench as cb
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    gpu = _gpu_line()
+    _log(f"gpu: {gpu}")
+    build.build()
+    build.library()
+    cfg, intr, cam, _, raw = _bench(dev, N_FRAMES)
+    _, frames, gt = _f2m_frames(cam, raw, dev)
+    failures, _, times, loop_ms = f2m_phase(intr, cfg, frames, gt, dev, gpu)
+    sections = dict(cb.SECTIONS)
+    fps = []
+    with tempfile.TemporaryDirectory() as out:
+        b = cb.make_inputs(dev, out)
+        runs = [("pipeline", sections["pipeline"])]
+        runs += [("frame_to_model", sections["frame_to_model"])] * repeats
+        for name, keys in runs:
+            values, errors = cb.run_sections(b, [(name, keys)])
+            if errors:
+                failures.append(f"cli.bench section {name}: {errors}")
+            if name == "frame_to_model":
+                fps.append(values["f2m_fps"])
+        del b
+    _log(json.dumps({"checkout": REPO, "gpu": gpu, "f2m_phase_ms": times,
+                     "f2m_ms_per_frame_one_sync": round(loop_ms, 3), "f2m_fps": fps,
+                     "failures": failures}))
+    return _fail("; ".join(failures)) if failures else 0
 
 
 def integrate_main() -> int:
@@ -3923,6 +5012,46 @@ def calibration_main(device: str, scale: float, noises, seeds) -> int:
     return 0
 
 
+def streaming_main(device: str, scale) -> int:
+    """``--streaming``: host streaming's checks alone (``streaming_phase``
+    without the CLI subprocess: the corridor one way, its revisit, the
+    thrash, the loss and recovery, frame-to-model on the revisit, the
+    full-pool deferral) of the package beside this script, on the card or
+    on the CPU (4 torch threads, no warm passes), at every run of
+    ``STREAM_RUNS`` or only at ``scale``'s (the loss then runs there).
+    Copied into a parent checkout it measures the parent with what it has.
+    Prints one JSON line (the outcome, launches by pass, seconds); exits 1
+    on a failed check."""
+    import torch
+
+    why = _port_beside(device)
+    if why:
+        return _fail(why)
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.build()
+        build.library()
+    else:
+        torch.set_num_threads(4)
+    gpu = _gpu_line() if dev.type == "cuda" else "cpu"
+    _log(f"gpu: {gpu}")
+    runs = [r for r in STREAM_RUNS if scale is None or r[0] == scale]
+    if not runs:
+        return _fail(f"no streaming run at scale {scale} (the runs' scales: "
+                     f"{[r[0] for r in STREAM_RUNS]})")
+    t0 = time.perf_counter()
+    failures, counts = streaming_phase(PipelineConfig(), dev, gpu, runs=runs, cli=False,
+                                       warm=dev.type == "cuda")
+    _log(json.dumps({"streaming": "failed" if failures else "ok", "launches": counts,
+                     "seconds": round(time.perf_counter() - t0, 1), "checkout": REPO,
+                     "gpu": gpu}))
+    return _fail("; ".join(failures)) if failures else 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -3930,18 +5059,31 @@ if __name__ == "__main__":
                       help="time only the odometry of the package beside this script")
     mode.add_argument("--integrate", action="store_true",
                       help="time only B1 (TSDF integrate) of the package beside this script")
+    mode.add_argument("--f2m", action="store_true",
+                      help="time only frame-to-model tracking (its refinement, ms/frame, "
+                           "cli.bench's f2m_fps) of the package beside this script")
     mode.add_argument("--calibration", action="store_true",
                       help="only the two-camera auto-calibration of the package beside this "
                            "script, on the test rig and the bench rig")
-    ap.add_argument("--device", default="cuda", help="with --calibration: cuda or cpu")
-    ap.add_argument("--scale", type=float, default=1.0,
-                    help="with --calibration: of the 640x576 depth camera")
+    mode.add_argument("--streaming", action="store_true",
+                      help="only host streaming's checks (the corridor one way, its revisit, "
+                           "the thrash, the loss, frame-to-model, the deferral) of the package "
+                           "beside this script")
+    ap.add_argument("--device", default="cuda",
+                    help="with --calibration or --streaming: cuda or cpu")
+    ap.add_argument("--scale", type=float, default=None,
+                    help="with --calibration: of the 640x576 depth camera (default 1); with "
+                         "--streaming: only the corridor run at this scale (default every run)")
     ap.add_argument("--noise", type=float, nargs="+", default=[0.0],
                     help="with --calibration: relative depth noise levels")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(BENCH_CALIB_SEEDS),
                     help="with --calibration: RANSAC (and noise) generator seeds")
     args = ap.parse_args()
     if args.calibration:
-        sys.exit(calibration_main(args.device, args.scale, args.noise, args.seeds))
+        sys.exit(calibration_main(args.device, args.scale or 1.0, args.noise, args.seeds))
+    if args.streaming:
+        sys.exit(streaming_main(args.device, args.scale))
+    if args.f2m:
+        sys.exit(f2m_main())
     sys.exit(odometry_main() if args.odometry else integrate_main() if args.integrate
              else main())

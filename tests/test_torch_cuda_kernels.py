@@ -525,14 +525,18 @@ def test_f2m_pipeline_on_cuda_matches_cpu(dev, frames):
 
 
 def test_graphed_icp_replays_the_eager_loop(dev, frames):
-    """The CUDA-graph ICP equals the eager loop to the bit, on its first
+    """The CUDA-graph refinement, as ``make_raw_f2m_step`` builds it, equals
+    its chain run op by op (``icp_projective``, then
+    ``keep_held_directions`` at ``F2M_HELD_RATIO``) to the bit, on its first
     call (capture) and on a replay with other inputs."""
     from azurekinect3dreconstruction_tpu_torch.core import se3
     from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
     from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+        F2M_HELD_RATIO,
         GraphedICP,
         TargetMaps,
         icp_projective,
+        keep_held_directions,
     )
 
     _, fr = frames
@@ -544,6 +548,8 @@ def test_graphed_icp_replays_the_eager_loop(dev, frames):
         tgt = TargetMaps.from_depth(z1, rays)
         init = se3.inverse(T1) @ T0
         want = icp_projective(src, mask, tgt, INTR, init=init, max_iters=10, dist_thr=0.05)
+        want = want._replace(T=keep_held_directions(want.T, init, src, mask, tgt, INTR, 0.05,
+                                                    F2M_HELD_RATIO))
         got = runner(src, mask, tgt, init)
         for a, b in zip(got, want):
             assert torch.equal(a, b)

@@ -438,9 +438,10 @@ def test_reload_merge_rounds_as_jax():
     for p in (p1, p2):
         jvol, _ = jstreaming._scatter_reload(jvol, jnp.asarray(keys), jnp.asarray(crd),
                                              *map(lanes, p), jnp.arange(K), cfg=JSMALL)
-        vol, vals = _scatter_reload(vol, torch.from_numpy(keys), torch.from_numpy(crd),
-                                    *map(torch.from_numpy, p), SMALL)
+        vol, vals, n_merged = _scatter_reload(vol, torch.from_numpy(keys), torch.from_numpy(crd),
+                                              *map(torch.from_numpy, p), SMALL)
         assert (vals >= 0).all()
+        assert n_merged == (0 if p is p1 else K)  # fresh slots, then every key live again
         if p is p1:
             np.testing.assert_array_equal(vol.tsdf[torch.from_numpy(vals).long()].numpy(), p1[0])
     got = interop.volume_to_numpy(vol)

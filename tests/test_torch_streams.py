@@ -282,3 +282,28 @@ def test_prefetched_mono_loop_equals_the_unfed_loop(card):
         fed.process_frame(d, c)
     assert np.array_equal(np.stack(fed.trajectory), np.stack(plain.trajectory))
     assert fed.odometry_failures == 0
+
+
+@pytest.mark.cuda
+def test_prefetched_mono_loop_never_synchronizes(card):
+    """After its first frame, ``MonoOdometryTSDF`` fed through
+    ``prefetch_to_device`` makes no synchronizing call:
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on one. (The feeder's
+    wait on a staging set still being copied from is an event wait, which
+    the mode does not report.)"""
+    intr = Intrinsics.azure_kinect_depth_nfov().scaled(0.5)
+    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=0.01, sdf_trunc=0.04, block_resolution=8,
+                                         block_capacity=4096, hash_capacity=16384))
+    cam = SyntheticCamera(intrinsics=intr, device=card)
+    frames = [cam.capture(T) for T in orbit_trajectory(12, radius=0.3, angle_span=0.6)]
+    pipe = MonoOdometryTSDF(intr, cfg, device=card, worklist_size=2048)
+    fed = prefetch_to_device(iter(frames), device=card)
+    pipe.process_frame(*next(fed))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for d, c in fed:
+            pipe.process_frame(d, c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(pipe.trajectory) == len(frames) + 1 and pipe.odometry_failures == 0
