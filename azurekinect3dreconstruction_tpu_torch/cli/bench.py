@@ -781,7 +781,7 @@ def relocalize_section(b: Inputs, expect, pose: int = 8, attempts: int = 2) -> d
     times, T_rec = [], None
     for _ in range(attempts):
         t0 = time.perf_counter()
-        T_try = reloc.attempt(vol, b.depths[pose], T_hint=b.sweep[0])
+        T_try = reloc.attempt(vol, b.depths[pose], b.colors[pose], T_hint=b.sweep[0])
         times.append(time.perf_counter() - t0)
         T_rec = T_try if T_try is not None else T_rec
     err_mm = (float(np.linalg.norm(np.asarray(T_rec)[:3, 3] - b.sweep[pose][:3, 3])) * 1000.0

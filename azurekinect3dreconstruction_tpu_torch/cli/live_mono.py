@@ -185,7 +185,8 @@ def main(argv=None) -> int:
     cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel))
     streaming = None
     if args.streaming:
-        streaming = StreamingTSDF.for_pipeline(cfg, device=args.device)
+        streaming = StreamingTSDF.for_pipeline(cfg, device=args.device,
+                                               tracking=args.tracking)
         log_info(f"streaming: reload<{streaming.reload_dist:.2f} m, "
                  f"evict>{streaming.evict_dist:.2f} m, high water {streaming.high_water} blocks")
     pipe = MonoOdometryTSDF(intr, cfg, device=args.device, tracking=args.tracking,

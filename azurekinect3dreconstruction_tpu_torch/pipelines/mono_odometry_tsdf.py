@@ -49,6 +49,7 @@ from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import (
     StreamingTSDF,
     integration_reach,
     model_reach,
+    model_ring,
 )
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import Telemetry, log_info, log_warning
 
@@ -92,7 +93,12 @@ class MonoOdometryTSDF:
     on the device only at the interval frame), adopting the pool a tick
     replaced; lost frames keep ticking at the stale pose, so geometry near
     the loss can stream back for the relocalizer. ``extract_mesh`` and
-    ``extract_point_cloud`` then assemble live and streamed geometry.
+    ``extract_point_cloud`` then assemble live and streamed geometry. With
+    frame-to-model tracking the manager's reload ring must reach
+    :func:`tsdf.streaming.model_ring`, so that every block a refresh reads
+    is resident and the model equals a plain pool's (``ValueError``
+    otherwise; ``StreamingTSDF.for_pipeline(..., tracking=
+    "frame_to_model")`` builds such a manager).
 
     ``telemetry`` (:class:`utils.telemetry.Telemetry`) ticks once a frame
     (its ``fps`` is the live viewer's), holds the event counts that
@@ -123,6 +129,11 @@ class MonoOdometryTSDF:
             if streaming.vol.tsdf.device.type != self.device.type:
                 raise ValueError(f"the streaming pool is on {streaming.vol.tsdf.device}, "
                                  f"the pipeline on {self.device}")
+            if tracking == "frame_to_model" and streaming.reload_dist < model_ring(self.cfg):
+                raise ValueError(
+                    f"frame-to-model tracking samples blocks up to {model_ring(self.cfg):.3f} m "
+                    f"away, beyond the reload ring ({streaming.reload_dist:.3f} m): build the "
+                    "manager with StreamingTSDF.for_pipeline(..., tracking='frame_to_model')")
         self.streaming = streaming
         self.tracking = tracking
         self.model_refine_interval = model_refine_interval
@@ -177,6 +188,7 @@ class MonoOdometryTSDF:
         self.lost = False  # the pose is declared untrusted
         self._lost = torch.zeros((), dtype=torch.float32, device=self.device)  # device latch
         self._lost_frames = 0  # frames since the loss was declared
+        self._hint_fresh = True  # no attempt of this loss has had a frame with depth yet
         self._consec_fail = 0  # gate rejections in a row, as the checks saw them
         self._latch_up = False  # host mirror of the device latch
         self._paused_pending = 0  # latched frames not yet counted
@@ -370,6 +382,7 @@ class MonoOdometryTSDF:
         if worst >= self.reloc_window:
             self.lost = True
             self._lost_frames = 0
+            self._hint_fresh = True
             self._paused_pending = 0  # these frames belong to the lost episode now
             self.telemetry.count("tracking_lost")
             log_warning(f"tracking LOST ({worst} consecutive rejections); fusion paused, "
@@ -392,8 +405,11 @@ class MonoOdometryTSDF:
         trajectory. Every ``reloc_interval``-th lost frame, starting with the
         first, attempts a relocalization with the stale pose as the hint; a
         recovered frame integrates (B1) at its pose, re-seeds frame-to-frame
-        tracking and clears every latch. A lost frame records fitness -1, the
-        recovered one +1."""
+        tracking and clears every latch. The hint seeds the relocalizer's
+        rung 0 only on the first attempt that sees depth: the camera moves on
+        while lost, and in a scene that repeats along a wall rung 0 from a
+        stale hint locks onto the repeat nearest to it. A lost frame records
+        fitness -1, the recovered one +1."""
         cam = self.cfg.camera
         # keep streaming at the stale pose, the loss site: the relocalizer's
         # model is built from resident blocks only, so geometry evicted near
@@ -406,8 +422,10 @@ class MonoOdometryTSDF:
                                        upload(color_raw, self.device), cam.depth_scale,
                                        cam.depth_trunc, cam.depth_min)
             with self.telemetry.time_block("relocalize"):
-                T = self._get_relocalizer().attempt(self.volume, frame.depth,
-                                                    T_hint=self.T_world_cam)
+                reloc = self._get_relocalizer()
+                T = reloc.attempt(self.volume, frame.depth, frame.color, T_hint=self.T_world_cam,
+                                  hint_rung=self._hint_fresh)
+                self._hint_fresh = self._hint_fresh and reloc.last_reject == "empty_frame"
             if T is None:
                 self.telemetry.count("reloc_failed")
             else:

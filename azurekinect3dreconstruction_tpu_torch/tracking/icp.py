@@ -431,11 +431,18 @@ def free_space_shares(depth_a, intr_a: Intrinsics, depth_b, rays_b, T_ab, band):
     land there); and ``agree``, within the band of it. Nearest-neighbor
     overlap cannot see a surface slid along itself or through empty space;
     this can."""
-    p = se3.transform_points(T_ab.to(torch.float32),
-                             backproject_depth(depth_b, rays_b).reshape(-1, 3))
+    return free_space_shares_of_points(backproject_depth(depth_b, rays_b).reshape(-1, 3),
+                                       depth_b.reshape(-1) > 0, depth_a, intr_a, T_ab, band)
+
+
+def free_space_shares_of_points(points, mask, depth_a, intr_a: Intrinsics, T, band):
+    """:func:`free_space_shares` for a masked (N, 3) cloud moved into camera
+    a's frame by ``T``: the (in_front, agree) shares of its points that
+    land on a valid pixel of ``depth_a``."""
+    p = se3.transform_points(T.to(torch.float32), points.to(torch.float32))
     uv, _ = _project(p, intr_a)
     z_a, inb = nearest_sample(depth_a, uv)
-    seen = (depth_b.reshape(-1) > 0) & inb & (p[:, 2] > 1e-4) & (z_a > 0)
+    seen = mask & inb & (p[:, 2] > 1e-4) & (z_a > 0)
     tol = torch.clamp_min(z_a * band, FREE_SPACE_BAND_M)
     gap = z_a - p[:, 2]
     n = torch.clamp_min(seen.to(torch.int32).sum(), 1)
@@ -444,12 +451,12 @@ def free_space_shares(depth_a, intr_a: Intrinsics, depth_b, rays_b, T_ab, band):
     return in_front, agree
 
 
-def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,
-                       dist_thr: float = 0.05):
-    """(matched, visible, rmse) of ``src`` under ``T`` against organized
-    target maps: ``visible`` source points project in bounds onto valid
-    target depth and normals with positive depth on both sides; ``matched``
-    are the visible ones within ``dist_thr`` of their target point."""
+def _projective_match(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,
+                      dist_thr: float):
+    """(pixels, visible, matched, distances) of ``src`` under ``T``:
+    ``visible`` source points project in bounds onto valid target depth and
+    normals with positive depth on both sides; ``matched`` are the visible
+    ones within ``dist_thr`` of their target point."""
     p = se3.transform_points(T.to(torch.float32), src_points.to(torch.float32))
     uv, _ = _project(p, intr)
     q, inb = nearest_sample(tgt.points, uv)
@@ -457,7 +464,38 @@ def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, 
     has_n = (n * n).sum(dim=-1) > 0.5
     visible = src_mask & inb & (p[..., 2] > 1e-4) & (q[..., 2] > 0) & has_n
     dist = torch.linalg.vector_norm(p - q, dim=-1)
-    matched = visible & (dist < dist_thr)
+    return uv, visible, visible & (dist < dist_thr), dist
+
+
+def projective_overlap(src_points, src_mask, tgt: TargetMaps, intr: Intrinsics, T,
+                       dist_thr: float = 0.05):
+    """(matched, visible, rmse) of ``src`` under ``T`` against organized
+    target maps (see :func:`_projective_match`)."""
+    _, visible, matched, dist = _projective_match(src_points, src_mask, tgt, intr, T, dist_thr)
     n_m = matched.to(torch.int32).sum()
     rmse = torch.sqrt(torch.where(matched, dist * dist, 0.0).sum() / torch.clamp_min(n_m, 1))
     return n_m, visible.to(torch.int32).sum(), rmse
+
+
+def photometric_agreement(src_points, src_intensity, src_mask, tgt: TargetMaps, intr: Intrinsics,
+                          T, dist_thr: float = 0.05):
+    """Texture consistency of ``src`` under ``T`` against organized target
+    maps with ``intensity``: over the points :func:`projective_overlap`
+    matches, the zero-mean normalized cross-correlation of their own
+    intensities with the target's at the pixels they project to (bilinear).
+    Returns float32 scalars (correlation, spread): the correlation is 1 for
+    the same texture up to gain and offset (an exposure change) and falls
+    toward 0 and below as the texture slides; ``spread`` is the standard
+    deviation of the matched source intensities, near 0 on a texture-less
+    surface, where the correlation says nothing. A surface slid along
+    itself keeps its geometric overlap; this sees the slide wherever the
+    surface has texture."""
+    uv, _, matched, _ = _projective_match(src_points, src_mask, tgt, intr, T, dist_thr)
+    it, inb = bilinear_sample(tgt.intensity, uv)
+    w = (matched & inb).to(torch.float32)
+    n_m = torch.clamp_min(w.sum(), 1.0)
+    a = src_intensity.to(torch.float32) - (w * src_intensity).sum() / n_m
+    b = it - (w * it).sum() / n_m
+    va, vb = (w * a * a).sum(), (w * b * b).sum()
+    corr = (w * a * b).sum() / torch.sqrt(torch.clamp_min(va * vb, 1e-20))
+    return corr, torch.sqrt(va / n_m)

@@ -4,7 +4,10 @@ parallel (the counterpart of the JAX package's ``tracking/ransac.py``).
 Each hypothesis is a 4-sample Kabsch fit (batched 3x3 SVD); the edge-length
 checker (ratio 0.9) and the inlier count over all correspondences are dense
 masked reductions. The best hypothesis is refined by two weighted Kabsch
-rounds on its inliers. Fitness is inliers over correspondences.
+rounds on its inliers. Fitness is inliers over correspondences. ``rival``
+is the most inliers a checked hypothesis has among the correspondences the
+refined pose leaves out: a scene that repeats gives each repeat's
+hypotheses inliers of their own, a unique one only chance alignments.
 
 The sampler is split from the scorer: :func:`ransac_registration` draws its
 ``(H, n)`` correspondence ranks from an explicit ``torch.Generator``, or
@@ -29,6 +32,7 @@ class RANSACResult(NamedTuple):
     fitness: torch.Tensor
     inlier_rmse: torch.Tensor
     n_correspondences: torch.Tensor
+    rival: torch.Tensor  # int: the strongest hypothesis's inliers outside the pose's
 
 
 def match_features(feat_src, feat_tgt, mask_src, mask_tgt, mutual: bool = True):
@@ -120,7 +124,8 @@ def ransac_registration(src_points, tgt_points, corr,
         proj = torch.einsum("hij,nj->hni", R, src) + t[:, None, :]
     diff = proj - q[None]
     d2 = dot3(diff, diff)
-    n_inl = ((d2 < thr2) & ok[None, :]).sum(dim=1)
+    inl_h = (d2 < thr2) & ok[None, :]
+    n_inl = inl_h.sum(dim=1)
     best = torch.argmax(torch.where(edge_ok, n_inl, -1))
 
     def residual2(R_, t_):
@@ -137,10 +142,12 @@ def ransac_registration(src_points, tgt_points, corr,
     n_f = inl.to(torch.int32).sum()
     fitness = n_f / torch.clamp_min(n_corr, 1)
     rmse = torch.sqrt(torch.where(inl, d2b, 0.0).sum() / torch.clamp_min(n_f, 1))
+    rival = torch.where(edge_ok, (inl_h & ~inl).sum(dim=1), 0).max()
     T = torch.eye(4, dtype=torch.float32, device=src.device)
     T[:3, :3] = T_R
     T[:3, 3] = T_t
-    return RANSACResult(T=T, fitness=fitness, inlier_rmse=rmse, n_correspondences=n_corr)
+    return RANSACResult(T=T, fitness=fitness, inlier_rmse=rmse, n_correspondences=n_corr,
+                        rival=rival)
 
 
 def global_registration(src_points, src_feat, src_mask, tgt_points, tgt_feat, tgt_mask,

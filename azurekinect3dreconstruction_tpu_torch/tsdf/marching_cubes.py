@@ -12,8 +12,9 @@ jnp), so neither does a CUDA one here. Three steps:
    full cells fold to case 0 (inert).
 2. **group selection** — cells group into 64-cell runs that are contiguous
    in the flat z-minor ``(cap, R^3)`` layout (cell ``x*R^2 + y*R + z``).
-   The active groups keep pool order; the mesh path takes the first
-   ``max_cells // 64``, the sampler every stride-th.
+   The active groups keep row order (pool order on the mesh path, block-key
+   order in the sampled model's compact rows); the mesh path takes the
+   first ``max_cells // 64``, the sampler every stride-th.
 3. **count -> exclusive scan -> emit** — per selected cell, ``TRI_COUNT``;
    the scan gives each cell's first triangle; output triangle ``j`` (global
    triangle ``j * stride``) finds its cell by a sorted search of the
@@ -380,24 +381,28 @@ def _stride_pick(v, n_tris, mtris: int):
 
 
 def extract_surface_samples(vol: TSDFVolume, cfg: TSDFConfig, n_points: int,
-                            max_cells: int = 64 * 8192):
+                            max_cells: int = 64 * 8192, return_colors: bool = False):
     """Budget-bounded surface point samples: marching-cubes vertices
     extracted at 4x the budget and stride-subsampled by the emission size.
     Returns (points (3*(n_points//3), 3), mask, overflow), the last a device
-    flag. Reads the block count from the device once."""
+    flag; ``return_colors`` appends the vertices' colors (same shape as the
+    points). Reads the block count from the device once."""
     E = snap_extract_blocks(int(vol.n_blocks), vol.tsdf.shape[0])
-    return extract_surface_samples_device(vol, cfg, n_points, E, max_cells)
+    return extract_surface_samples_device(vol, cfg, n_points, E, max_cells,
+                                          return_colors=return_colors)
 
 
 def extract_surface_samples_device(vol: TSDFVolume, cfg: TSDFConfig, n_points: int,
                                    extract_blocks: int, max_cells: int = 64 * 8192,
-                                   emit_mask=None):
+                                   emit_mask=None, return_colors: bool = False):
     """:func:`extract_surface_samples` with the extraction prefix given by
     the caller: nothing waits on the host."""
     mtris = max(n_points // 3, 1)
-    sv = _survey(vol, cfg, extract_blocks, emit_mask, colors=False)
-    v, _, n_tris, ovf = _emit(sv, cfg, max_cells, 4 * mtris)
+    sv = _survey(vol, cfg, extract_blocks, emit_mask, colors=return_colors)
+    v, c, n_tris, ovf = _emit(sv, cfg, max_cells, 4 * mtris)
     pts, mask = _stride_pick(v, n_tris, mtris)
+    if return_colors:
+        return pts, mask, ovf, _stride_pick(c, n_tris, mtris)[0]
     return pts, mask, ovf
 
 
@@ -406,24 +411,31 @@ def sample_block_selection(vol: TSDFVolume, T_world_cam, reach, block_size: floa
     """View-local block sample in the compact form :func:`_survey` takes:
     a stride-pick of up to ``B`` alive blocks whose centers lie within
     ``reach`` of the camera (emitting rows), then up to ``S`` of their alive
-    +corner neighbors that were not picked (corner-value suppliers, in pool
-    order). Fixed shapes and a device-side stride: nothing waits on the
-    host. Returns (sel (B+S,), nbr_sel (B+S, 8), emit (B+S,), supplier
-    overflow flag)."""
+    +corner neighbors that were not picked (corner-value suppliers). Both
+    are ranked and emitted in block-key order (``hash.pack_key``), never in
+    slot order: a pool that holds the same blocks in other slots (a
+    compacted or reloaded stream) gives the same rows, so the same model.
+    Fixed shapes, one sort over the pool's rows and a device-side stride:
+    nothing waits on the host. Returns (sel (B+S,), nbr_sel (B+S, 8), emit
+    (B+S,), supplier overflow flag)."""
     dev = vol.block_coords.device
     cap = vol.block_coords.shape[0]
-    iota = torch.arange(cap, device=dev)
-    alive = iota < vol.n_blocks
+    alive = torch.arange(cap, device=dev) < vol.n_blocks
     centers = (vol.block_coords.to(torch.float32) + 0.5) * np.float32(block_size).item()
     d = torch.linalg.vector_norm(centers - T_world_cam[:3, 3].to(torch.float32), dim=1)
     near = alive & (d <= reach)
-    cnt = near.to(torch.int64).sum()
+    # the alive slots in key order, the dead ones after them (packed keys
+    # are below 2^30)
+    key = torch.where(alive, vhash.pack_key(vol.block_coords), torch.iinfo(torch.int32).max)
+    order = torch.sort(key, stable=True).indices
+    near_o = near[order]
+    cnt = near_o.to(torch.int64).sum()
     stride = torch.clamp_min((cnt + B - 1) // B, 1)
-    rank = torch.cumsum(near.to(torch.int64), 0) - 1
-    pick = near & (rank % stride == 0)
+    rank = torch.cumsum(near_o.to(torch.int64), 0) - 1
+    pick = near_o & (rank % stride == 0)
     pos = torch.cumsum(pick.to(torch.int64), 0) - 1
     dst = torch.where(pick & (pos < B), pos, B)
-    selB = torch.full((B + 1,), -1, dtype=torch.int64, device=dev).scatter_(0, dst, iota)[:B]
+    selB = torch.full((B + 1,), -1, dtype=torch.int64, device=dev).scatter_(0, dst, order)[:B]
     live = selB >= 0
     slot = torch.where(live, selB, 0)
     nbr_pool = _neighbor_slots(vol, vol.block_coords[slot]).to(torch.int64)  # (B, 8)
@@ -432,11 +444,11 @@ def sample_block_selection(vol: TSDFVolume, T_world_cam, reach, block_size: floa
     picked[torch.where(live, selB, cap)] = True
     sup = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
     sup[torch.where(nbr_ok[:, 1:], nbr_pool[:, 1:], cap).reshape(-1)] = True
-    sup = sup[:cap] & ~picked[:cap]
-    n_sup = sup.to(torch.int64).sum()
-    spos = torch.cumsum(sup.to(torch.int64), 0) - 1
-    sdst = torch.where(sup & (spos < S), spos, S)
-    selS = torch.full((S + 1,), -1, dtype=torch.int64, device=dev).scatter_(0, sdst, iota)[:S]
+    sup_o = (sup[:cap] & ~picked[:cap])[order]
+    n_sup = sup_o.to(torch.int64).sum()
+    spos = torch.cumsum(sup_o.to(torch.int64), 0) - 1
+    sdst = torch.where(sup_o & (spos < S), spos, S)
+    selS = torch.full((S + 1,), -1, dtype=torch.int64, device=dev).scatter_(0, sdst, order)[:S]
     sel = torch.cat([selB, selS])
     # pool slot -> compact row (-1 where not selected); dead rows write [cap]
     pool2c = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
@@ -450,7 +462,8 @@ def sample_block_selection(vol: TSDFVolume, T_world_cam, reach, block_size: floa
 def extract_sampled_surface_model(vol: TSDFVolume, cfg: TSDFConfig, n_points: int,
                                   T_world_cam, reach: float, sample_blocks: int = 256,
                                   bricks_per_block: int = 8,
-                                  supplier_rows: Optional[int] = None):
+                                  supplier_rows: Optional[int] = None,
+                                  return_colors: bool = False):
     """The frame-to-model tracking model: a surface sample whose cost scales
     with the sample, not the scene, and that waits on nothing. Stride-pick
     ``sample_blocks`` near blocks (:func:`sample_block_selection`), extract
@@ -458,14 +471,18 @@ def extract_sampled_surface_model(vol: TSDFVolume, cfg: TSDFConfig, n_points: in
     budget (group stride on overflow), and stride the triangles down to
     ``n_points // 3``. Returns (points (3*(n_points//3), 3), mask,
     overflow), the flag set when the supplier rows (default 3 per sampled
-    block) overflowed."""
+    block) overflowed; ``return_colors`` appends the vertices' colors. The
+    blocks, groups and triangles are all thinned in block-key order, so the
+    model depends on the pool's blocks, not on their slots."""
     S = 3 * sample_blocks if supplier_rows is None else supplier_rows
     mtris = max(n_points // 3, 1)
     sel, nbr_sel, emit, sel_ovf = sample_block_selection(
         vol, T_world_cam, reach, cfg.block_size, sample_blocks, S)
-    sv = _survey(vol, cfg, emit_mask=emit, sel=sel, nbr_sel=nbr_sel, colors=False)
-    v, _, n_tris, ovf = _emit(sv, cfg, sample_blocks * bricks_per_block * GROUP, mtris,
+    sv = _survey(vol, cfg, emit_mask=emit, sel=sel, nbr_sel=nbr_sel, colors=return_colors)
+    v, c, n_tris, ovf = _emit(sv, cfg, sample_blocks * bricks_per_block * GROUP, mtris,
                               subsample=True)
     pts = v.permute(2, 0, 1).reshape(-1, 3)
     mask = torch.arange(3 * mtris, device=pts.device) < 3 * n_tris.to(torch.int64)
+    if return_colors:
+        return pts, mask, ovf | sel_ovf, c.permute(2, 0, 1).reshape(-1, 3)
     return pts, mask, ovf | sel_ovf

@@ -99,6 +99,15 @@ def model_reach(cfg) -> float:
     return integration_reach(cfg) + 0.25
 
 
+def model_ring(cfg) -> float:
+    """Farthest block center a view-local model sample reads, from a
+    ``PipelineConfig``: :func:`model_reach` plus one block diagonal, where
+    the sampled blocks' +corner neighbors supply corner values. A streamed
+    frame-to-model pipeline samples the same model as a plain pool only
+    while every such block is resident."""
+    return model_reach(cfg) + float(np.sqrt(3.0)) * cfg.tsdf.block_size
+
+
 # ---------------------------------------------------------------------------
 # device ops
 # ---------------------------------------------------------------------------
@@ -297,12 +306,17 @@ class StreamingTSDF:
 
     @classmethod
     def for_pipeline(cls, cfg, high_water: float = 0.85, check_interval: int = 8,
-                     margin: float = 0.5, **kw) -> "StreamingTSDF":
+                     margin: float = 0.5, tracking: str = "frame_to_frame",
+                     **kw) -> "StreamingTSDF":
         """Distances derived from a ``PipelineConfig``: the reload ring
         ``2 * margin`` beyond :func:`integration_reach` (the camera may
         cover ``margin`` in one interval), eviction one metre farther out
-        (hysteresis)."""
+        (hysteresis). With ``tracking="frame_to_model"`` the ring reaches at
+        least ``margin`` beyond :func:`model_ring` too, so every block a
+        model refresh reads between two ticks is resident."""
         reload_dist = integration_reach(cfg) + 2.0 * margin
+        if tracking == "frame_to_model":
+            reload_dist = max(reload_dist, model_ring(cfg) + margin)
         return cls(cfg.tsdf, evict_dist=reload_dist + 1.0, reload_dist=reload_dist,
                    high_water=high_water, check_interval=check_interval, **kw)
 

@@ -120,15 +120,17 @@ worklist, odometry pyramid [20, 10, 5]):
    across the reload / evict band, a block through 3 evict -> reload
    cycles); a loss on the 640x576 way back (6 dark frames, declared once,
    nothing fused while latched, recovered by the hint rung within 6 cm /
-   0.12 rad); frame-to-model on the short quarter revisit (ATE <= 2 cm,
-   streamed and plain); a reload into a full pool (deferred, then restored
-   to the bit) and a batch reloaded behind a busy stream; each pass's
-   frames/s, tick ms by stage, ``_scatter_reload``'s ms by CUDA events,
-   one whole batch's copy, deferred reloads and the trajectory against the
-   truth; two open faults are run and printed without failing the run
-   (ROADMAP C15: the loss again with the relocalizer's first attempt 2
-   frames after the resumed pose; C16: the whole quarter-resolution run
-   out and back through the live loop, its deferrals and soup); then
+   0.12 rad), and again with the relocalizer's first attempt 2 frames
+   after the resumed pose (ROADMAP C15: at most one recovery, within the
+   bounds, nothing fused before it); frame-to-model on the short quarter
+   revisit (ATE <= 2 cm, streamed and plain, their trajectories and sorted
+   soups equal to the bit); a reload into a full pool (deferred, then
+   restored to the bit) and a batch reloaded behind a busy stream; each
+   pass's frames/s, tick ms by stage, ``_scatter_reload``'s ms by CUDA
+   events, one whole batch's copy, deferred reloads and the trajectory
+   against the truth; one open fault is run and printed without failing
+   the run (ROADMAP C16: the whole quarter-resolution run out and back
+   through the live loop, its deferrals and soup); then
    ``python -m azurekinect3dreconstruction_tpu_torch.cli.live_mono --source
    synthetic --frames 24 --streaming`` in a subprocess must save a mesh, a
    cloud and a trajectory;
@@ -404,6 +406,9 @@ N_RIG_CALIB_PAIRS = 8
 # levels, and one in which only the coarsest level, the first past 4, moves the pose (the
 # finer levels converge to one optimum whatever the coarse ones did)
 B1_ODD_R = 24
+# B1's largest shift-and-mask instance (32^3 voxels a block), held against its plain version
+# beside B1_ODD_R
+B1_WIDE_R = 32
 B2_FIVE_LEVEL_SCHEDULES = ((20, 10, 5, 5, 5), (0, 0, 0, 0, 5))
 # the port's bench.py (cli.bench): its time limit, and the bounds its line is held to
 # (PERF.md section 2; rung 0's 5 cm for the recovered position)
@@ -1177,12 +1182,14 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     return failures, launches
 
 
-def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str):
-    """B1 at ``B1_ODD_R`` (a block resolution the JAX package takes that has
-    no instance of its own: the kernel divides by R at run time): the third
-    main-path frame into a 2-frame volume of 5 mm voxels in 24^3 blocks,
-    one launch at M = 2048 against ``integrate_worklist_plain``, with B1's
-    tolerances. Returns (failures, keys for B1's entry of the kernels line)."""
+def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str, R: int = B1_ODD_R):
+    """B1 at block resolution ``R``: ``B1_ODD_R`` (a block resolution the
+    JAX package takes that has no instance of its own: the kernel divides
+    by R at run time) or ``B1_WIDE_R`` (the largest shift-and-mask
+    instance): the third main-path frame into a 2-frame volume of 5 mm
+    voxels in R^3 blocks, one launch at M = 2048 against
+    ``integrate_worklist_plain``, with B1's tolerances. Returns (failures,
+    keys for B1's entry of the kernels line, which holds ``B1_ODD_R``'s)."""
     import torch
 
     from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
@@ -1190,8 +1197,8 @@ def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str):
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
     from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
 
-    cfg = TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=B1_ODD_R,
-                     block_capacity=4096, hash_capacity=16384)
+    cfg = TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=R,
+                     block_capacity=4096 if R <= 24 else 2048, hash_capacity=16384)
     vol = tsdf.create(cfg, dev)
     for i in range(2):
         vol = tsdf.integrate_frame(vol, dec[i][0], dec[i][1], rays, gt[i], intr, cfg)
@@ -1215,15 +1222,17 @@ def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str):
     moved = int((vk.weight != vol.weight).sum())
     ms_k = _time_ms(lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, cfg,
                                                        n_active), 20)
-    _log(f"B1 at R={B1_ODD_R} (run-time R instance, {tk.launch_grid(B1_ODD_R)} CTAs): "
+    kind = "run-time R" if R & (R - 1) else "shift-and-mask"
+    _log(f"B1 at R={R} ({kind} instance, {tk.launch_grid(R)} CTAs): "
          f"{int(n_active)} live rows, {moved} weights moved; weights equal on {frac:.6%}, max "
          f"|dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g} where they agree; pools equal to the "
          f"bit: {bitwise}; {launches} launch; wrapper {ms_k:.4f} ms (CUDA events, 20 calls)  "
          f"[{gpu}]")
     failures = []
     if not (launches == 1 and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
-            and err_c <= B1_VALUE_TOL and moved > 100_000):
-        failures.append(f"B1 at R={B1_ODD_R} disagrees with its plain version")
+            and err_c <= B1_VALUE_TOL and moved > 100_000 and not bool(vol.overflow)):
+        failures.append(f"B1 at R={R} disagrees with its plain version (or its pool overflowed: "
+                        f"{bool(vol.overflow)})")
     return failures, dict(r24_max_abs_err=max(err_t, err_c), r24_weight_equal_fraction=frac,
                           r24_bitwise=bitwise, r24_ms=ms_k, launches_r24=launches)
 
@@ -1714,7 +1723,7 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
     # -- a standalone relocalizer on the phase's volume -----------------------------
     vol = pipe.volume
     probe = resumed[-1] + 2  # a pose no frame fused
-    d_probe = _decode(_quantize(cam.render(poses[probe])), cfg, dev)[0]
+    d_probe, c_probe, _ = _decode(_quantize(cam.render(poses[probe])), cfg, dev)
     hint = world[resumed[-1]]
     bad = hint.copy()
     bad[:3, 3] += [0.9, -0.6, 0.8]
@@ -1745,12 +1754,12 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
         _sync(dev)
         return out, ms_since(t0)
 
-    T_h, ms_cold = timed(lambda: reloc.attempt(vol, d_probe, T_hint=hint))
+    T_h, ms_cold = timed(lambda: reloc.attempt(vol, d_probe, c_probe, T_hint=hint))
     rung0 = reloc.n_hint_success == 1
-    _, ms_cached = timed(lambda: reloc.attempt(vol, d_probe, T_hint=hint))
+    _, ms_cached = timed(lambda: reloc.attempt(vol, d_probe, c_probe, T_hint=hint))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    T_g, ms_garbage = timed(lambda: reloc.attempt(vol, d_probe, T_hint=bad))
+    T_g, ms_garbage = timed(lambda: reloc.attempt(vol, d_probe, c_probe, T_hint=bad))
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     garbage_rung0 = reloc.n_hint_success != 2
     eh = err(T_h, probe) if T_h is not None else (float("inf"),) * 2
@@ -1772,7 +1781,7 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
         failures.append(f"the relocalizer returned a wrong pose from a garbage hint ({eg})")
 
     # one 8,192-hypothesis RANSAC call on the attempt's own clouds and features
-    _, _, _, _, m_feats = reloc._model_cache
+    m_feats = reloc._model_cache[-1]
     vox, (m_ds, m_dm, m_f) = max(m_feats.items())
     if m_f is not None:
         src = backproject_depth(d_probe, reloc.rays)[::reloc.stride, ::reloc.stride].reshape(-1, 3)
@@ -1797,7 +1806,7 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
         host = vol._replace(**{k: t.cpu() for k, t in vol._asdict().items()})
         t0 = time.perf_counter()
         rc = Relocalizer(intr, cfg, device="cpu")
-        T_c = rc.attempt(host, d_probe.cpu(), T_hint=hint)
+        T_c = rc.attempt(host, d_probe.cpu(), c_probe.cpu(), T_hint=hint)
         d_pose = (float("inf") if T_c is None or T_h is None
                   else float(np.abs(T_c - T_h).max()))
         _log(f"hint rung on the card against a CPU copy of the volume: CPU "
@@ -2272,14 +2281,14 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True,
     ``revisit_run``), and over the whole run only reported (ROADMAP C16:
     its misses are printed and fail nothing); the loss and recovery run on
     the ``REVISIT_LOSS_SCALE`` run (or the only one), then once more with
-    the relocalizer's first attempt 2 frames after the resumed pose, only
-    reported (C15); the thrash and the frame-to-model revisit on the
+    the relocalizer's first attempt 2 frames after the resumed pose (C15);
+    the thrash and the frame-to-model revisit on the
     ``REVISIT_THRASH_SCALE`` and ``REVISIT_F2M_SCALE`` runs, and the
     full-pool deferral once (``deferral_check``). Then, with ``cli``, runs
     the port's ``live_mono`` entry point with ``--streaming`` in a
     subprocess. Returns (failures, launch counts by pass: ``one_way`` and
-    ``revisit`` a list a run, ``revisit_short``, ``loss``, ``thrash``,
-    ``f2m`` when they ran)."""
+    ``revisit`` a list a run, ``revisit_short``, ``loss``, ``loss_late``,
+    ``thrash``, ``f2m`` when they ran)."""
     import dataclasses
 
     import numpy as np
@@ -2400,12 +2409,10 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True,
                      REVISIT_SHORT_HIGH_WATER))
             f, all_counts["loss"] = loss_run(*args)
             failures += f
-            # C15, open: the relocalizer's first attempt 2 frames after the resumed pose;
-            # its state is printed, and its misses do not fail the run
+            # C15: the relocalizer's first attempt 2 frames after the resumed pose
             t1 = time.perf_counter()
-            f, _ = loss_run(*args, shift=2, plain=False)
-            _log(f"C15 (open; reported, not checked): {len(f)} of the loss checks missed"
-                 f"{': ' + '; '.join(f) if f else ''}  [{gpu}]")
+            f, all_counts["loss_late"] = loss_run(*args, shift=2, plain=False)
+            failures += f
             t_faults += time.perf_counter() - t1
         if scale == REVISIT_F2M_SCALE:
             f, all_counts["f2m"] = f2m_revisit_run(
@@ -2419,8 +2426,8 @@ def streaming_phase(cfg, dev, gpu: str, runs=STREAM_RUNS, cli: bool = True,
         t0 = time.perf_counter()
         failures += deferral_check(dev, gpu)
         t_revisit += time.perf_counter() - t0
-        _log(f"streaming revisit checks wall time {t_revisit - t_faults:.1f} s, and the open "
-             f"faults' reports (C15, C16) {t_faults:.1f} s (host clock)  [{gpu}]")
+        _log(f"streaming revisit checks wall time {t_revisit - t_faults:.1f} s, and the C15 "
+             f"check and the open fault's report (C16) {t_faults:.1f} s (host clock)  [{gpu}]")
     if cli:
         with tempfile.TemporaryDirectory() as out:
             args = ["--source", "synthetic", "--frames", str(N_CLI_FRAMES), "--streaming",
@@ -2923,11 +2930,14 @@ def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
     pipeline's pool the manager's afterwards; B2 once a frame through the
     step, B1 once a frame through the step plus the first and the recovery;
     no overflow. Prints the recovered pose's difference from the plain
-    run's (the relocalizer samples its model by slot: reported, not
-    bounded; with ``plain`` False no plain run). ``shift`` starts the dark
-    frames that many frames earlier than the alignment below, so that the
-    relocalizer's first attempt with a frame comes ``shift`` frames after
-    the resumed pose. Returns (failures, launch counts)."""
+    run's (with ``plain`` False no plain run), the relocalizer's ms an
+    attempt, the poses its slide gate turned down and the global winners
+    its consensus gate turned down. ``shift`` starts the
+    dark frames that many frames earlier than the alignment below, so that
+    the relocalizer's first attempt with a frame comes ``shift`` frames
+    after the resumed pose (ROADMAP C15): then the checks take at most one
+    recovery, by any rung, within the bounds, and none fused before it.
+    Returns (failures, launch counts)."""
     import numpy as np
 
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
@@ -2950,8 +2960,7 @@ def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
     s = n_out + k  # the first dark frame
     what = f"streamed loss {W}x{H}, {n_out} frames out"
     if shift:
-        what = (f"C15 (open; reported, not checked): {what}, the first attempt {shift} frames "
-                "after the resumed pose")
+        what = f"C15 (checked): {what}, the first attempt {shift} frames after the resumed pose"
     kw = dict(relocalize=True, reloc_window=2, reloc_interval=4)
     sv = StreamingTSDF.for_pipeline(scfg, high_water=high_water, check_interval=8,
                                     margin=margin, device=dev)
@@ -3039,6 +3048,14 @@ def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
         p_ra = pp.counts.get("relocalized", 0)
     _log(f"{what} launches: {json.dumps(counts)} over {len(frames)} frames ({rec['stepped']} "
          f"through the step)  [{gpu}]")
+    n_att = rel.n_attempts if rel is not None else 0
+    _log(f"{what}: {n_att} relocalization attempts, "
+         f"{pipe.telemetry.mean_time_ms('relocalize'):.1f} ms each on average (host clock, the "
+         f"empty frames' included); the slide gate turned down "
+         f"{getattr(rel, 'n_texture_rejects', 0)} poses by texture and "
+         f"{getattr(rel, 'n_free_space_rejects', 0)} by relief, the consensus gate "
+         f"{getattr(rel, 'n_consensus_rejects', 0)} global winners (the last's RANSAC inliers "
+         f"and its rival's {list(getattr(rel, 'last_consensus', ()))})  [{gpu}]")
     _log(f"{what}: {N_REVISIT_DARK} dark frames from frame {s} (the way back at x = "
          f"{x_dark:.3f} m, inside the {len(ev_x)} blocks the pass had evicted by then, x "
          f"{ev_x[0] if ev_x else float('nan'):.2f} to {ev_x[-1] if ev_x else float('nan'):.2f} m, "
@@ -3053,14 +3070,16 @@ def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
          f"{sv.n_evictions} evictions, {watch.reload_calls()} reload calls; overflow {overflow}; "
          f"against the same run into a plain pool (recovered {p_ra}): {diff}  [{gpu}]")
     failures = []
-    if not (ev.get("tracking_lost", 0) == 1 and ev.get("relocalized", 0) == 1 and unfused
+    n_rec = ev.get("relocalized", 0)
+    if not (ev.get("tracking_lost", 0) == 1 and (n_rec == 1 or shift and n_rec == 0) and unfused
             and at_stale and one_pool and not overflow):
         failures.append(f"{what}: events {ev}, nothing fused while latched {unfused}, ticks while "
                         f"lost at the stale pose {at_stale} ({lost_ticks} ticks, "
                         f"{rec['lost_poses']}), one pool {one_pool}, overflow {overflow}")
-    if not (rel is not None and rel.n_hint_success >= 1 and err[0] <= RELOC_T_LIMIT_M
-            and err[1] <= RELOC_R_LIMIT_RAD):
-        failures.append(f"{what}: not recovered by the hint rung within the bounds ({err})")
+    if ra is not None and not (err[0] <= RELOC_T_LIMIT_M and err[1] <= RELOC_R_LIMIT_RAD):
+        failures.append(f"{what}: a relocalization accepted off the bounds ({err})")
+    if not shift and not (rel is not None and rel.n_hint_success >= 1 and ra is not None):
+        failures.append(f"{what}: not recovered by the hint rung")
     if counts[odo.KERNEL] != rec["stepped"] or counts[tk.KERNEL] != want_b1:
         failures.append(f"{what}: launches {counts}, not B2 {rec['stepped']} and B1 {want_b1}")
     return failures, counts
@@ -3069,13 +3088,14 @@ def loss_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
 def f2m_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
                     high_water: float):
     """Frame-to-model tracking on the revisit: the out-and-back frames with
-    ``tracking="frame_to_model"``, streamed and into a plain pool. Its model
-    refresh samples the blocks within ``model_reach``, reloaded ones on the
-    way back. Checks: both ATE RMSE <= 20 mm, no overflow, B1 once a frame
-    and B2 once a tracked frame. Prints the largest pose difference between
-    the two and whether they were equal to the bit (the sample is ordered
-    by slot, and compaction reorders slots). Returns (failures, launch
-    counts)."""
+    ``tracking="frame_to_model"``, streamed (``StreamingTSDF.for_pipeline(...,
+    tracking="frame_to_model")``, whose reload ring holds every block a
+    refresh reads) and into a plain pool. Its model refresh samples the
+    blocks within ``model_reach``, reloaded ones on the way back, in block
+    key order (ROADMAP C17). Checks: the two trajectories and sorted
+    ``extract_mesh`` soups equal to the bit, both ATE RMSE <= 20 mm, no
+    overflow, B1 once a frame and B2 once a tracked frame. Returns
+    (failures, launch counts)."""
     import numpy as np
 
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
@@ -3090,7 +3110,7 @@ def f2m_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
     gt = [_corridor_pose(xs[i]) for i in idx]
     what = f"frame-to-model revisit {intr.width}x{intr.height}, {len(raw)} frames out"
     sv = StreamingTSDF.for_pipeline(scfg, high_water=high_water, check_interval=8,
-                                    margin=margin, device=dev)
+                                    margin=margin, tracking="frame_to_model", device=dev)
     watch = _StreamWatch(sv, dev)
     build.launches.clear()
     sp, s_sec = _corridor_pass(intr, scfg, frames, dev, sv, tracking="frame_to_model")
@@ -3100,18 +3120,25 @@ def f2m_revisit_run(intr, scfg, pcfg, raw, xs, dev, gpu: str, margin: float,
     a_s, a_p = ate(list(ts), gt)["rmse"], ate(list(tp), gt)["rmse"]
     worst = max((_pose_err(a, b) for a, b in zip(ts, tp)), key=lambda e: e[0] + e[1])
     equal = np.array_equal(ts, tp)
+    soups = _soup_rows(sp.extract_mesh()), _soup_rows(pp.extract_mesh().compact())
+    same_soup = soups[0].shape == soups[1].shape and np.array_equal(*soups)
     cs, cp = sp.counts, pp.counts
     overflow = bool(sp.volume.overflow) or bool(pp.volume.overflow)
     _log(f"{what}: {n} frames, streamed {n / s_sec:.3f} frames/s, plain {n / p_sec:.3f}; launches "
          f"{json.dumps(counts)}; ATE rmse streamed {a_s * 1e3:.3f} mm, plain {a_p * 1e3:.3f} mm; "
-         f"largest pose difference {worst[0] * 1e3:.4f} mm / {worst[1] * 1e3:.4f} mrad, equal to "
-         f"the bit: {equal}; refinements accepted {cs.get('model_icp_ok', 0)} / "
+         f"largest pose difference {worst[0] * 1e3:.4f} mm / {worst[1] * 1e3:.4f} mrad, "
+         f"trajectories equal to the bit: {equal}, sorted soups equal to the bit: {same_soup} "
+         f"({soups[0].shape[0]} / {soups[1].shape[0]} triangles); reload<{sv.reload_dist:.3f} "
+         f"m; refinements accepted {cs.get('model_icp_ok', 0)} / "
          f"{cp.get('model_icp_ok', 0)}, model samples over budget {cs.get('model_truncated', 0)} / "
          f"{cp.get('model_truncated', 0)}; {sv.n_evictions} evictions, {watch.reload_calls()} "
          f"reload calls; overflow {overflow}  [{gpu}]")
     _log(f"{what}: streamed {_track_report(ts, gt, len(raw))}; plain "
          f"{_track_report(tp, gt, len(raw))}  [{gpu}]")
     failures = []
+    if not (equal and same_soup):
+        failures.append(f"{what}: streamed and plain differ (trajectory equal {equal}, soup equal "
+                        f"{same_soup}; largest pose difference {worst})")
     if not (a_s <= ATE_LIMIT_M and a_p <= ATE_LIMIT_M and not overflow
             and sv.n_evictions and watch.reload_calls()):
         failures.append(f"{what}: ATE {a_s:.4f} / {a_p:.4f} m, overflow {overflow}, "
@@ -4529,6 +4556,7 @@ def main() -> int:
     r24_failures, r24 = b1_odd_r_check(dec, gt, intr, rays, dev, gpu)
     failures += r24_failures
     kernels[0].update(r24)
+    failures += b1_odd_r_check(dec, gt, intr, rays, dev, gpu, B1_WIDE_R)[0]
 
     # -- B2: one frame pair at [20,10,5], kernel vs plain ---------------------
     (d0, _, i0), (d1, _, i1) = dec[0], dec[1]

@@ -134,7 +134,34 @@ def test_integrate_kernel_matches_plain_bitwise_at_r24(dev, frames):
         assert int((a.weight != vol.weight).sum()) > 10_000
 
 
-@pytest.mark.parametrize("cfg, size", [(CFG, 1024), (CFG16, 2048)], ids=["r8", "r16"])
+# B1's largest shift-and-mask instance: 32^3 voxels a block
+CFG32 = TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=32, block_capacity=1024,
+                   hash_capacity=4096)
+
+
+def test_integrate_kernel_matches_plain_bitwise_at_r32(dev, frames):
+    """R = 32 at 5 mm, the largest blocks with an instance of their own:
+    the kernel, bounded by the device-side row count, equals the plain
+    version to the bit."""
+    _, fr = frames
+    vol = _volume_before(fr, CFG32)
+    T, z, c = fr[2]
+    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, T, INTR, CFG32)
+    wl = wl[:512].contiguous()
+    a, b = _clone(vol), _clone(vol)
+    before = build.launches[tk.KERNEL]
+    tk.integrate_worklist_cuda(a, wl, z, c, T, INTR, CFG32, n_active)
+    assert build.launches[tk.KERNEL] == before + 1
+    tk.integrate_worklist_plain(b, wl, z, c, T, INTR, CFG32)
+    torch.cuda.synchronize()
+    assert 20 < int(n_active) < 512 and not bool(vol.overflow)
+    assert int(tk.updated_voxels(wl, z, T, INTR, CFG32)) > 100_000
+    for k in ("weight", "tsdf", "color"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.parametrize("cfg, size", [(CFG, 1024), (CFG16, 2048), (CFG32, 512)],
+                         ids=["r8", "r16", "r32"])
 def test_integrate_whole_pool_worklist_equals_compacted(dev, frames, cfg, size):
     """The first frame's whole-pool worklist (the default) and a compacted
     one give the same pools to the bit."""
@@ -874,7 +901,7 @@ def test_reloc_model_cache_misses_after_b1_refusion(dev, frames):
     reloc = Relocalizer(INTR, RELOC_CFG, device=dev, min_inliers=500, model_points=16384,
                         restarts=1)
     hint = T.cpu().numpy().astype(np.float64)
-    reloc.attempt(vol, z, T_hint=hint)
+    reloc.attempt(vol, z, c, T_hint=hint)
     key1 = reloc._model_cache[0]
     ptr, version, nb = vol.tsdf.data_ptr(), vol.tsdf._version, int(vol.n_blocks)
     b1 = build.launches[tk.KERNEL]
@@ -882,10 +909,10 @@ def test_reloc_model_cache_misses_after_b1_refusion(dev, frames):
     assert build.launches[tk.KERNEL] == b1 + 1
     assert vol2.tsdf is vol.tsdf and vol2.tsdf.data_ptr() == ptr
     assert vol2.tsdf._version == version and int(vol2.n_blocks) == nb
-    reloc.attempt(vol2, z, T_hint=hint)
+    reloc.attempt(vol2, z, c, T_hint=hint)
     assert reloc._model_cache[0] != key1, "B1's in-place update must miss the model cache"
     key2, model = reloc._model_cache[0], reloc._model_cache[1]
-    reloc.attempt(vol2, z, T_hint=hint)
+    reloc.attempt(vol2, z, c, T_hint=hint)
     assert reloc._model_cache[0] == key2 and reloc._model_cache[1] is model
 
 

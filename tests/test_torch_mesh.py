@@ -1,11 +1,14 @@
 """The port's marching cubes, surface samplers and volume queries against the
 JAX package.
 
-The hash gives the two packages other slot orders, and every thinning step
-of the extractor follows pool order, so each comparison starts both from
-the same pool: built in JAX and carried across with ``interop``. From one
-pool the port must give the same triangles in the same order, and the same
-sampled model. Unless a test says otherwise, the tolerance is 0: the port
+The hash gives the two packages other slot orders, and the mesh path's
+thinning follows pool order, so each comparison starts both from the same
+pool: built in JAX and carried across with ``interop``. From one pool the
+port must give the same triangles in the same order. The port's sampled
+model ranks its blocks by key, JAX's by slot, so its comparisons start from
+a pool whose slots are in key order (``_key_ordered``), where the two
+orders agree; under any other slot order the port's model stays the same,
+to the bit. Unless a test says otherwise, the tolerance is 0: the port
 rounds as the compiled JAX stage does."""
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from azurekinect3dreconstruction_tpu.core.camera import Intrinsics as JIntrinsic
 from azurekinect3dreconstruction_tpu.core.camera import pixel_rays as jpixel_rays
 from azurekinect3dreconstruction_tpu.io.synthetic import SyntheticCamera as JCamera
 from azurekinect3dreconstruction_tpu.io.synthetic import orbit_trajectory
+from azurekinect3dreconstruction_tpu.tsdf import hash as jhash
 from azurekinect3dreconstruction_tpu.tsdf import marching_cubes as jmc
 from azurekinect3dreconstruction_tpu.tsdf import mc_tables as jmt
 from azurekinect3dreconstruction_tpu.tsdf import volume as jtsdf
@@ -26,6 +30,8 @@ from azurekinect3dreconstruction_tpu_torch.config import TSDFConfig
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import mc_tables as mt
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key, pack_key_np
+from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import _compact
 from test_marching_cubes import build_volume_from_field
 from test_mc_tables import numpy_marching_cubes
 
@@ -41,6 +47,22 @@ def _carry(vj):
     """A JAX volume -> the port's volume on the CPU (same slots)."""
     return interop.volume_from_jax_arrays({k: np.asarray(v) for k, v in vj._asdict().items()},
                                           "cpu")
+
+
+def _key_ordered(vj):
+    """A JAX volume with its alive rows moved into block-key order and its
+    table rebuilt (``hash.build_table``): the pool on which JAX's slot
+    stride and the port's key stride pick the same blocks."""
+    n, cap = int(vj.n_blocks), vj.block_coords.shape[0]
+    bc = np.asarray(vj.block_coords)
+    perm = np.concatenate([np.argsort(pack_key_np(bc[:n]), kind="stable"), np.arange(n, cap)])
+    rows = {f: jnp.asarray(np.asarray(getattr(vj, f))[perm])
+            for f in ("block_coords", "tsdf", "weight", "color")}
+    keys = np.where(np.arange(cap) < n, pack_key_np(bc[perm]), jhash.EMPTY_KEY).astype(np.int32)
+    table, ok = jhash.build_table(jnp.asarray(keys), jnp.arange(cap, dtype=jnp.int32),
+                                  vj.table_keys.shape[0])
+    assert bool(ok)
+    return vj._replace(table_keys=table.keys, table_vals=table.vals, **rows)
 
 
 def _sphere_field(n_blocks, radius, cfg=JCFG):
@@ -76,6 +98,20 @@ def slab():
     mid = nyz * JCFG.voxel_size / 2
     field = np.clip((Y - mid + 0.05 * np.sin(X * 7.0)) / JCFG.sdf_trunc, -1, 1).astype(np.float32)
     vj = build_volume_from_field(field, JCFG)
+    return vj, _carry(vj)
+
+
+@pytest.fixture(scope="module")
+def sphere_by_key(sphere):
+    """The sphere's pool with its slots in key order, in both packages."""
+    vj = _key_ordered(sphere[1])
+    return vj, _carry(vj)
+
+
+@pytest.fixture(scope="module")
+def slab_by_key(slab):
+    """The slab's pool with its slots in key order, in both packages."""
+    vj = _key_ordered(slab[0])
     return vj, _carry(vj)
 
 
@@ -223,10 +259,10 @@ def test_surface_samples_match_jax(sphere, budget):
     assert bool(to) == bool(jo) == bool(ho)
 
 
-def test_sampled_model_unthinned_matches_jax_and_prefix(sphere):
-    """Nothing thins: the block-sampled model equals JAX's and the prefix
-    sampler's."""
-    _, vj, vt = sphere
+def test_sampled_model_unthinned_matches_jax_and_prefix(sphere_by_key):
+    """Nothing thins: on a key-ordered pool the block-sampled model equals
+    JAX's and the prefix sampler's."""
+    vj, vt = sphere_by_key
     E = mc.snap_extract_blocks(int(vt.n_blocks), CFG.block_capacity)
     n_points = 3 * 65536
     kw = dict(reach=50.0, sample_blocks=128, bricks_per_block=CFG.block_resolution ** 3 // 64)
@@ -248,14 +284,17 @@ def test_sampled_model_unthinned_matches_jax_and_prefix(sphere):
 # triangle stride (more triangles than n_points // 3), the supplier overflow
 STRIDES = [
     pytest.param(384, 16, 2, 112, 50.0, (True, True, True, False), id="block+group+triangle"),
-    pytest.param(3000, 8, 1, 8, 50.0, (True, True, False, True), id="block+group+suppliers"),
+    pytest.param(3000, 8, 1, 4, 50.0, (True, True, False, True), id="block+group+suppliers"),
     pytest.param(900, 64, 4, None, 1.2, (False, False, True, False), id="view-local+triangle"),
 ]
 
 
 @pytest.mark.parametrize("n_points,B,bpb,S,reach,engaged", STRIDES)
-def test_sampled_model_every_stride_matches_jax(slab, n_points, B, bpb, S, reach, engaged):
-    vj, vt = slab
+def test_sampled_model_every_stride_matches_jax(slab_by_key, n_points, B, bpb, S, reach,
+                                                engaged):
+    """On a key-ordered pool, where JAX's slot stride and the port's key
+    stride agree: the selection and the model equal JAX's."""
+    vj, vt = slab_by_key
     T = np.eye(4, dtype=np.float32)
     T[:3, 3] = (0.7, 0.2, 0.1)
     S_rows = S if S else 3 * B
@@ -280,6 +319,43 @@ def test_sampled_model_every_stride_matches_jax(slab, n_points, B, bpb, S, reach
     groups = int((sv.case.view(-1, mc.GROUP) != 0).any(dim=1).sum())
     tris = int(torch.from_numpy(mt.TRI_COUNT)[sv.case].sum())
     assert (near > B, groups > B * bpb, tris > n_points // 3, bool(sel_t[3])) == engaged
+
+
+def _model_by_key(vol, n_points, B, bpb, S, reach, T):
+    """The selection's rows as block keys (-1 = padding), its neighbor rows,
+    emit mask and flag, and the sampled model: everything a slot order could
+    move."""
+    S_rows = S if S else 3 * B
+    sel, nbr, emit, ovf = mc.sample_block_selection(vol, T, reach, CFG.block_size, B, S_rows)
+    keys = torch.where(sel >= 0, pack_key(vol.block_coords[sel.clamp_min(0)]), -1)
+    pts, mask, m_ovf = mc.extract_sampled_surface_model(vol, CFG, n_points, T, reach,
+                                                        sample_blocks=B, bricks_per_block=bpb,
+                                                        supplier_rows=S)
+    return [keys, nbr, emit, ovf, pts, mask, m_ovf]
+
+
+@pytest.mark.parametrize("scene,n_points,B,bpb,S,reach", [
+    pytest.param("slab", *p.values[:5], id=p.id) for p in STRIDES] + [
+    pytest.param("sphere", 3 * 65536, 128, CFG.block_resolution ** 3 // 64, None, 50.0,
+                 id="unthinned")])
+def test_sampled_model_is_independent_of_slot_order(request, scene, n_points, B, bpb, S, reach):
+    """The same blocks in other slots (a random permutation and the
+    reversal, each with its table rebuilt, as host streaming's compaction
+    does): the selection's keys and the model's points and mask are equal
+    to the bit. Ranking by slot, a streamed pool sampled other blocks than
+    a plain one that holds the same voxels."""
+    vt = request.getfixturevalue(scene)[-1]
+    T = torch.eye(4)
+    if scene == "slab":
+        T[:3, 3] = torch.tensor((0.7, 0.2, 0.1))
+    n = int(vt.n_blocks)
+    want = _model_by_key(vt, n_points, B, bpb, S, reach, T)
+    assert int(want[5].sum()) > 30
+    for perm in (np.random.default_rng(5).permutation(n), np.arange(n)[::-1]):
+        moved = _compact(vt, np.concatenate([perm, np.arange(n, vt.tsdf.shape[0])]), n)
+        assert not bool(moved.overflow) and not torch.equal(moved.block_coords, vt.block_coords)
+        for a, b in zip(_model_by_key(moved, n_points, B, bpb, S, reach, T), want):
+            assert torch.equal(a, b)
 
 
 def test_sample_tsdf_matches_jax(sphere):

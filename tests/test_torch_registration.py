@@ -147,6 +147,30 @@ def test_global_registration_recovers_pose(pair):
     assert et < 0.03 and er < 0.05
 
 
+@pytest.mark.parametrize("repeats", [1, 2], ids=["unique", "repeated"])
+def test_ransac_rival_sees_a_repeat(repeats):
+    """``rival``: 300 points matched to their rigid copy (``unique``) hold
+    no hypothesis outside the winner's inliers; matched half to that copy
+    and half to a second one 1 m along x (``repeated``, a scene that
+    repeats), the best hypothesis outside the winner's inliers holds at
+    least 3/4 as many as the winner."""
+    rng = np.random.default_rng(0)
+    src = rng.uniform(-0.25, 0.25, (300, 3)).astype(np.float32)
+    tgt = src + np.float32([0.1, -0.05, 0.2])
+    copies = np.concatenate([tgt + np.float32([k, 0.0, 0.0]) for k in range(repeats)])
+    corr = torch.arange(300) + 300 * (torch.arange(300) % repeats)
+    res = ransac.ransac_registration(torch.from_numpy(src), torch.from_numpy(copies), corr,
+                                     RegistrationConfig(ransac_hypotheses=2048),
+                                     distance_threshold=0.01,
+                                     generator=torch.Generator().manual_seed(0))
+    n_f = round(float(res.fitness) * 300)
+    assert n_f == 300 // repeats, n_f
+    if repeats == 1:
+        assert int(res.rival) == 0
+    else:
+        assert int(res.rival) >= 0.75 * n_f, (int(res.rival), n_f)
+
+
 def _perturbed(pair, xi):
     return (np.asarray(jse3.se3_exp(jnp.asarray(xi, jnp.float32))) @ pair["T"]).astype(
         np.float32)

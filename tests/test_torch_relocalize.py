@@ -112,8 +112,9 @@ def test_relocalizer_recovers_heldout_pose(cam, fused_orbit):
     the hint: within 5 cm / 0.1 rad of the truth, one success."""
     poses, world, st = fused_orbit
     reloc = _reloc()
-    dm, _ = _meters(*cam.capture(poses[4]))
-    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=world[2])
+    dm, cf = _meters(*cam.capture(poses[4]))
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, cf,
+                      T_hint=world[2])
     assert T is not None, f"relocalization rejected: {reloc.last_reject}"
     t_err, r_err = _pose_err(T, world[4])
     assert t_err < 0.05, f"translation error {t_err}"
@@ -124,15 +125,17 @@ def test_relocalizer_recovers_heldout_pose(cam, fused_orbit):
 def test_relocalizer_rejects_empty_frame():
     reloc = Relocalizer(INTR, CFG, device="cpu")
     assert reloc.attempt(tsdf.create(CFG.tsdf, "cpu"),
-                         np.zeros((INTR.height, INTR.width), np.float32)) is None
+                         np.zeros((INTR.height, INTR.width), np.float32),
+                         np.zeros((INTR.height, INTR.width, 3), np.float32)) is None
     assert reloc.last_reject == "empty_frame"
 
 
 def test_relocalizer_hint_rung_recovers_without_descriptors(cam, fused_orbit):
     poses, world, st = fused_orbit
     reloc = _reloc()
-    dm, _ = _meters(*cam.capture(poses[4]))
-    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=world[3])
+    dm, cf = _meters(*cam.capture(poses[4]))
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, cf,
+                      T_hint=world[3])
     assert T is not None, f"relocalization rejected: {reloc.last_reject}"
     t_err, r_err = _pose_err(T, world[4])
     assert t_err < 0.05 and r_err < 0.1, (t_err, r_err)
@@ -144,10 +147,11 @@ def test_relocalizer_wrong_hint_never_returns_wrong_pose(cam, fused_orbit):
     global rung returns a correct pose or None, never a wrong one."""
     poses, world, st = fused_orbit
     reloc = _reloc()
-    dm, _ = _meters(*cam.capture(poses[4]))
+    dm, cf = _meters(*cam.capture(poses[4]))
     bad_hint = np.asarray(world[4], np.float64).copy()
     bad_hint[:3, 3] += [0.9, -0.6, 0.8]
-    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=bad_hint)
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, cf,
+                      T_hint=bad_hint)
     assert reloc.n_hint_success == 0, "rung 0 must not accept a wrong basin"
     if T is not None:
         t_err, r_err = _pose_err(T, world[4])
@@ -175,13 +179,17 @@ def test_global_rung_gates_its_refinement_on_overlap(cam, fused_orbit, monkeypat
 
     poses, world, st = fused_orbit
     seed = world[4] @ se3.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+    # a winner with the consensus of the orbit's own (32 of 200, no rival), so that what
+    # decides is the refinement's gate
     monkeypatch.setattr(relocalize, "global_registration", lambda *a, **k: SimpleNamespace(
-        T=torch.as_tensor(seed, dtype=torch.float32)))
+        T=torch.as_tensor(seed, dtype=torch.float32), fitness=torch.tensor(0.16),
+        n_correspondences=torch.tensor(200), rival=torch.tensor(0)))
     reloc = _reloc(restarts=1)
-    dm, _ = _meters(*cam.capture(poses[4]))
+    dm, cf = _meters(*cam.capture(poses[4]))
     bad_hint = np.asarray(world[4], np.float64).copy()
     bad_hint[:3, 3] += [0.9, -0.6, 0.8]
-    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, T_hint=bad_hint)
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, cf,
+                      T_hint=bad_hint)
     assert reloc.n_hint_success == 0
     if in_basin:
         assert T is not None, reloc.last_reject
@@ -190,6 +198,41 @@ def test_global_rung_gates_its_refinement_on_overlap(cam, fused_orbit, monkeypat
     else:
         assert T is None, f"a wrong pose returned: {_pose_err(T, world[4])}"
         assert reloc.last_reject.startswith("icp overlap"), reloc.last_reject
+
+
+@pytest.mark.parametrize("n_f, n_rival, held", [(32, 0, True), (6, 0, False), (32, 26, False)],
+                         ids=["held", "no_consensus", "rivalled"])
+def test_global_rung_gates_its_winner_on_consensus(cam, fused_orbit, monkeypatch, n_f, n_rival,
+                                                   held):
+    """The global rung with its RANSAC winner scripted to the truth and a
+    hint far outside any basin. With the orbit's own consensus (32 inliers,
+    no rival) it recovers; with 6 inliers (the corridor's winners hold 0
+    to 8: the overlap passes a plane anywhere on a plane, and ICP pulls
+    the pose to the nearest repeat, ROADMAP C15) or a rival holding 26 of
+    32 (a repeat as well supported as the winner) the consensus gate turns
+    it down, before any refinement."""
+    from types import SimpleNamespace
+
+    from azurekinect3dreconstruction_tpu_torch.tracking import relocalize
+
+    poses, world, st = fused_orbit
+    monkeypatch.setattr(relocalize, "global_registration", lambda *a, **k: SimpleNamespace(
+        T=torch.as_tensor(world[4], dtype=torch.float32), fitness=torch.tensor(n_f / 200),
+        n_correspondences=torch.tensor(200), rival=torch.tensor(n_rival)))
+    reloc = _reloc(restarts=1)
+    dm, cf = _meters(*cam.capture(poses[4]))
+    bad_hint = np.asarray(world[4], np.float64).copy()
+    bad_hint[:3, 3] += [0.9, -0.6, 0.8]
+    T = reloc.attempt(interop.volume_from_jax_arrays(st, "cpu"), dm, cf, T_hint=bad_hint)
+    assert reloc.n_hint_success == 0 and reloc.last_consensus == (n_f, n_rival)
+    if held:
+        assert T is not None, reloc.last_reject
+        t_err, r_err = _pose_err(T, world[4])
+        assert t_err < 0.05 and r_err < 0.1, (t_err, r_err)
+        assert reloc.n_consensus_rejects == 0
+    else:
+        assert T is None and reloc.n_consensus_rejects == 1
+        assert reloc.last_reject == f"global consensus {n_f}, rival {n_rival}"
 
 
 def test_pipeline_relocalizes_after_occlusion_and_jump(cam):
@@ -332,16 +375,16 @@ def test_model_cache_keyed_on_volume_contents(cam):
     vol = tsdf.integrate_frame(tsdf.create(CFG.tsdf, "cpu"), dm, cf, rays, torch.eye(4), INTR,
                                CFG.tsdf)
     reloc = _reloc(restarts=1)
-    reloc.attempt(vol, dm, T_hint=np.eye(4))
+    reloc.attempt(vol, dm, cf, T_hint=np.eye(4))
     key1 = reloc._model_cache[0]
     nb = int(vol.n_blocks)
     vol2 = tsdf.integrate_frame(vol, dm, cf, rays, torch.eye(4), INTR, CFG.tsdf)
     assert int(vol2.n_blocks) == nb and vol2.tsdf.data_ptr() == vol.tsdf.data_ptr()
-    reloc.attempt(vol2, dm, T_hint=np.eye(4))
+    reloc.attempt(vol2, dm, cf, T_hint=np.eye(4))
     assert reloc._model_cache[0] != key1, "updated volume contents must miss the model cache"
     key2 = reloc._model_cache[0]
     model = reloc._model_cache[1]
-    reloc.attempt(vol2, dm, T_hint=np.eye(4))
+    reloc.attempt(vol2, dm, cf, T_hint=np.eye(4))
     assert reloc._model_cache[0] == key2 and reloc._model_cache[1] is model
 
 
@@ -370,7 +413,7 @@ def test_stride_and_voxel_ladder_match_jax(cam, fused_orbit):
     jv = jtsdf.TSDFVolume(**{k: jnp.asarray(v) for k, v in st.items()})
     mp, mm, _ = jmc.extract_surface_samples(jv, JCFG.tsdf, 16384)
     frame = np.asarray(jcamera.pixel_rays(JINTR))  # (H, W, 2)
-    dm, _ = _meters(*cam.capture(poses[4]))
+    dm, cf = _meters(*cam.capture(poses[4]))
     src = np.concatenate([frame * dm[..., None], dm[..., None]], -1).reshape(-1, 3)
     dense = np.random.RandomState(0).uniform(-1.0, 1.0, (40000, 3)).astype(np.float32)
     jr, pr = JRelocalizer(JINTR, JCFG, feature_points=2048), _reloc(feature_points=2048)
@@ -445,12 +488,12 @@ def test_hint_rung_pose_matches_jax(cam, fused_orbit):
     poses, world, st = fused_orbit
     vol = interop.volume_from_jax_arrays(st, "cpu")
     assert not bool(mc.extract_surface_samples(vol, CFG.tsdf, 32768)[2])
-    dm, _ = _meters(*cam.capture(poses[4]))
+    dm, cf = _meters(*cam.capture(poses[4]))
     jr = JRelocalizer(JINTR, JCFG, min_inliers=500, model_points=32768)
     Tj = jr.attempt(jtsdf.TSDFVolume(**{k: jnp.asarray(v) for k, v in st.items()}), dm,
                     T_hint=world[3])
     pr = Relocalizer(INTR, CFG, device="cpu", min_inliers=500, model_points=32768)
-    Tp = pr.attempt(vol, dm, T_hint=world[3])
+    Tp = pr.attempt(vol, dm, cf, T_hint=world[3])
     assert Tj is not None and Tp is not None, (jr.last_reject, pr.last_reject)
     assert jr.n_hint_success == pr.n_hint_success == 1
     assert Tp.dtype == np.float64
@@ -536,7 +579,7 @@ def test_late_loss_in_a_map_over_the_sample_budget_recovers():
     maps = TargetMaps.from_depth(frame.depth, pipe.rays)
     T_cw = torch.as_tensor(np.linalg.inv(pipe.T_world_cam), dtype=torch.float32)
     _, vis_old, _ = projective_overlap(old, old_mask, maps, INTR, T_cw)
-    _, model, mask, _, _ = pipe._relocalizer._model_cache
+    _, model, mask, _, _, _ = pipe._relocalizer._model_cache
     n_m, vis_new, _ = projective_overlap(model, mask, maps, INTR, T_cw)
     assert int(vis_old) == 0 and int(vis_new) >= 500, (int(vis_old), int(vis_new))
     # the two samples are disjoint along the corridor: the oldest blocks, and those near the hint
@@ -546,6 +589,43 @@ def test_late_loss_in_a_map_over_the_sample_budget_recovers():
     assert not pipe.lost and pipe.counts.get("tracking_lost") == 1
     t_err, r_err = _pose_err(pipe.T_world_cam, poses[-1])
     assert t_err < 0.06 and r_err < 0.12, (t_err, r_err)
+
+
+@pytest.mark.parametrize("slide", [0.0, 0.14], ids=["at_the_truth", "slid_14cm"])
+def test_hint_rung_gates_a_pose_slid_along_the_wall(slide):
+    """The corridor's checkered wall and spheres fused at their true poses
+    (x 0 to 0.96 m, 2 cm voxels); a frame from x = 0.48 m. Seeded at the
+    truth, rung 0 recovers within 1 cm / 0.02 rad. Seeded 14 cm along the
+    wall, the geometry holds no slide and rung 0's pose stays 14 cm off,
+    with thousands of inliers and the overlap gate passed: the slide gate
+    turns it down, and whatever the attempt returns is within 6 cm / 0.12
+    rad (ROADMAP C15)."""
+    cfg = dataclasses.replace(CFG, camera=CFG.camera.replace(depth_trunc=0.7))
+    cam = _corridor_camera()
+    rays = pixel_rays(INTR, "cpu")
+    vol = tsdf.create(cfg.tsdf, "cpu")
+    pose = lambda x: np.array([[1, 0, 0, x], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                              np.float64)
+    decode = lambda d, c: RGBDFrame.from_raw(torch.from_numpy(d), torch.from_numpy(c),
+                                             CAMC.depth_scale, 0.7, CAMC.depth_min)
+    for i in range(13):
+        f = decode(*cam.capture(pose(0.08 * i)))
+        vol = tsdf.integrate_frame(vol, f.depth, f.color, rays,
+                                   torch.as_tensor(pose(0.08 * i), dtype=torch.float32), INTR,
+                                   cfg.tsdf)
+    f = decode(*cam.capture(pose(0.48)))
+    reloc = Relocalizer(INTR, cfg, device="cpu", min_inliers=500, restarts=1)
+    T = reloc.attempt(vol, f.depth, f.color, T_hint=pose(0.48 + slide))
+    if not slide:
+        assert T is not None and reloc.n_hint_success == 1, reloc.last_reject
+        t_err, r_err = _pose_err(T, pose(0.48))
+        assert t_err < 0.01 and r_err < 0.02, (t_err, r_err)
+        assert reloc.n_texture_rejects == reloc.n_free_space_rejects == 0
+    else:
+        assert reloc.n_texture_rejects + reloc.n_free_space_rejects >= 1
+        if T is not None:
+            t_err, r_err = _pose_err(T, pose(0.48))
+            assert t_err < 0.06 and r_err < 0.12, (t_err, r_err)
 
 
 def test_slice_modules_import_without_jax():

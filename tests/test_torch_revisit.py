@@ -27,7 +27,10 @@ quarter resolution, in a small configuration (2 cm voxels in 8^3 blocks, a
 - a loss on the way back, inside the stretch that was evicted, is declared
   once, fuses nothing while latched (the map's keys and weight, live and
   stored, unchanged), gives the stream the stale pose and ticks there, and
-  recovers by the hint rung within 6 cm / 0.12 rad into the manager's pool.
+  recovers by the hint rung within 6 cm / 0.12 rad into the manager's pool;
+  with the relocalizer's first attempt 2 frames late (ROADMAP C15), the
+  hint rung's pose, slid along the wall, is turned down, and any recovery
+  is within the bounds.
 
 ``tests/test_torch_revisit_policy.py`` holds the manager's own revisit
 cases and frame-to-model on the revisit. The card twin (marked ``cuda``)
@@ -55,6 +58,7 @@ from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
 from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
 from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
 from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import MonoOdometryTSDF
+from azurekinect3dreconstruction_tpu_torch.tracking.relocalize import Relocalizer
 from azurekinect3dreconstruction_tpu_torch.tsdf import StreamingTSDF
 from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key_np, unpack_key_np
 
@@ -233,15 +237,25 @@ def test_revisit_tracks_and_streams_as_jax(revisit):
     assert set(msv.store) == set(sv.store) and set(msv.soups) == set(sv.soups)
 
 
-def test_loss_on_the_way_back_recovers_in_the_streamed_map(revisit):
+@pytest.mark.parametrize("shift", [0, 2], ids=["first_resumed", "two_late"])
+def test_loss_on_the_way_back_recovers_in_the_streamed_map(revisit, shift):
     """Dark frames on the way back, over the stretch the way out evicted;
-    the scan resumes at the pose where it went dark. The dark frames start
-    2 frames after a tracking check, so the check after their second frame
-    declares the loss and the relocalizer's fifth lost frame, its next
-    attempt, is the first resumed one; a tick falls on a lost frame."""
+    the scan resumes at the pose where it went dark. With ``shift`` 0 the
+    dark frames start 2 frames after a tracking check, so the check after
+    their second frame declares the loss and the relocalizer's fifth lost
+    frame, its next attempt, is the first resumed one; a tick falls on a
+    lost frame. With ``shift`` 2 they start 2 frames earlier and the
+    attempt comes 2 frames after the resumed pose, 16 cm on: the hint rung
+    slid along the wall to a pose 161 mm off there and fused at it (ROADMAP
+    C15). Now the slide gate turns that pose down; the corridor repeats
+    every 0.6 m, and the later attempts, whose hint is stale, may recover
+    only through the global ladder, whose winner must hold a consensus
+    that no repeat rivals. Either way the loss is declared once,
+    at most one recovery comes, within the bounds, and nothing is fused
+    before it."""
     frames, gx, _, _, _, _ = revisit
-    k = N_OUT + 14  # the way back at x = 2.64 m
-    assert k % 4 == 2 and k % 8 == 6
+    k = N_OUT + 14 - shift  # the way back at x = 2.64 m (shift 0)
+    assert (k + shift) % 4 == 2 and (k + shift) % 8 == 6
     dark = (np.zeros((INTR.height, INTR.width), np.uint16),
             np.zeros((INTR.height, INTR.width, 3), np.uint8))
     seq = frames[:k] + [dark] * N_DARK + frames[k - 1:]
@@ -251,6 +265,10 @@ def test_loss_on_the_way_back_recovers_in_the_streamed_map(revisit):
     pipe = MonoOdometryTSDF(INTR, CFG, device="cpu", streaming=sv, relocalize=True,
                             reloc_window=2, reloc_interval=4, reloc_min_inliers=500)
     pipe.telemetry.sink = lambda line: None
+    # one RANSAC restart an attempt, as tests/test_torch_relocalize.py's attempts take: a
+    # late loss runs the descriptor ladder on every later attempt, ~25 s each with four
+    pipe._relocalizer = Relocalizer(INTR, CFG, device="cpu", rays=pipe.rays,
+                                    model_points=pipe.model_points, min_inliers=500, restarts=1)
     lost_at = recovered_at = None
     given, lost_ticks, latched = [], 0, []
     maybe_tick = sv.maybe_tick
@@ -272,16 +290,23 @@ def test_loss_on_the_way_back_recovers_in_the_streamed_map(revisit):
             w = float(pipe.volume.weight[:int(pipe.volume.n_blocks)].double().sum())
             w += sum(float(sv._stored_payload(key)[1].astype(np.float64).sum()) for key in sv.store)
             latched.append((_live_keys(pipe.volume) | set(sv.store), w))
-    assert watch.evicted and any(gx[k - 1] - 0.5 < (c[0] + 0.5) * CFG.tsdf.block_size
-                                 for c in unpack_key_np(np.asarray(list(watch.evicted))))
+    # evictions before the loss; after a recovery, the stretch around the dark site
+    assert watch.evicted and (recovered_at is None or any(
+        gx[k - 1] - 0.5 < (c[0] + 0.5) * CFG.tsdf.block_size
+        for c in unpack_key_np(np.asarray(list(watch.evicted)))))
     counts = pipe.counts
-    assert counts.get("tracking_lost") == 1 and counts.get("relocalized") == 1, counts
-    assert k <= lost_at < recovered_at
+    reloc = pipe._relocalizer
+    assert counts.get("tracking_lost") == 1 and counts.get("relocalized", 0) <= 1, counts
+    assert k <= lost_at and (recovered_at is None or lost_at < recovered_at)
     assert all(m == latched[0] for m in latched)  # nothing fused while latched
     assert given and max(given) == 0.0 and lost_ticks  # streams at the stale pose, and ticks
-    assert pipe._relocalizer.n_hint_success >= 1
-    t, r = _pose_err(pipe.trajectory[recovered_at + 1], _pose(xs[recovered_at]))
-    assert t < POSE_T_LIMIT_M and r < POSE_R_LIMIT_RAD, (t, r)
+    if shift:
+        assert reloc.n_texture_rejects + reloc.n_free_space_rejects >= 1
+    else:
+        assert counts.get("relocalized") == 1 and reloc.n_hint_success >= 1, counts
+    if recovered_at is not None:
+        t, r = _pose_err(pipe.trajectory[recovered_at + 1], _pose(xs[recovered_at]))
+        assert t < POSE_T_LIMIT_M and r < POSE_R_LIMIT_RAD, (t, r)
     assert pipe.volume is sv.vol and not bool(pipe.volume.overflow)
 
 

@@ -13,9 +13,16 @@ blocks, rings at 1.4 / 1.6 m unless a case says otherwise):
   deferred, which merges the stored payload first instead of dropping it;
 - ``MonoOdometryTSDF(tracking="frame_to_model", streaming=...)`` out and
   back, whose model refresh samples the reloaded blocks on the way back,
-  against the same into a plain pool: both within 20 mm ATE RMSE, and no
-  pose of one more than 20 mm from the other's (the model is sampled by
-  slot, and compaction reorders slots, so they are not equal to the bit).
+  against the same into a plain pool: both within 20 mm ATE RMSE, and the
+  trajectories and sorted soups equal to the bit. The model ranks its
+  blocks by key, so compaction and reloads, which reorder slots, do not
+  move it, and the manager's rings come from
+  ``StreamingTSDF.for_pipeline(..., tracking="frame_to_model")``, whose
+  reload ring holds every block the refresh reads (``model_ring``, 1.91 m
+  here) while the camera covers one interval's 0.32 m: 48 frames out, into
+  the 384-block pool of ``tests/test_torch_revisit.py``. With the 1.4 m
+  reload ring the others use, blocks within the model's reach stayed
+  evicted and the two runs parted at the first refresh after the turn.
 
 The card twin (marked ``cuda``) runs the frame-to-model revisit on the card
 (``python -m pytest --noconftest -m cuda tests/test_torch_revisit_policy.py``;
@@ -48,7 +55,11 @@ from azurekinect3dreconstruction_tpu_torch.tsdf import StreamingTSDF
 from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
 from azurekinect3dreconstruction_tpu_torch.tsdf.hash import pack_key_np, unpack_key_np
-from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import _scatter_reload
+from azurekinect3dreconstruction_tpu_torch.tsdf.streaming import (
+    _scatter_reload,
+    integration_reach,
+    model_ring,
+)
 from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
 
 torch.set_num_threads(2)
@@ -61,8 +72,7 @@ CFG = dataclasses.replace(PipelineConfig(tsdf=TCFG, odometry=OdometryConfig(pyra
 MANAGER = dict(evict_dist=1.6, reload_dist=1.4, high_water=0.7, check_interval=4)
 STEP = 0.08
 ATE_LIMIT_M = 0.02
-F2M_OUT, F2M_BLOCKS = 30, 224
-F2M_POSE_DIFF_M = ATE_LIMIT_M  # each of the two is within it of the truth
+F2M_OUT, F2M_BLOCKS = 48, 384
 
 
 def _pose(x):
@@ -271,9 +281,12 @@ def _f2m_revisit(device):
         raw.append((torch.round(z * 1000.0).cpu().numpy().astype(np.uint16),
                     torch.round(c * 255.0).cpu().numpy().astype(np.uint8)))
     idx = list(range(F2M_OUT)) + list(range(F2M_OUT - 2, -1, -1))
-    cfg = dataclasses.replace(CFG, tsdf=TCFG.replace(block_capacity=F2M_BLOCKS, hash_capacity=1024))
+    cfg = dataclasses.replace(CFG, tsdf=TCFG.replace(block_capacity=F2M_BLOCKS, hash_capacity=2048))
     plain = dataclasses.replace(CFG, tsdf=TCFG.replace(block_capacity=1024, hash_capacity=4096))
-    sv = StreamingTSDF(cfg.tsdf, device=device, **MANAGER)
+    sv = StreamingTSDF.for_pipeline(cfg, high_water=MANAGER["high_water"],
+                                    check_interval=MANAGER["check_interval"],
+                                    margin=MANAGER["check_interval"] * STEP,
+                                    tracking="frame_to_model", device=device)
     watch = _Watch(sv)
     out = []
     for c, streaming in ((cfg, sv), (plain, None)):
@@ -292,13 +305,29 @@ def _check_f2m_revisit(gt, ps, sv, watch, pp):
     assert ps.counts.get("model_icp_ok", 0) > 0 and pp.counts.get("model_icp_ok", 0) > 0
     assert ate(ps.trajectory[1:], gt)["rmse"] <= ATE_LIMIT_M
     assert ate(pp.trajectory[1:], gt)["rmse"] <= ATE_LIMIT_M
-    diff = max(float(np.linalg.norm(se3.se3_log(torch.as_tensor(
-        np.linalg.inv(b) @ a)).numpy()[:3])) for a, b in zip(ps.trajectory, pp.trajectory))
-    assert diff <= F2M_POSE_DIFF_M, diff
+    np.testing.assert_array_equal(np.stack(ps.trajectory), np.stack(pp.trajectory))
+    got, want = _sorted_soup(ps.extract_mesh()), _sorted_soup(pp.extract_mesh().compact())
+    assert got.shape == want.shape and got.shape[0] > 1000, (got.shape, want.shape)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_frame_to_model_revisit_against_a_plain_pool():
     _check_f2m_revisit(*_f2m_revisit("cpu"))
+
+
+def test_frame_to_model_needs_a_ring_that_holds_its_model():
+    """A reload ring short of what a model refresh reads is refused at
+    construction; ``for_pipeline(..., tracking="frame_to_model")`` reaches
+    ``margin`` beyond it, and frame-to-frame keeps its own ring."""
+    short = StreamingTSDF(TCFG, device="cpu", **MANAGER)
+    with pytest.raises(ValueError, match="reload ring"):
+        MonoOdometryTSDF(INTR, CFG, device="cpu", streaming=short, tracking="frame_to_model")
+    MonoOdometryTSDF(INTR, CFG, device="cpu", streaming=short)
+    f2f = StreamingTSDF.for_pipeline(CFG, margin=0.32, device="cpu")
+    f2m = StreamingTSDF.for_pipeline(CFG, margin=0.32, tracking="frame_to_model", device="cpu")
+    assert f2f.reload_dist == integration_reach(CFG) + 0.64 < model_ring(CFG) + 0.32
+    assert f2m.reload_dist == model_ring(CFG) + 0.32 and f2m.evict_dist == f2m.reload_dist + 1.0
+    MonoOdometryTSDF(INTR, CFG, device="cpu", streaming=f2m, tracking="frame_to_model")
 
 
 @pytest.fixture(scope="module")
