@@ -190,7 +190,30 @@ worklist, odometry pyramid [20, 10, 5]):
    4 cm / 3 deg of the truth, then ``cli.dual_fusion --rig-calib`` over 8
    pairs with the counters zeroed just before and read just after: the
    calibration loaded, no auto-calibration attempt, B1 16, no overflow;
-18. runs the port's ``bench.py`` (``bench_phase``): ``python -m
+18. drives the live camera's path (``aligned_phase``): the color-aligned
+   frames that ``--source k4a`` and ``mkv:`` feed, made from the bench
+   sweep (640x576 depth through ``transformed_depth`` with the nominal
+   32 mm baseline into the 1280x720 color camera, u16 mm; color rendered
+   at 1280x720 from the color camera's pose; the color intrinsics):
+   ``transformed_depth`` on the card equal to the CPU's to the bit; the
+   unique block keys a frame against allocate's 2,048 dedup budget and the
+   largest ``n_active`` at the true poses, from which the worklist size
+   (the first of the JAX package's ``WORKLIST_SIZES`` that holds it); B1
+   on one frame equal to its plain version to the bit and B2 on one pair
+   within its tolerances and equal to itself on a second launch, with the
+   instance B2 took, each kernel's device us, wrapper and plain ms and
+   bound; frame to frame over 64 poses and frame to model over 32
+   (``f2m_phase``), the counters zeroed just before and read just after
+   each: no gate rejection, no overflow, ATE <= 20 mm against the color
+   camera's truth (frame to model also <= frame to frame + 0.5 mm), B1
+   once a frame, B2 once a pair, ms/frame beside 33.3 ms; the mesh with no
+   overflow; then ``cli.live_mono --source replay:DIR --voxel 0.005`` on a
+   log of the 64 frames whose calibration gives depth and color the color
+   intrinsics: exit 0, every frame tracked, the mesh written, ATE <= 20
+   mm, and its sticky overflow set exactly when the largest ``n_active``
+   exceeds the default worklist it keeps (ROADMAP C18, printed as
+   ``C18 (open; ...)``);
+19. runs the port's ``bench.py`` (``bench_phase``): ``python -m
    azurekinect3dreconstruction_tpu_torch.cli.bench`` in a subprocess, at
    ``bench.py``'s sizes and by its methods, logging its JSON line and its
    stderr marks: exit code 0, every key of ``bench.py``'s line plus an empty
@@ -256,12 +279,17 @@ checkout it measures the parent, as ``--odometry`` does.
 runs only host streaming's checks (``streaming_main``: step 13 without
 the CLI subprocess), on the card unless ``--device cpu``, at both runs or
 only the one at ``--scale``; the same in a parent checkout.
+
+    python3 chip_smoke.py --aligned
+
+runs only step 18 (``aligned_main``) on the card; one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -415,6 +443,16 @@ B2_FIVE_LEVEL_SCHEDULES = ((20, 10, 5, 5, 5), (0, 0, 0, 0, 5))
 BENCH_TIMEOUT_S = 900
 BENCH_MIN_FITNESS = 0.3
 BENCH_RELOC_ERR_LIMIT_MM = 50.0
+# the live camera's color-aligned 1280x720 frames (aligned_phase): frame to frame over the
+# bench sweep's 64 poses (and the entry point over them), frame to model over its first 32,
+# into the bench's 5 mm pool; the JAX package's worklist ladder (ops/pallas/tsdf_kernels.py:
+# 52), from which a caller takes the first size that holds a frame's live blocks; the live
+# loop's limit (PERF.md section 2)
+N_ALIGNED_F2F = 64
+N_ALIGNED_F2M = 32
+ALIGNED_BLOCKS = 16384
+WORKLIST_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+FRAME_LIMIT_MS = 33.3
 
 
 def _log(msg: str) -> None:
@@ -470,15 +508,17 @@ def _profiled(fn, kernel: str):
 
 
 def _device_us(fn, reps: int, kernel: str):
-    """Device time per call of the CUDA kernels whose name holds ``kernel``,
-    from ``torch.profiler`` over ``reps`` calls after one warm-up, and their
-    launches per call; (None, 0) when the profiler sees no device time."""
+    """Device time per launch of the CUDA kernels whose name holds
+    ``kernel``, from ``torch.profiler`` over ``reps`` calls after one
+    warm-up: the time it recorded over the launches it saw, which may be
+    fewer than were made; and those launches per call. (None, 0) when the
+    profiler sees no device time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     total, count = _profiled(lambda: [fn() for _ in range(reps)], kernel)
-    return (total / reps if total > 0 else None), count / reps
+    return (total / count if total > 0 and count else None), count / reps
 
 
 def _bound(n_bytes: float, flops: float):
@@ -556,7 +596,7 @@ def _median_ms(fn, dev, reps: int = 5) -> float:
 
 def odometry_timing(odo, args, dev):
     """One frame pair through ``compute_odometry_fast(*args)``: device us
-    per call of its odometry kernels and their launches per call
+    per launch of its odometry kernel and its launches per call
     (``torch.profiler``), and the call's ms, synchronized after each call
     (median of ``ODO_REPS``, CUDA events)."""
     call = lambda: odo.compute_odometry_fast(*args)
@@ -609,17 +649,15 @@ def _run_frames(pipe, raw, each: bool):
     """Host-clock ms of ``pipe.process_frame`` over ``raw``: each frame's,
     synchronized after each, when ``each``; else ms/frame with one
     synchronization at the end."""
-    import torch
-
     frame_ms = []
     t0 = time.perf_counter()
     for d, c in raw:
         pipe.process_frame(d, c)
         if each:
-            torch.cuda.synchronize()
+            _sync(pipe.device)
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-    torch.cuda.synchronize()
+    _sync(pipe.device)
     return frame_ms if each else (time.perf_counter() - t0) * 1e3 / len(raw)
 
 
@@ -698,7 +736,7 @@ def mesh_phase(pipe, tcfg, dev, gpu: str) -> list:
     return failures
 
 
-def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
+def f2m_phase(intr, cfg, raw, gt, dev, gpu: str, worklist_size: int = 2048):
     """Frame-to-model tracking over ``raw`` beside frame-to-frame, checked
     against the ground truth ``gt``, then a phase breakdown of one frame:
     the refinement's CUDA graph, built as ``make_raw_f2m_step`` builds it,
@@ -724,11 +762,11 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         icp_projective,
     )
     from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
-    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate, rpe
 
     n = len(raw)
     gt_np = [g.cpu().numpy().astype(np.float64) for g in gt]
-    kw = dict(device=dev, worklist_size=2048)
+    kw = dict(device=dev, worklist_size=worklist_size)
     pf = MonoOdometryTSDF(intr, cfg, **kw)
     for d, c in raw:
         pf.process_frame(d, c)
@@ -749,13 +787,14 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
         _sync(dev)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
-    a_m = ate(pm.trajectory[1:], gt_np)
+    a_m, r_m = ate(pm.trajectory[1:], gt_np), rpe(pm.trajectory[1:], gt_np)
     ev = pm.counts
     rejected = pm.odometry_failures
     overflow = bool(pm.volume.overflow)
     _log(f"frame_to_model launches: {json.dumps(counts)}  [{gpu}]")
     _log(f"frame_to_model over {n} frames: ATE rmse {a_m['rmse'] * 1e3:.3f} mm (max "
-         f"{a_m['max'] * 1e3:.3f} mm, final drift {a_m['final_drift'] * 1e3:.3f} mm); "
+         f"{a_m['max'] * 1e3:.3f} mm, final drift {a_m['final_drift'] * 1e3:.3f} mm; RPE "
+         f"{r_m['trans_rmse'] * 1e3:.3f} mm / {np.degrees(r_m['rot_rmse']):.4f} deg); "
          f"frame_to_frame ATE rmse {a_f['rmse'] * 1e3:.3f} mm (max {a_f['max'] * 1e3:.3f} mm); "
          f"refinements {json.dumps(ev)}, gate rejections {rejected}, overflow {overflow}, "
          f"n_blocks {int(pm.volume.n_blocks)}  [{gpu}]")
@@ -828,7 +867,8 @@ def f2m_phase(intr, cfg, raw, gt, dev, gpu: str):
                                      se3.inverse(T_odo)),
         "icp_refine_eager": lambda: refine_eager(TargetMaps.from_depth(d, pm.rays),
                                                  se3.inverse(T_odo)),
-        "fuse": lambda: tk.integrate_step(vol, d, c, T_odo, pm.rays, intr, cfg.tsdf, 2048),
+        "fuse": lambda: tk.integrate_step(vol, d, c, T_odo, pm.rays, intr, cfg.tsdf,
+                                          worklist_size),
         "model_refresh": lambda: mc.extract_sampled_surface_model(
             pm.volume, cfg.tsdf, pm.model_points, pm._T, pm._model_reach(),
             sample_blocks=pm.model_sample_blocks),
@@ -1180,6 +1220,124 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
         failures.append("the dual save did not read back non-empty and finite")
     tmp.cleanup()
     return failures, launches
+
+
+def b1_frame_check(dec, gt, intr, rays, tcfg, rows: int, gpu: str, what: str) -> dict:
+    """B1 on the third of ``dec``'s frames into a volume of the first two
+    (at the poses ``gt``): one launch at M = ``rows`` against
+    ``integrate_worklist_plain`` on copies of the same pools, then its
+    wrapper and plain ms (CUDA events), device us per launch
+    (``torch.profiler``) and bound from the voxels the update rule updates.
+    Logs them and returns them for the kernels line; the caller judges."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+
+    vol = tsdf.create(tcfg, rays.device)
+    for i in range(2):
+        vol = tsdf.integrate_frame(vol, dec[i][0], dec[i][1], rays, gt[i], intr, tcfg)
+    d2, c2, _ = dec[2]
+    vol = tsdf.allocate(vol, d2, rays, gt[2], tcfg)
+    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, gt[2], intr, tcfg)
+    wl = wl[:rows].contiguous()
+    pools = ("tsdf", "weight", "color")
+    vk = vol._replace(**{k: getattr(vol, k).clone() for k in pools})
+    vp = vol._replace(**{k: getattr(vol, k).clone() for k in pools})
+    del vol
+    tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
+    tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg)
+    torch.cuda.synchronize()
+    n_live = min(int(n_active), wl.shape[0])
+    live = wl[:n_live, 0].long()
+    wk, wp = vk.weight[live], vp.weight[live]
+    agree = wk == wp
+    frac = float(agree.float().mean())
+    err_t = float((vk.tsdf[live] - vp.tsdf[live]).abs()[agree].max())
+    err_c = float((vk.color[live] - vp.color[live]).abs()[agree[:, None].expand(-1, 3, -1)].max())
+    bitwise = all(torch.equal(getattr(vk, k), getattr(vp, k)) for k in pools)
+    n_updated = int(tk.updated_voxels(wl[:n_live], d2, gt[2], intr, tcfg))
+    grid = tk.launch_grid(tcfg.block_resolution)
+    call = lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
+    ms_k = _time_ms(call, 50)
+    ms_p = _time_ms(lambda: tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg), 5)
+    us_k, per_call = _device_us(call, 20, "tsdf_integrate_kernel")
+    n_bytes = b1_bound_bytes(n_updated, n_live, d2, c2)
+    bound, by = _bound(n_bytes, 0.0)
+    _log(f"B1 tsdf_integrate at {what}: {n_live} live worklist rows of M={rows}, "
+         f"{n_updated / max(wk.numel(), 1):.3%} of their voxels updated (update rule); weights "
+         f"equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g} where they "
+         f"agree; pools equal to the bit: {bitwise}; persistent grid {grid} CTAs  [{gpu}]")
+    _log(f"B1 time at {what}, M={rows} ({n_live} live): wrapper {ms_k:.4f} ms (CUDA events), "
+         f"device {_fmt_us(us_k)} per launch ({per_call:g} kernel/call, torch.profiler), plain "
+         f"{ms_p:.4f} ms; bound {bound * 1e3:.3f} us ({by}: {n_updated} voxels updated, "
+         f"{n_bytes / 1e6:.2f} MB)  [{gpu}]")
+    return dict(max_abs_err=max(err_t, err_c), ms=ms_k, plain_ms=ms_p, bound_ms=bound,
+                bound_by=by, library_ms=None, device_us=us_k, weight_equal_fraction=frac,
+                bitwise=bitwise, grid=grid, live_rows=n_live, updated_voxels=n_updated)
+
+
+def b2_pair_check(dec, intr, ocfg, gpu: str, what: str):
+    """B2 on the first two of ``dec``'s frames: the kernel against
+    ``pyramid_plain`` within ``B2_POSE_TOL`` / ``B2_FITNESS_TOL`` and a
+    second launch equal to the bit; the instance the launch takes (shared
+    memory unless a level that iterates outgrows ``launch_grid``'s grid x
+    band); wrapper and plain ms on one prebuilt pyramid, the whole call's
+    device us and ms, and the bound from this pair's own iterations.
+    Returns (failures, figures for the kernels line)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+
+    (d0, _, i0), (d1, _, i1) = dec[0], dec[1]
+    dev = d0.device
+    args = (i0, d0, i1, d1, intr, ocfg)
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args)
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *args)
+    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args)
+    torch.cuda.synchronize()
+    err_T = float((rk.T_target_source - rp.T_target_source).abs().max())
+    err_f = abs(float(rk.fitness) - float(rp.fitness))
+    same = bool(torch.equal(rk.T_target_source, rk2.T_target_source))
+    levels = len(ocfg.pyramid_iters)
+    pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
+    grid, band = odo.launch_grid()
+    dims = odo.pack_levels(pyr_s, pyr_t, intr, ocfg, dev)[1]
+    oversized = odo.oversized_levels(dims, grid, band)
+    instance = "global scratch (kGlobal)" if oversized else "shared memory"
+    level_px = [dims[3 * lvl] * dims[3 * lvl + 1] for lvl in range(levels)]
+    _log(f"B2 odometry_pyramid at {what}: max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} "
+         f"(fitness kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); a second "
+         f"launch equal to the bit: {same}; levels {level_px} pixels; grid {grid} CTAs x band "
+         f"{band} pixels = {grid * band}, headroom {grid * band - level_px[0]} pixels over the "
+         f"finest level; oversized levels {oversized}: the {instance} instance  [{gpu}]")
+    failures = []
+    if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same):
+        failures.append(f"B2 at {what} disagrees with its plain version or with itself")
+    terms = (0.0 if ocfg.term == "depth" else 1.0, 0.0 if ocfg.term == "color" else 1.0)
+    state0 = torch.zeros(odo.STATE, device=dev)
+    state0[:12] = torch.eye(4, device=dev)[:3].reshape(-1)
+    runner = lambda run: (lambda: run(state0.clone(), pyr_s, pyr_t, intr, ocfg, *terms))
+    ms_k = _time_ms(runner(odo.pyramid_cuda), 20)
+    ms_p = _time_ms(runner(odo.pyramid_plain), 3)
+    us_k, per_call, ms_call = odometry_timing(odo, args, dev)
+    pixels, n_src, n_valid = b2_work(pyr_s, pyr_t, intr, ocfg, terms)
+    flops = pixels * B2_FLOPS_PROLOGUE + n_src * B2_FLOPS_WARP + n_valid * B2_FLOPS_VALID
+    n_bytes = 4 * 4 * pixels + 64  # I_s, D_s, I_t, D_t of every level, read once
+    bound, by = _bound(n_bytes, flops)
+    _log(f"B2 at {what} per frame pair ({sum(ocfg.pyramid_iters)} GN iterations, one launch): "
+         f"wrapper {ms_k:.4f} ms (CUDA events), device {_fmt_us(us_k)} per launch "
+         f"({per_call:g} kernel/call, torch.profiler), plain {ms_p:.4f} ms; "
+         f"compute_odometry_fast (pyramids + launch, synchronized, median of {ODO_REPS}) "
+         f"{ms_call:.4f} ms; bound {bound * 1e3:.3f} us ({by}: {pixels:.0f} level pixels, "
+         f"{n_src:.0f} / {n_valid:.0f} source-valid / valid pixel-iterations, "
+         f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)  [{gpu}]")
+    return failures, dict(max_abs_err=max(err_T, err_f), ms=ms_k, plain_ms=ms_p,
+                          bound_ms=bound, bound_by=by, library_ms=None, device_us=us_k,
+                          second_launch_equal=same, odometry_call_ms=ms_call,
+                          max_level_pixels=grid * band, headroom_pixels=grid * band - level_px[0],
+                          instance=instance)
 
 
 def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str, R: int = B1_ODD_R):
@@ -4462,6 +4620,262 @@ def rig_calib_phase(dev, gpu: str, n_pairs: int = N_RIG_CALIB_PAIRS, scale: floa
     return failures, counts
 
 
+def _aligned_frames(dev, n: int):
+    """The live camera's frames (``--source k4a`` and ``mkv:`` hand the
+    pipeline ``capture.transformed_depth``): over the bench sweep's first
+    ``n`` poses, each a depth-camera pose, depth rendered in the NFOV depth
+    camera, put through ``ops.depth_to_color.transformed_depth`` with the
+    nominal calibration (its 32 mm baseline) into the 720p color camera and
+    quantized to u16 mm, and color rendered at 720p from the color camera's
+    pose. Returns (the calibration, the frames, the color camera's poses
+    relative to its first as the truth, the first depth-camera render)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration, pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+    from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+
+    cal = CameraCalibration.azure_kinect_nominal()
+    cam_d = SyntheticCamera(intrinsics=cal.depth, device=dev)
+    cam_c = SyntheticCamera(intrinsics=cal.color, device=dev)
+    rays_d = pixel_rays(cal.depth, dev)
+    T_depth_color = np.linalg.inv(cal.color_from_depth)
+    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n]
+    raw, first = [], None
+    for T in poses:
+        z, _ = cam_d.render(T)
+        first = z if first is None else first
+        _, color = cam_c.render(T @ T_depth_color)
+        raw.append(_quantize((transformed_depth(z, rays_d, cal), color)))
+    colors = [T @ T_depth_color for T in poses]
+    truth = [torch.as_tensor(np.linalg.inv(colors[0]) @ T, dtype=torch.float32, device=dev)
+             for T in colors]
+    return cal, raw, truth, first
+
+
+def aligned_phase(dev, gpu: str):
+    """The live camera's path on the card: the color-aligned 1280x720 frames
+    that ``--source k4a`` and ``mkv:`` feed (``_aligned_frames``), with the
+    color camera's intrinsics, at the bench's 5 mm pool of
+    ``ALIGNED_BLOCKS`` blocks.
+
+    ``transformed_depth`` on the card against the CPU on one frame; the
+    blocks each frame allocates (unique keys against allocate's dedup
+    budget) and the live blocks in the frustum (``n_active``) at the true
+    poses, and from them the worklist a caller of the JAX class would pass
+    (the first of ``WORKLIST_SIZES`` that holds the largest, and never
+    below the pipeline's default); B1 on one frame and B2 on one pair
+    against their plain versions (B1 to the bit, B2 within ``B2_POSE_TOL``
+    / ``B2_FITNESS_TOL`` and a second launch to the bit), their device us,
+    wrapper and plain ms, bounds, and which instance B2 took; frame to
+    frame over ``N_ALIGNED_F2F`` poses and frame to model over
+    ``N_ALIGNED_F2M`` (``f2m_phase`` at this size and worklist: beside
+    frame to frame, its phase breakdown and the refinement's graph), the
+    counters zeroed just before and read just after each, against the
+    color camera's truth, ms/frame synchronized per frame and with one sync
+    beside the 33.3 ms limit; the mesh of the frame-to-frame pass; then
+    ``cli.live_mono --source replay:DIR --voxel 0.005`` in a subprocess over
+    the same frames, logged with a calibration whose depth and color are
+    both the color camera's intrinsics. The entry point keeps the default
+    worklist, so its sticky overflow must be set exactly when the largest
+    ``n_active`` exceeds it (ROADMAP C18). Returns (failures, the kernels'
+    figures by kernel name)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+    from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration, pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.io.replay import FrameRecorder
+    from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.tsdf import hash as vhash
+    from azurekinect3dreconstruction_tpu_torch.tsdf import marching_cubes as mc
+    from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate, rpe
+
+    t_phase = time.perf_counter()
+    failures = []
+    voxel = 0.005
+    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=voxel, sdf_trunc=4 * voxel,
+                                         block_resolution=16, block_capacity=ALIGNED_BLOCKS,
+                                         hash_capacity=4 * ALIGNED_BLOCKS))
+    tcfg, ocfg = cfg.tsdf, cfg.odometry
+    n = max(N_ALIGNED_F2F, N_ALIGNED_F2M)
+    t0 = time.perf_counter()
+    cal, raw, truth, z0 = _aligned_frames(dev, n)
+    intr = cal.color
+    _sync(dev)
+    make_s = time.perf_counter() - t0
+    size = f"{intr.width}x{intr.height}"
+    rays = pixel_rays(intr, dev)
+    valid = [float((d > 0).mean()) for d, _ in raw]
+    _log(f"aligned frames: {n} at {size} (depth {cal.depth.width}x{cal.depth.height} through "
+         f"transformed_depth, 32 mm baseline), made in {make_s:.2f} s; depth valid on "
+         f"{min(valid):.4f}-{max(valid):.4f} of the pixels  [{gpu}]")
+
+    # -- transformed_depth: the card against the CPU on one frame ---------------
+    rays_d = pixel_rays(cal.depth, dev)
+    td = transformed_depth(z0, rays_d, cal)
+    td_cpu = transformed_depth(z0.cpu(), pixel_rays(cal.depth, "cpu"), cal)
+    diff = (td.cpu() - td_cpu).abs()
+    td_equal = bool(torch.equal(td.cpu(), td_cpu))
+    td_ms = _median_ms(lambda: transformed_depth(z0, rays_d, cal), dev, 11)
+    _log(f"transformed_depth {cal.depth.width}x{cal.depth.height} -> {size} on {dev.type} "
+         f"against the CPU: equal to the bit {td_equal} ({int((diff > 0).sum())} pixels differ, "
+         f"max {float(diff.max()):.3g} m); {td_ms:.4f} ms a frame (synchronized, median of 11)"
+         f"  [{gpu}]")
+    if not td_equal:
+        failures.append(f"transformed_depth on {dev.type} differs from the CPU's on "
+                        f"{int((diff > 0).sum())} pixels")
+
+    # -- allocation's dedup budget and the frustum's live blocks at the truth ---
+    budget = inspect.signature(tsdf.allocate).parameters["dedup_budget"].default
+    default_wl = inspect.signature(MonoOdometryTSDF).parameters["worklist_size"].default
+    dec = [_decode(r, cfg, dev) for r in raw]
+    vol = tsdf.create(tcfg, dev)
+    n_keys = -(-intr.height // 2) * -(-intr.width // 2) * 3  # allocate's stride-2 rays x 3
+    unique, live = [], []
+    for (d, _, _), T in zip(dec, truth):
+        keys = tsdf.candidate_keys(d, rays, T, tcfg, dedup_budget=n_keys)
+        unique.append(int((keys != vhash.EMPTY_KEY).sum()))
+        vol = tsdf.allocate(vol, d, rays, T, tcfg)
+        live.append(int(tk.build_worklist(vol.block_coords, vol.n_blocks, T, intr, tcfg)[1]))
+    wl_size = next(m for m in WORKLIST_SIZES if m >= max(max(live), default_wl))
+    over = sum(u > budget for u in unique)
+    past = [i for i, m in enumerate(live) if m > default_wl]
+    _log(f"aligned allocation at the true poses: unique block keys a frame {min(unique)}-"
+         f"{max(unique)} (median {sorted(unique)[len(unique) // 2]}) against allocate's dedup "
+         f"budget of {budget} ({over} frame(s) over it), {n_keys} candidates a frame; n_blocks "
+         f"{int(vol.n_blocks)}; live blocks in the frustum (n_active) up to {max(live)} (frame "
+         f"{live.index(max(live))}), over the default worklist of {default_wl} on {len(past)} "
+         f"frame(s)" + (f" from frame {past[0]}" if past else "") + f"; worklist_size {wl_size}"
+         + (" (the first of WORKLIST_SIZES that holds it)" if wl_size != default_wl
+            else " (the default)") + f"  [{gpu}]")
+    del vol
+
+    # -- B1 on one frame, B2 on one pair: kernel against plain ------------------
+    figures = {tk.KERNEL: b1_frame_check(dec, truth, intr, rays, tcfg, wl_size, gpu, size)}
+    if not figures[tk.KERNEL]["bitwise"]:
+        failures.append(f"B1 at {size} differs from its plain version")
+    b2_failures, figures[odo.KERNEL] = b2_pair_check(dec, intr, ocfg, gpu, size)
+    failures += b2_failures
+
+    # -- the live loop: frame to frame, then frame to model ---------------------
+    gt_np = [g.cpu().numpy().astype(np.float64) for g in truth]
+    kw = dict(device=dev, worklist_size=wl_size)
+    frames = raw[:N_ALIGNED_F2F]
+    _run_frames(MonoOdometryTSDF(intr, cfg, **kw), raw[:3], False)
+    pipe = MonoOdometryTSDF(intr, cfg, **kw)
+    _sync(dev)
+    build.launches.clear()
+    frame_ms = _run_frames(pipe, frames, True)
+    f2f_counts = {k: build.launches[k] for k in (tk.KERNEL, odo.KERNEL)}
+    traj = pipe.trajectory[1:]
+    a_f, r_f = ate(traj, gt_np[:N_ALIGNED_F2F]), rpe(traj, gt_np[:N_ALIGNED_F2F])
+    rejected, overflow = pipe.odometry_failures, bool(pipe.volume.overflow)
+    pipe.reset()
+    sync_ms = _run_frames(pipe, frames, False)
+    steady = sorted(frame_ms[1:])
+    med = steady[len(steady) // 2]
+    _log(f"aligned frame_to_frame over {N_ALIGNED_F2F} frames at {size} (worklist {wl_size}): "
+         f"launches {json.dumps(f2f_counts)}; ATE rmse {a_f['rmse'] * 1e3:.3f} mm (max "
+         f"{a_f['max'] * 1e3:.3f}), RPE {r_f['trans_rmse'] * 1e3:.3f} mm / "
+         f"{np.degrees(r_f['rot_rmse']):.4f} deg against the color camera's truth; gate "
+         f"rejections {rejected}, overflow {overflow}, n_blocks {int(pipe.volume.n_blocks)}; "
+         f"ms/frame synchronized per frame: frame 0 {frame_ms[0]:.3f}, tracked median "
+         f"{med:.3f}, max {steady[-1]:.3f}; one sync at the end {sync_ms:.3f} (limit "
+         f"{FRAME_LIMIT_MS} ms)  [{gpu}]")
+    if rejected or len(pipe.fitness) != N_ALIGNED_F2F - 1:
+        failures.append(f"aligned frame_to_frame: {rejected} gate rejection(s)")
+    if overflow or bool(pipe.volume.overflow):
+        failures.append(f"aligned frame_to_frame: overflow at worklist {wl_size}")
+    if not a_f["rmse"] <= ATE_LIMIT_M:
+        failures.append(f"aligned frame_to_frame ATE {a_f['rmse']:.5f} m over {ATE_LIMIT_M} m")
+    if f2f_counts != {tk.KERNEL: N_ALIGNED_F2F, odo.KERNEL: N_ALIGNED_F2F - 1}:
+        failures.append(f"aligned frame_to_frame launches {f2f_counts}, not B1 once a frame "
+                        "and B2 once a pair")
+
+    t0 = time.perf_counter()
+    mesh = pipe.extract_mesh()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    E = mc.snap_extract_blocks(int(pipe.volume.n_blocks), tcfg.block_capacity)
+    cells, tris = mc.exact_budgets(mc._survey(pipe.volume, tcfg, extract_blocks=E), tcfg)
+    nt = int(mesh.num_triangles)
+    finite = bool(np.isfinite(mesh.vertices).all() and np.isfinite(mesh.vertex_colors).all())
+    _log(f"aligned mesh: {nt} triangles in {mesh_ms:.1f} ms (host clock, host copy included), "
+         f"overflow {mesh.overflow}, finite {finite}; exact budgets {cells} cells / {tris} "
+         f"triangles against extract_mesh's defaults 65536 / 131072  [{gpu}]")
+    if mesh.overflow or nt < 10000 or not finite:
+        failures.append(f"aligned mesh: {nt} triangles, overflow {mesh.overflow}, finite "
+                        f"{finite}")
+    del pipe, mesh
+
+    _log(f"aligned frame_to_model: f2m_phase at {size}, worklist {wl_size}, over the first "
+         f"{N_ALIGNED_F2M} frames (limit {FRAME_LIMIT_MS} ms/frame)  [{gpu}]")
+    m_failures, f2m_counts, _, _ = f2m_phase(intr, cfg, raw[:N_ALIGNED_F2M],
+                                             truth[:N_ALIGNED_F2M], dev, gpu,
+                                             worklist_size=wl_size)
+    failures += [f"aligned {f}" for f in m_failures]
+    for name in (tk.KERNEL, odo.KERNEL):
+        figures[name].update(launches_f2f=f2f_counts[name], launches_f2m=f2m_counts[name])
+
+    # -- the entry point on a log of the aligned frames --------------------------
+    # cli.live_mono keeps the default worklist: at this voxel its sticky overflow is the
+    # open fault C18, shared with the JAX package's scripts/live_mono.py
+    k = N_ALIGNED_F2F
+    with tempfile.TemporaryDirectory() as tmp:
+        log, out = os.path.join(tmp, "frames"), os.path.join(tmp, "out")
+        rec = FrameRecorder(log, CameraCalibration(depth=intr, color=intr, serial="aligned"))
+        for d, c in raw[:k]:
+            rec.write(d, c)
+        args = ["--source", f"replay:{log}", "--frames", str(k), "--voxel", str(voxel),
+                "--headless", "--output", out]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"{PKG}.cli.live_mono", *args],
+                           capture_output=True, text=True, timeout=600, cwd=REPO)
+        names = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        mesh_bytes = (os.path.getsize(os.path.join(out, "latest_mesh.ply"))
+                      if "latest_mesh.ply" in names else 0)
+        said = r.stdout + r.stderr
+        tail = [ln for ln in said.splitlines() if "gate rejections" in ln]
+        cli_ate = float("nan")
+        if "latest_trajectory.txt" in names:
+            cli_traj = np.loadtxt(os.path.join(out, "latest_trajectory.txt")).reshape(-1, 4, 4)
+            cli_ate = ate(list(cli_traj[1:]), gt_np[:k])["rmse"]
+        _log(f"cli.live_mono --source replay:DIR --voxel {voxel} over {k} aligned frames: rc "
+             f"{r.returncode}, {time.perf_counter() - t0:.1f} s (host clock, process start "
+             f"included), wrote {names} (mesh {mesh_bytes} bytes), ATE rmse "
+             f"{cli_ate * 1e3:.3f} mm; {' | '.join(tail)}  [{gpu}]")
+        cli_overflow = f"overflow {bool(past)}"
+        if (r.returncode != 0 or mesh_bytes == 0 or not tail
+                or "0 gate rejections" not in tail[0] or not cli_ate <= ATE_LIMIT_M):
+            failures.append(f"cli.live_mono --source replay: rc {r.returncode}, wrote "
+                            f"{names}; {said[-1500:]}")
+        elif cli_overflow not in tail[0]:
+            failures.append(f"cli.live_mono --source replay: its worklist of {default_wl} "
+                            f"against n_active up to {max(live)}, but {tail[0]}")
+        if past:
+            _log(f"C18 (open; shared with the JAX package's scripts/live_mono.py): "
+                 f"cli.live_mono builds MonoOdometryTSDF with the default worklist_size "
+                 f"{default_wl}; at {size} and {voxel * 1e3:g} mm voxels the frustum holds up "
+                 f"to {max(live)} live blocks, over {default_wl} from frame {past[0]} on "
+                 f"{len(past)} of {k} frames, so the entry point's sticky overflow is set and "
+                 f"rows past {default_wl} go unfused  [{gpu}]")
+    _log(f"aligned phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  [{gpu}]")
+    return failures, figures
+
+
 def main() -> int:
     import torch
 
@@ -4472,7 +4886,6 @@ def main() -> int:
     import numpy as np
 
     from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
-    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
@@ -4505,98 +4918,24 @@ def main() -> int:
     rays = pixel_rays(intr, dev)
     kernels = []
 
-    # -- B1: one frame into a 2-frame volume, kernel vs plain ----------------
-    vol = tsdf.create(tcfg, dev)
-    for i in range(2):
-        vol = tsdf.integrate_frame(vol, dec[i][0], dec[i][1], rays, gt[i], intr, tcfg)
-    d2, c2, _ = dec[2]
-    vol = tsdf.allocate(vol, d2, rays, gt[2], tcfg)
-    wl, n_active = tk.build_worklist(vol.block_coords, vol.n_blocks, gt[2], intr, tcfg)
-    wl = wl[:2048].contiguous()
-    base = {k: getattr(vol, k).clone() for k in ("tsdf", "weight", "color")}
-    vk = vol._replace(**{k: v.clone() for k, v in base.items()})
-    vp = vol._replace(**{k: v.clone() for k, v in base.items()})
-    tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
-    tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg)
-    torch.cuda.synchronize()
-    live = wl[: min(int(n_active), wl.shape[0]), 0].long()
-    wk, wp = vk.weight[live], vp.weight[live]
-    agree = wk == wp
-    frac = float(agree.float().mean())
-    err_t = float((vk.tsdf[live] - vp.tsdf[live]).abs()[agree].max())
-    err_c = float((vk.color[live] - vp.color[live]).abs()[agree[:, None].expand(-1, 3, -1)].max())
-    bitwise = all(torch.equal(getattr(vk, k), getattr(vp, k)) for k in ("tsdf", "weight", "color"))
-    n_updated = int(tk.updated_voxels(wl[: live.numel()], d2, gt[2], intr, tcfg))
-    updated = n_updated / max(wk.numel(), 1)
-    grid = tk.launch_grid(tcfg.block_resolution)
-    _log(f"B1 tsdf_integrate: {int(n_active)} live worklist rows, {updated:.3%} of their voxels "
-         f"updated (update rule); weights equal on {frac:.6%}, max |dtsdf| {err_t:.3g}, max "
-         f"|dcolor| {err_c:.3g} where they agree; pools equal to the bit: {bitwise}; "
-         f"persistent grid {grid} CTAs")
-    if not (frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL and err_c <= B1_VALUE_TOL):
+    # -- B1: one frame into a 2-frame volume, B2 on one pair: kernel vs plain --
+    b1 = b1_frame_check(dec, gt, intr, rays, tcfg, 2048, gpu, "640x576")
+    if not (b1["weight_equal_fraction"] >= B1_WEIGHT_EQUAL_MIN
+            and b1["max_abs_err"] <= B1_VALUE_TOL):
         failures.append("B1 kernel disagrees with its plain version")
-    b1_call = lambda: tk.integrate_worklist_cuda(vk, wl, d2, c2, gt[2], intr, tcfg, n_active)
-    ms_k = _time_ms(b1_call, 50)
-    ms_p = _time_ms(lambda: tk.integrate_worklist_plain(vp, wl, d2, c2, gt[2], intr, tcfg), 5)
-    us_k, per_call = _device_us(b1_call, 20, "tsdf_integrate_kernel")
-    b1_bytes = b1_bound_bytes(n_updated, live.numel(), d2, c2)
-    b1_bound, b1_by = _bound(b1_bytes, 0.0)
-    _log(f"B1 time at M=2048 ({int(n_active)} live): wrapper {ms_k:.4f} ms (CUDA events), "
-         f"device {_fmt_us(us_k)} per launch ({per_call:g} kernel/call, torch.profiler), plain "
-         f"{ms_p:.4f} ms; bound {b1_bound * 1e3:.3f} us ({b1_by}: {n_updated} voxels updated, "
-         f"{b1_bytes / 1e6:.2f} MB)  [{gpu}]")
-    kernels.append(dict(name=tk.KERNEL, route="cuda",
-                        source=f"{PKG}/csrc/tsdf_integrate.cu",
+    kernels.append(dict(name=tk.KERNEL, route="cuda", source=f"{PKG}/csrc/tsdf_integrate.cu",
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/tsdf_kernels.py:323",
-                        max_abs_err=max(err_t, err_c), ms=ms_k, plain_ms=ms_p,
-                        bound_ms=b1_bound, bound_by=b1_by, library_ms=None,
-                        device_us=us_k, weight_equal_fraction=frac, bitwise=bitwise,
-                        grid=grid))
-    del vol, vk, vp, base
+                        **b1))
     r24_failures, r24 = b1_odd_r_check(dec, gt, intr, rays, dev, gpu)
     failures += r24_failures
     kernels[0].update(r24)
     failures += b1_odd_r_check(dec, gt, intr, rays, dev, gpu, B1_WIDE_R)[0]
 
-    # -- B2: one frame pair at [20,10,5], kernel vs plain ---------------------
+    b2_failures, b2 = b2_pair_check(dec, intr, ocfg, gpu, "640x576")
+    failures += b2_failures
     (d0, _, i0), (d1, _, i1) = dec[0], dec[1]
     args = (i0, d0, i1, d1, intr, ocfg)
-    rk = odo.odometry_pyramid(odo.pyramid_cuda, *args)
-    rp = odo.odometry_pyramid(odo.pyramid_plain, *args)
-    torch.cuda.synchronize()
-    err_T = float((rk.T_target_source - rp.T_target_source).abs().max())
-    err_f = abs(float(rk.fitness) - float(rp.fitness))
-    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *args)
-    same = bool(torch.equal(rk.T_target_source, rk2.T_target_source))
-    _log(f"B2 odometry_pyramid: max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} "
-         f"(fitness kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); "
-         f"a second launch equal to the bit: {same}")
-    if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same):
-        failures.append("B2 kernel disagrees with its plain version or with itself")
-    # the runners on one prebuilt pyramid (the wrapper alone), then the whole call
-    levels = len(ocfg.pyramid_iters)
-    pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
-    terms = (0.0 if ocfg.term == "depth" else 1.0, 0.0 if ocfg.term == "color" else 1.0)
-    state0 = torch.zeros(odo.STATE, device=dev)
-    state0[:12] = torch.eye(4, device=dev)[:3].reshape(-1)
-    runner = lambda run: (lambda: run(state0.clone(), pyr_s, pyr_t, intr, ocfg, *terms))
-    ms_k = _time_ms(runner(odo.pyramid_cuda), 20)
-    ms_p = _time_ms(runner(odo.pyramid_plain), 3)
-    us_k, per_call, ms_call = odometry_timing(odo, args, dev)
-    grid, band = odo.launch_grid()
-    pixels, n_src, n_valid = b2_work(pyr_s, pyr_t, intr, ocfg, terms)
-    b2_flops = (pixels * B2_FLOPS_PROLOGUE + n_src * B2_FLOPS_WARP + n_valid * B2_FLOPS_VALID)
-    b2_bytes = 4 * 4 * pixels + 64  # I_s, D_s, I_t, D_t of every level, read once
-    b2_bound, b2_by = _bound(b2_bytes, b2_flops)
-    _log(f"B2 per frame pair ({sum(ocfg.pyramid_iters)} GN iterations, one launch): wrapper "
-         f"{ms_k:.4f} ms (CUDA events), device {_fmt_us(us_k)} per launch ({per_call:g} "
-         f"kernel/call, torch.profiler), plain {ms_p:.4f} ms; compute_odometry_fast "
-         f"(pyramids + launch, synchronized, median of {ODO_REPS}) {ms_call:.4f} ms; bound "
-         f"{b2_bound * 1e3:.3f} us ({b2_by}: {pixels:.0f} level pixels, {n_src:.0f} / "
-         f"{n_valid:.0f} source-valid / valid pixel-iterations, {b2_flops / 1e9:.3f} GFLOP, "
-         f"{b2_bytes / 1e6:.2f} MB)  [{gpu}]")
-    _log(f"B2 grid: {grid} CTAs x {band} pixels of shared memory each, so a level that "
-         f"iterates may hold up to {grid * band} pixels")
+    ms_call = b2["odometry_call_ms"]
     # one odometry call captured into a CUDA graph, replayed on the next pair
     static = [a.clone() for a in (i0, d0, i1, d1)]
     side = torch.cuda.Stream()
@@ -4624,10 +4963,7 @@ def main() -> int:
     kernels.append(dict(name=odo.KERNEL, route="cuda",
                         source=f"{PKG}/csrc/odometry_pyramid.cu",
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/odometry_kernels.py:487",
-                        max_abs_err=max(err_T, err_f), ms=ms_k, plain_ms=ms_p,
-                        bound_ms=b2_bound, bound_by=b2_by, library_ms=None, device_us=us_k,
-                        odometry_call_ms=ms_call, graph_replay_ms=ms_graph,
-                        max_level_pixels=grid * band))
+                        graph_replay_ms=ms_graph, **b2))
     five_failures, five_launches, five_err = b2_five_level_check(args, ocfg, gpu, "NFOV")
     failures += five_failures
     kernels[1].update(five_level_max_abs_err=five_err, launches_five_level=five_launches)
@@ -4741,6 +5077,10 @@ def main() -> int:
     for k in kernels:
         k["launches_serve"] = serve_counts[k["name"]]
         k["launches_rig_calib_dual"] = rig_counts[k["name"]]
+    aligned_failures, aligned = aligned_phase(dev, gpu)
+    failures += aligned_failures
+    for k in kernels:
+        k["aligned_1280x720"] = aligned.get(k["name"], {})
     bench_failures, bench_counts = bench_phase(dev, gpu)
     failures += bench_failures
     for k in kernels:
@@ -5080,6 +5420,31 @@ def streaming_main(device: str, scale) -> int:
     return _fail("; ".join(failures)) if failures else 0
 
 
+def aligned_main() -> int:
+    """``--aligned``: ``aligned_phase`` alone on the card, the live camera's
+    color-aligned 1280x720 frames through the package beside this script.
+    Prints one JSON line; exits 1 on a failed check."""
+    import torch
+
+    why = _port_beside()
+    if why:
+        return _fail(why)
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    build.library()
+    gpu = _gpu_line()
+    _log(f"gpu: {gpu}")
+    t0 = time.perf_counter()
+    failures, figures = aligned_phase(torch.device("cuda"), gpu)
+    _log(json.dumps({"aligned": "failed" if failures else "ok", "kernels": figures,
+                     "seconds": round(time.perf_counter() - t0, 1), "checkout": REPO,
+                     "gpu": gpu}))
+    return _fail("; ".join(failures)) if failures else 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -5097,6 +5462,9 @@ if __name__ == "__main__":
                       help="only host streaming's checks (the corridor one way, its revisit, "
                            "the thrash, the loss, frame-to-model, the deferral) of the package "
                            "beside this script")
+    mode.add_argument("--aligned", action="store_true",
+                      help="only the live camera's color-aligned 1280x720 path (aligned_phase) "
+                           "of the package beside this script")
     ap.add_argument("--device", default="cuda",
                     help="with --calibration or --streaming: cuda or cpu")
     ap.add_argument("--scale", type=float, default=None,
@@ -5111,6 +5479,8 @@ if __name__ == "__main__":
         sys.exit(calibration_main(args.device, args.scale or 1.0, args.noise, args.seeds))
     if args.streaming:
         sys.exit(streaming_main(args.device, args.scale))
+    if args.aligned:
+        sys.exit(aligned_main())
     if args.f2m:
         sys.exit(f2m_main())
     sys.exit(odometry_main() if args.odometry else integrate_main() if args.integrate
