@@ -8,8 +8,9 @@ of the JAX package's ``scripts/common.py``).
   k4a[:<id>]      a live Azure Kinect (``io/k4a_live.py``; needs pyk4a)
 
 The MKV and live sources give depth registered to the color camera, so
-their intrinsics are the color camera's. Without pyk4a they exit with an
-error that says so.
+their intrinsics are the color camera's, at the size the recording or the
+configured color resolution gives the frames. Without pyk4a they exit with
+an error that says so.
 
 The live entry points show their reconstruction through :func:`make_viewer`:
 ``--serve PORT`` serves it to a browser (``viz.live_server``), else an
@@ -64,9 +65,7 @@ def make_source(args) -> Tuple[Iterator[Tuple[np.ndarray, np.ndarray]], Intrinsi
             from azurekinect3dreconstruction_tpu_torch.io.mkv import MkvReplaySource
 
             src = MkvReplaySource(spec.split(":", 1)[1], limit=args.frames or None)
-            intr = (src.calibration.color if src.calibration
-                    else Intrinsics.fallback_from_size(1280, 720))
-            return iter(src), intr
+            return iter(src), src.calibration.color
         if spec == "k4a" or spec.startswith("k4a:"):
             from azurekinect3dreconstruction_tpu_torch.io.k4a_live import K4ALiveSource
 

@@ -8,8 +8,8 @@ The synthetic source is a static two-camera rig viewing the default scene:
 camera 0 at the origin, camera 1 at ``se3_exp([0.12, 0.02, -0.02, 0.03,
 -0.1, 0.02])``. ``--source k4a`` captures synchronized pairs from the first
 two attached Azure Kinects (``io.streams.MultiCameraRig`` over two
-``io.k4a_live.K4ALiveSource``; needs pyk4a), their intrinsics from the
-first camera's color calibration. Each pair uploads while the previous one
+``io.k4a_live.K4ALiveSource``; needs pyk4a), each camera with its own
+color calibration. Each pair uploads while the previous one
 computes (``io.streams.prefetch_to_device``). The first good pair calibrates camera 1's extrinsic (FPFH +
 RANSAC + ICP; ``--colored-calib`` refines with colored ICP), unless
 ``--rig-calib DIR`` loads the newest rig calibration there; a run that no
@@ -70,7 +70,8 @@ def synthetic_pair_frames(args, intr):
 
 def k4a_pair_frames(args):
     """(pairs from the first two attached Azure Kinects through a
-    synchronized rig, depth intrinsics of the first camera's color)."""
+    synchronized rig, (camera 0's, camera 1's) color intrinsics: the frames'
+    depth is registered to each camera's own color camera)."""
     from azurekinect3dreconstruction_tpu_torch.io.k4a_live import K4ALiveSource, detect_cameras
 
     ids = detect_cameras()
@@ -94,7 +95,7 @@ def k4a_pair_frames(args):
             for s in sources:
                 s.stop()
 
-    return pairs(), sources[0].calibration.color
+    return pairs(), (sources[0].calibration.color, sources[1].calibration.color)
 
 
 def main(argv=None) -> int:
@@ -113,16 +114,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s] %(message)s")
     if args.source == "k4a":
-        frames, intr = k4a_pair_frames(args)
+        frames, intrs = k4a_pair_frames(args)
     elif args.source == "synthetic":
         intr = Intrinsics.azure_kinect_depth_nfov().scaled(args.scale)
-        frames = synthetic_pair_frames(args, intr)
+        frames, intrs = synthetic_pair_frames(args, intr), (intr, intr)
     else:
         raise SystemExit(f"dual_fusion takes --source synthetic or k4a (a {args.source!r} source "
                          "holds one camera)")
     cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel),
                          registration=RegistrationConfig(ransac_hypotheses=2048))
-    pipe = DualCameraFusion((intr, intr), cfg, device=args.device, output_dir=args.output,
+    pipe = DualCameraFusion(intrs, cfg, device=args.device, output_dir=args.output,
                             sharded=args.sharded, colored_calibration=args.colored_calib)
     if args.rig_calib:
         serials = None

@@ -6,7 +6,9 @@ and depth, an init ladder across pyk4a API variants, device enumeration by
 index, serial numbers for rig-calibration checks, calibration-matrix
 probing with the width * 1.03 fallback, and BGRA -> RGB with
 ``transformed_depth`` (depth registered to the color camera). Frames are
-host numpy arrays.
+host numpy arrays. The intrinsics carry the sizes of the configured color
+resolution and depth mode (:func:`mode_sizes`); pyk4a's calibration
+matrices are those of the configured modes.
 
 Without pyk4a, ``is_available()`` is False, ``detect_cameras()`` finds
 nothing and ``K4ALiveSource`` raises a ``RuntimeError``; the replay and
@@ -22,6 +24,53 @@ import numpy as np
 from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration, Intrinsics
 from azurekinect3dreconstruction_tpu_torch.io.replay import FrameSource
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
+
+
+# (width, height) of each pyk4a color resolution and depth mode
+COLOR_SIZES = {"RES_720P": (1280, 720), "RES_1080P": (1920, 1080), "RES_1440P": (2560, 1440),
+               "RES_1536P": (2048, 1536), "RES_2160P": (3840, 2160), "RES_3072P": (4096, 3072)}
+DEPTH_SIZES = {"NFOV_2X2BINNED": (320, 288), "NFOV_UNBINNED": (640, 576),
+               "WFOV_2X2BINNED": (512, 512), "WFOV_UNBINNED": (1024, 1024),
+               "PASSIVE_IR": (1024, 1024)}
+
+
+def mode_name(mode) -> str:
+    """``RES_1080P`` for ``ColorResolution.RES_1080P``, its name, or a string."""
+    return str(getattr(mode, "name", mode)).rsplit(".", 1)[-1]
+
+
+def mode_sizes(color_resolution, depth_mode) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((color width, height), (depth width, height)) of a k4a configuration;
+    each mode a pyk4a enum member or its name. ``ValueError`` for a mode
+    with no image (``OFF``): the color-aligned frames need both cameras."""
+    c, d = mode_name(color_resolution), mode_name(depth_mode)
+    if c not in COLOR_SIZES or d not in DEPTH_SIZES:
+        raise ValueError(f"color-aligned frames need a color resolution of {list(COLOR_SIZES)} "
+                         f"and a depth mode of {list(DEPTH_SIZES)}; got {c} and {d}")
+    return COLOR_SIZES[c], DEPTH_SIZES[d]
+
+
+def calibration_from_matrices(cal, color_size, depth_size, serial: str) -> CameraCalibration:
+    """The color and depth intrinsics from a pyk4a ``Calibration`` (which
+    holds the matrices of the configured modes), at the given sizes."""
+    m = np.asarray(cal.get_camera_matrix(1))  # color camera
+    md = np.asarray(cal.get_camera_matrix(0))  # depth camera
+    color = Intrinsics(*color_size, float(m[0, 0]), float(m[1, 1]), float(m[0, 2]),
+                       float(m[1, 2]))
+    depth = Intrinsics(*depth_size, float(md[0, 0]), float(md[1, 1]), float(md[0, 2]),
+                       float(md[1, 2]))
+    return CameraCalibration(depth=depth, color=color, serial=serial)
+
+
+def fallback_calibration(color_size, depth_size, serial: str) -> CameraCalibration:
+    """The nominal model's depth intrinsics (NFOV_UNBINNED; the width *
+    1.03 guess at any other depth size) and the width * 1.03 color guess,
+    each at its real size."""
+    nominal = CameraCalibration.azure_kinect_nominal(serial)
+    depth = (nominal.depth if depth_size == (nominal.depth.width, nominal.depth.height)
+             else Intrinsics.fallback_from_size(*depth_size))
+    return CameraCalibration(depth=depth, color=Intrinsics.fallback_from_size(*color_size),
+                             serial=serial)
 
 
 def _pyk4a():
@@ -110,27 +159,24 @@ class K4ALiveSource(FrameSource):
                     raise
         self.device_id = device_id
         self.serial = getattr(self.device, "serial", "") or ""
+        # the modes the device started with (the ladder's last rung takes
+        # pyk4a's defaults)
+        self.color_size, self.depth_size = mode_sizes(
+            getattr(config, "color_resolution", color_resolution),
+            getattr(config, "depth_mode", depth_mode))
         self.calibration = self._probe_calibration()
 
     def _probe_calibration(self) -> CameraCalibration:
         """The device's calibration, or the nominal model with the
-        width * 1.03 color fallback when the probe fails."""
+        width * 1.03 color fallback when the probe fails, each at the
+        configured modes' sizes."""
         try:
-            cal = self.device.calibration
-            m = np.asarray(cal.get_camera_matrix(1))  # color camera
-            color = Intrinsics(1280, 720, float(m[0, 0]), float(m[1, 1]),
-                               float(m[0, 2]), float(m[1, 2]))
-            md = np.asarray(cal.get_camera_matrix(0))  # depth camera
-            depth = Intrinsics(640, 576, float(md[0, 0]), float(md[1, 1]),
-                               float(md[0, 2]), float(md[1, 2]))
-            return CameraCalibration(depth=depth, color=color, serial=self.serial)
+            return calibration_from_matrices(self.device.calibration, self.color_size,
+                                             self.depth_size, self.serial)
         except Exception:
             log_warning("calibration probe failed; using nominal k4a model "
                         "(fx = width * 1.03 fallback)")
-            nominal = CameraCalibration.azure_kinect_nominal(self.serial)
-            fb = Intrinsics.fallback_from_size(1280, 720)
-            return CameraCalibration(depth=nominal.depth, color=fb,
-                                     serial=self.serial)
+            return fallback_calibration(self.color_size, self.depth_size, self.serial)
 
     def capture(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         cap = self.device.get_capture()

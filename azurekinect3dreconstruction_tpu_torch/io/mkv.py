@@ -6,7 +6,9 @@ MKV files are what ``k4arecorder`` produces; decoding their Matroska tracks
 job, so this source delegates to ``pyk4a.PyK4APlayback`` as live capture
 delegates to ``pyk4a.PyK4A``. Without pyk4a the constructor raises a
 ``RuntimeError`` that says so; the npz replay (``io.replay``) is the
-hardware-free source. Frames are host numpy arrays.
+hardware-free source. Frames are host numpy arrays. The intrinsics carry
+the recording's own sizes: its configuration's color resolution and depth
+mode, else the first capture's images.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from azurekinect3dreconstruction_tpu_torch.core.camera import (
-    CameraCalibration,
-    Intrinsics,
+from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration
+from azurekinect3dreconstruction_tpu_torch.io.k4a_live import (
+    calibration_from_matrices,
+    fallback_calibration,
+    mode_name,
+    mode_sizes,
 )
 from azurekinect3dreconstruction_tpu_torch.io.replay import FrameSource
 from azurekinect3dreconstruction_tpu_torch.utils.telemetry import log_info, log_warning
@@ -50,46 +55,76 @@ class MkvReplaySource(FrameSource):
         self.limit = limit
         self._playback = PyK4APlayback(path)
         self._playback.open()
+        self._first = None  # a capture read ahead to size the frames, yielded first
+        self.color_size, self.depth_size = self._recorded_sizes()
         self.calibration = self._calibration_from_playback()
 
-    def _calibration_from_playback(self) -> Optional[CameraCalibration]:
-        """Same probe-with-fallback pattern as io.k4a_live (the recording
-        carries the device calibration as an attachment)."""
+    def _config(self, key: str):
+        """A field of the recording's configuration (a dict in pyk4a; an
+        attribute in some bindings), or None."""
+        conf = getattr(self._playback, "configuration", None)
+        return conf.get(key) if isinstance(conf, dict) else getattr(conf, key, None)
+
+    def _recorded_sizes(self):
+        """((color w, h), (depth w, h)) from the recording's configuration,
+        else from the first capture that holds both images."""
         try:
-            cal = self._playback.calibration
-            m = np.asarray(cal.get_camera_matrix(1))  # color camera
-            color = Intrinsics(1280, 720, float(m[0, 0]), float(m[1, 1]),
-                               float(m[0, 2]), float(m[1, 2]))
-            md = np.asarray(cal.get_camera_matrix(0))  # depth camera
-            depth = Intrinsics(640, 576, float(md[0, 0]), float(md[1, 1]),
-                               float(md[0, 2]), float(md[1, 2]))
-            return CameraCalibration(depth=depth, color=color, serial="mkv")
+            return mode_sizes(self._config("color_resolution"), self._config("depth_mode"))
+        except ValueError:
+            pass
+        for capture in self._captures():
+            color, depth = self._decoded(capture)
+            if color is not None and capture.depth is not None:
+                self._first = capture
+                return (color.shape[1], color.shape[0]), (depth.shape[1], depth.shape[0])
+        raise RuntimeError(f"{self.path}: no capture holds both a color and a depth image")
+
+    def _calibration_from_playback(self) -> CameraCalibration:
+        """Same probe-with-fallback pattern as io.k4a_live (the recording
+        carries the device calibration as an attachment), at the
+        recording's sizes."""
+        try:
+            return calibration_from_matrices(self._playback.calibration, self.color_size,
+                                             self.depth_size, "mkv")
         except Exception as e:  # pragma: no cover - depends on file contents
-            log_warning(f"MKV calibration unavailable ({e}); using defaults")
-            return None
+            log_warning(f"MKV calibration unavailable ({e}); using the nominal model "
+                        "(fx = width * 1.03 fallback)")
+            return fallback_calibration(self.color_size, self.depth_size, "mkv")
+
+    def _captures(self):
+        """The read-ahead capture, then the recording's next ones to its end."""
+        if self._first is not None:
+            first, self._first = self._first, None
+            yield first
+        while True:
+            try:
+                yield self._playback.get_next_capture()
+            except EOFError:
+                return
+
+    def _decoded(self, capture):
+        """(color u8 RGB or None, the depth camera's image or None)."""
+        color = capture.color
+        if color is None:
+            return None, capture.depth
+        if mode_name(self._config("color_format")) == "COLOR_MJPG":
+            import cv2  # MJPEG tracks need a JPEG decoder
+
+            color = cv2.imdecode(color, cv2.IMREAD_COLOR)
+        if color.ndim == 3 and color.shape[2] == 4:
+            color = color[..., 2::-1]  # BGRA -> RGB
+        elif color.ndim == 3 and color.shape[2] == 3:
+            color = color[..., ::-1]  # BGR -> RGB
+        return np.ascontiguousarray(color), capture.depth
 
     def frames(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        from pyk4a import ImageFormat
-
         n = 0
-        while self.limit is None or n < self.limit:
-            try:
-                capture = self._playback.get_next_capture()
-            except EOFError:
+        for capture in self._captures():
+            if self.limit is not None and n >= self.limit:
                 break
             if capture.color is None or capture.transformed_depth is None:
                 continue
-            color = capture.color
-            if getattr(self._playback.configuration, "color_format", None) in (
-                    getattr(ImageFormat, "COLOR_MJPG", None),):
-                import cv2  # MJPEG tracks need a JPEG decoder
-
-                color = cv2.imdecode(color, cv2.IMREAD_COLOR)
-            if color.ndim == 3 and color.shape[2] == 4:
-                color = color[..., 2::-1]  # BGRA -> RGB
-            elif color.ndim == 3 and color.shape[2] == 3:
-                color = color[..., ::-1]  # BGR -> RGB
-            yield capture.transformed_depth, np.ascontiguousarray(color)
+            yield capture.transformed_depth, self._decoded(capture)[0]
             n += 1
         log_info(f"MKV replay finished after {n} frames")
 

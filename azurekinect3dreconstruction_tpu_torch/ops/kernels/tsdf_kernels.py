@@ -3,8 +3,11 @@ wrapper (``csrc/tsdf_integrate.cu``) and its plain PyTorch version.
 
 The worklist is a device-side compacted list of the visible blocks, padded
 with the reserved trash slot, so its size is static and nothing waits on the
-host: a frame with more visible blocks than the worklist holds sets the
-volume's sticky ``overflow`` flag instead.
+host. By default it has a row for every pool slot, so every visible block
+fuses; B1 bounds itself on the device by the live row count, so the padding
+costs nothing. A caller that passes a smaller ``worklist_size`` keeps the
+JAX package's static budget: a frame with more visible blocks than it holds
+sets the volume's sticky ``overflow`` flag instead.
 """
 
 from __future__ import annotations
@@ -169,9 +172,9 @@ def integrate_worklist(vol, depth, color, T_world_cam, intr: Intrinsics, cfg: TS
     rows past them are trash rows, which do nothing)."""
     worklist, n_active = build_worklist(vol.block_coords, vol.n_blocks, T_world_cam, intr, cfg)
     M = vol.tsdf.shape[0] if worklist_size is None else min(worklist_size, worklist.shape[0])
-    if vol.tsdf.is_cuda:
-        integrate_worklist_cuda(vol, worklist[:M].contiguous(), depth, color, T_world_cam, intr,
-                                cfg, n_active)
+    if vol.tsdf.is_cuda:  # the leading rows of a contiguous tensor: no copy
+        integrate_worklist_cuda(vol, worklist[:M], depth, color, T_world_cam, intr, cfg,
+                                n_active)
     else:
         integrate_worklist_plain(vol, worklist[:min(M, int(n_active))], depth, color,
                                  T_world_cam, intr, cfg)
@@ -179,15 +182,17 @@ def integrate_worklist(vol, depth, color, T_world_cam, intr: Intrinsics, cfg: TS
 
 
 def integrate_step(vol, depth, color, T_world_cam, rays, intr: Intrinsics,
-                   cfg: TSDFConfig, worklist_size: int, stride: int = 2):
-    """allocate + worklist + integrate with no host synchronization: the
-    worklist size is a static budget, and overflow sets the sticky flag."""
+                   cfg: TSDFConfig, worklist_size: Optional[int] = None, stride: int = 2):
+    """allocate + worklist + integrate with no host synchronization. The
+    worklist is the whole pool by default; an explicit ``worklist_size`` is
+    a static budget, and overflow sets the sticky flag."""
     vol = tsdf_volume.allocate(vol, depth, rays, T_world_cam, cfg, stride=stride)
     return integrate_worklist(vol, depth, color, T_world_cam, intr, cfg, worklist_size)
 
 
 @functools.lru_cache(maxsize=16)
-def make_fused_frame_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, stride: int = 2):
+def make_fused_frame_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: Optional[int] = None,
+                        stride: int = 2):
     """One frame's fused step: ``step(vol, depth, color, T, rays) -> vol``,
     which is :func:`integrate_step` (allocate, worklist, integrate: B1 once
     on the card).
@@ -204,7 +209,8 @@ def make_fused_frame_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, s
 
 
 @functools.lru_cache(maxsize=16)
-def make_fused_batch_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, stride: int = 2):
+def make_fused_batch_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: Optional[int] = None,
+                        stride: int = 2):
     """A batch of frames at known poses:
     ``batch(vol, depths (F, H, W), colors (F, H, W, 3), poses (F, 4, 4),
     rays) -> vol``, one :func:`integrate_step` a frame in order (B1 F times
@@ -212,8 +218,9 @@ def make_fused_batch_fn(intr: Intrinsics, cfg: TSDFConfig, worklist_size: int, s
 
     The pools update in place, so the returned volume shares the input's
     storage (this stands in for the JAX factory's donated volume). On the
-    card nothing waits on the host: a frame with more visible blocks than
-    ``worklist_size`` sets the sticky ``overflow`` flag instead."""
+    card nothing waits on the host: the worklist is the whole pool unless
+    ``worklist_size`` is given, and a frame with more visible blocks than
+    that sets the sticky ``overflow`` flag instead."""
 
     def batch(vol, depths, colors, poses, rays):
         with full_fp32_matmul():

@@ -28,7 +28,7 @@ step synchronizes. The pools update in place.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -146,12 +146,13 @@ def alloc_shard(shard: TSDFVolume, cam_keys, b: int, n_blk: int, cfg: TSDFConfig
 
 
 def integrate_seq(shard: TSDFVolume, depths, colors, poses, intr: Intrinsics, cfg: TSDFConfig,
-                  worklist_size: int) -> TSDFVolume:
+                  worklist_size: Optional[int]) -> TSDFVolume:
     """Integrate every camera's frame into ``shard``, in cam order, with
     the worklist integrate (B1 on the card, its plain version on the CPU).
     Sequential weighted-average fusion equals JAX's psum form while weights
-    stay below ``max_integration_weight``. A frame with more visible blocks
-    than ``worklist_size`` sets the shard's sticky ``overflow``."""
+    stay below ``max_integration_weight``. The worklist is the shard's whole
+    pool when ``worklist_size`` is None; a frame with more visible blocks
+    than an explicit ``worklist_size`` sets the shard's sticky ``overflow``."""
     dev = shard.tsdf.device
     for d, c, T in zip(depths, colors, poses):
         shard = integrate_worklist(shard, _to(d, dev), _to(c, dev), _to(T, dev), intr, cfg,
@@ -161,7 +162,7 @@ def integrate_seq(shard: TSDFVolume, depths, colors, poses, intr: Intrinsics, cf
 
 def fuse_cam_shard(shard: TSDFVolume, b: int, cam_keys, depths, colors, poses,
                    intr: Intrinsics, cfg: TSDFConfig, n_blk: int,
-                   worklist_size: int) -> TSDFVolume:
+                   worklist_size: Optional[int]) -> TSDFVolume:
     """:func:`alloc_shard` then :func:`integrate_seq`: shard ``b``'s part of
     one sharded step."""
     shard = alloc_shard(shard, cam_keys, b, n_blk, cfg)
@@ -169,7 +170,7 @@ def fuse_cam_shard(shard: TSDFVolume, b: int, cam_keys, depths, colors, poses,
 
 
 def _make_fuse(mesh: DeviceMesh, intr: Intrinsics, cfg: TSDFConfig, stride: int, samples: int,
-               dedup_budget: int, worklist_size: int):
+               dedup_budget: int, worklist_size: Optional[int]):
     """fuse(vol, depths, colors, poses, rays) -> vol, each per-camera list
     on its camera's device: every camera's keys, then every shard."""
     n_cam, n_blk = mesh.shape["cam"], mesh.shape["blk"]
@@ -193,7 +194,8 @@ def _per_cam(mesh: DeviceMesh, batch, dtype=None):
 
 
 def make_sharded_step(mesh: DeviceMesh, intr: Intrinsics, cfg: TSDFConfig, stride: int = 4,
-                      samples: int = 3, dedup_budget: int = 2048, worklist_size: int = 2048):
+                      samples: int = 3, dedup_budget: int = 2048,
+                      worklist_size: Optional[int] = None):
     """The multi-camera fusion step:
 
     step(vol, depths (n_cam, H, W), colors (n_cam, H, W, 3),
@@ -214,7 +216,8 @@ def make_sharded_step(mesh: DeviceMesh, intr: Intrinsics, cfg: TSDFConfig, strid
 
 
 def make_sharded_raw_step(mesh: DeviceMesh, intr: Intrinsics, cfg: TSDFConfig, stride: int = 4,
-                          samples: int = 3, dedup_budget: int = 2048, worklist_size: int = 2048):
+                          samples: int = 3, dedup_budget: int = 2048,
+                          worklist_size: Optional[int] = None):
     """The sharded fusion step fed raw sensor arrays (the two-camera hot
     path of ``DualCameraFusion(sharded=True)``):
 
@@ -243,7 +246,7 @@ def make_sharded_raw_step(mesh: DeviceMesh, intr: Intrinsics, cfg: TSDFConfig, s
 
 def make_sharded_slam_batch(mesh: DeviceMesh, intr: Intrinsics, pcfg, stride: int = 4,
                             samples: int = 3, dedup_budget: int = 2048,
-                            min_fitness: float = 0.3, worklist_size: int = 2048):
+                            min_fitness: float = 0.3, worklist_size: Optional[int] = None):
     """Multi-camera SLAM over a frame batch: every camera tracks its own
     stream on its row's device while fusion stays block-sharded.
 

@@ -72,6 +72,14 @@ from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver
 log = logging.getLogger(__name__)
 
 _UNIFORM_COLORS = ((0.9, 0.4, 0.2), (0.2, 0.5, 0.9))
+# the most pixels in front that the candidate of best overlap may leave and still be taken
+# without the colored refinement: at the truth noise-free depth leaves 0.2-0.5 % (edges),
+# while a pose slid 1-2.5 cm along the scene's planes leaves 1-3 %, under the gate. The fast
+# path saves the colored refinement's ~3 s once a session. It stays because a sensor whose
+# band sits at its 3 cm floor (relative noise under ~0.6 % at 1 m) may take it; 1 % noise
+# widens the band and sends every calibration the colored way whatever this share. A real
+# sensor's share at the truth has not been read yet: until it is, 1 % rests on renders
+FAST_PATH_MAX_SHARE = 0.01
 # the route for a rig the auto-calibration rejects
 RIG_CALIB_ADVICE = ("calibrate the rig with a checkerboard (python -m "
                     "azurekinect3dreconstruction_tpu_torch.cli.calibrate_rig) and fuse with "
@@ -200,9 +208,11 @@ class DualCameraFusion:
         front of what the other measured, by a band that grows with the
         frames' own depth noise (``tracking.icp.free_space_shares``), and
         it is a proper rigid transform other than the identity. The
-        candidate of best overlap is taken when it passes and the band at
+        candidate of best overlap is taken when it passes, the band at
         camera 0's median depth is at its 3 cm floor (a wider band lets a
-        pose slid a few cm along the scene's planes pass). Otherwise each
+        pose slid a few cm along the scene's planes pass) and at most
+        ``FAST_PATH_MAX_SHARE`` of either camera's pixels land in front (a
+        pose slid 1-2.5 cm passes the 3 cm band with 1-3 %). Otherwise each
         candidate is refined again by colored ICP (stage
         ``colored_refine``), the result with the fewest pixels in front
         once more, and of all that pass the one with the fewest pixels in
@@ -270,7 +280,8 @@ class DualCameraFusion:
             rows, host = self._score(frames, poses, [overlap(T) for T in poses], band)
             t = self._stage_done("evaluate", t)
         k = int(np.argmax(rows[:, 0]))
-        if not refine_only and (not passes(rows[k], host[k]) or rows[k, 3] > FREE_SPACE_BAND_M):
+        if not refine_only and (not passes(rows[k], host[k]) or rows[k, 3] > FREE_SPACE_BAND_M
+                                or rows[k, 1] > FAST_PATH_MAX_SHARE):
             # point-to-plane slides planes along themselves and stops short in
             # a wide baseline's basin, and on noisy depth it settles cm off,
             # under a band the noise widened; the texture pins all three. From
@@ -424,7 +435,7 @@ class DualCameraFusion:
 
 
 def make_raw_dual_step(intr0: Intrinsics, intr1: Intrinsics, tcfg: TSDFConfig,
-                       worklist_size: int = 2048, stride: int = 2):
+                       worklist_size: Optional[int] = None, stride: int = 2):
     """The two-camera hot path, fed raw sensor tensors on the device:
 
     step(vol, depth_raw0, color_raw0, depth_raw1, color_raw1, rays0, rays1,

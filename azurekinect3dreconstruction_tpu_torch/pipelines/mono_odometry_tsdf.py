@@ -66,6 +66,11 @@ class MonoOdometryTSDF:
     ``device`` is ``"cuda"``, the default (the hand-written kernels) or
     ``"cpu"`` (their plain PyTorch versions); ``"cuda"`` without a card raises.
 
+    ``worklist_size`` None (the default) fuses every visible block: the
+    worklist has a row for each pool slot, and B1 bounds itself on the
+    device by the live row count. An explicit size is the JAX class's static
+    budget: a frame with more visible blocks sets the sticky ``overflow``.
+
     ``tracking``: ``"frame_to_frame"`` chains odometry; ``"frame_to_model"``
     lets odometry predict and projective ICP against ``model_points``
     surface samples of the fused model refine, gated on at least
@@ -111,7 +116,7 @@ class MonoOdometryTSDF:
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
                  device="cuda", tracking: str = "frame_to_frame", model_refine_interval: int = 5,
                  model_points: int = 32768, model_sample_blocks: int = 256,
-                 model_min_inliers: int = 3000, worklist_size: int = 2048,
+                 model_min_inliers: int = 3000, worklist_size: Optional[int] = None,
                  streaming: Optional[StreamingTSDF] = None,
                  relocalize: bool = False, reloc_window: int = 3, reloc_interval: int = 8,
                  reloc_min_inliers: int = 2000, reloc_warmup: bool = False):
@@ -512,7 +517,8 @@ def apply_lost_latch(lost_in, fit, depth):
     return lost, depth * (1.0 - lost)
 
 
-def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig,
+                       worklist_size: Optional[int] = None,
                        stride: int = 2, min_fitness: float = 0.3,
                        integrate_rejected: bool = True):
     """The live-loop step, fed raw sensor tensors on the device:
@@ -549,7 +555,8 @@ def make_raw_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int
 
 
 @functools.lru_cache(maxsize=None)
-def make_device_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+def make_device_slam_step(intr: Intrinsics, cfg: PipelineConfig,
+                          worklist_size: Optional[int] = None,
                           stride: int = 2, min_fitness: float = 0.3):
     """The device-resident form of this pipeline on decoded frames: one
     step that tracks (:func:`track_frame`: odometry against the previous
@@ -579,7 +586,8 @@ def make_device_slam_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: 
 
 
 @functools.lru_cache(maxsize=None)
-def make_device_slam_batch(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+def make_device_slam_batch(intr: Intrinsics, cfg: PipelineConfig,
+                           worklist_size: Optional[int] = None,
                            stride: int = 2, min_fitness: float = 0.3):
     """:func:`make_device_slam_step` over a frame batch, a Python loop where
     the JAX factory has ``lax.scan``:
@@ -634,7 +642,8 @@ def make_raw_batch_fn(intr: Intrinsics, tsdf_cfg: TSDFConfig, worklist_size: Opt
     return batch
 
 
-def make_raw_f2m_step(intr: Intrinsics, cfg: PipelineConfig, worklist_size: int = 2048,
+def make_raw_f2m_step(intr: Intrinsics, cfg: PipelineConfig,
+                      worklist_size: Optional[int] = None,
                       stride: int = 2, min_fitness: float = 0.3, refine_iters: int = 10,
                       min_inliers: int = 3000, max_jump: float = 0.1):
     """Frame-to-model tracking, fed raw sensor tensors on the device:

@@ -53,7 +53,10 @@ from azurekinect3dreconstruction_tpu_torch.ops.neighbors import (
 from azurekinect3dreconstruction_tpu_torch.ops.normals import organized_normals
 from azurekinect3dreconstruction_tpu_torch.tracking.features import compute_fpfh
 from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+    FREE_SPACE_MAX_SHARE,
     TargetMaps,
+    free_space_band,
+    free_space_shares,
     icp_point_to_plane,
     icp_projective,
 )
@@ -84,7 +87,9 @@ class Recorder:
     ``telemetry`` counts the ladder's events (``colored_icp_ok``,
     ``colored_icp_reject``, ``fallback_icp_ok``, ``fallback_reject``,
     ``global_reject``, ``fallback_retry``, ``fallback_rebase``) and times
-    the host side of each step (``keyframe``, ``integrate``, ``fallback``)."""
+    the host side of each step (``keyframe``, ``integrate``, ``fallback``).
+    ``ladder`` holds the last ladder run's refinements, each (T, fitness,
+    share in front, whether it passed the gate), as the gate read them."""
 
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None, *,
                  device="cuda", output_dir: str = "results", worklist_size: Optional[int] = None,
@@ -106,6 +111,7 @@ class Recorder:
         self.saver = ResultSaver(output_dir)
         self.frame_index = 0
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self.ladder = []
         # per keyframe not yet checked: (host fitness, copy-done event, raw
         # previous keyframe, raw this keyframe, pose before it)
         self._pending = []
@@ -240,7 +246,14 @@ class Recorder:
         draws (and on the card every run is a new draw: the downsample's and
         FPFH's scatter-adds are atomics), so while no winner is accepted,
         another round draws fresh seeds, at most ``_FALLBACK_ROUNDS`` in all;
-        the last round accepts an unconfirmed winner that passes the gate."""
+        the last round accepts an unconfirmed winner that passes the gate.
+        The gate is the fitness and free space: at most
+        ``FREE_SPACE_MAX_SHARE`` of either frame's pixels may land in front
+        of the other's surface (``tracking.icp.free_space_shares``, the band
+        from the frames' own noise). On the card at 1280x720 a round once
+        confirmed a pose 0.20 m and 0.18 rad off: a pose slid past the
+        scene can fit nearly as well as the true one, but it leaves far
+        more of the pixels in front."""
         cam = self.cfg.camera
         reg = self.cfg.registration
         # the recovery stage gets the full hypothesis pool
@@ -261,7 +274,25 @@ class Recorder:
         f_s = compute_fpfh(ds, n_s, dm, radius=4 * vox, k=16)
         f_t = compute_fpfh(dt, n_t, dtm, radius=4 * vox, k=16)
         wide = dataclasses.replace(reg, icp_distance_threshold=3 * reg.icp_distance_threshold)
-        refined = []  # every refinement so far, of every round
+        band = free_space_band(prev.depth, curr.depth)
+        self.ladder = []
+
+        def passes(r) -> bool:
+            """The fitness and free-space gate (one host read), logged to
+            ``ladder``."""
+            front = torch.maximum(
+                free_space_shares(prev.depth, self.intr, curr.depth, self.rays, r.T, band)[0],
+                free_space_shares(curr.depth, self.intr, prev.depth, self.rays,
+                                  se3.inverse(r.T), band)[0])
+            fit, front = torch.stack([r.fitness.to(front.dtype), front]).tolist()
+            T = r.T.cpu().numpy().astype(np.float64)
+            ok = (fit >= reg.min_fitness_icp and front <= FREE_SPACE_MAX_SHARE
+                  and se3.is_valid_transform(T))
+            self.ladder.append((T, fit, front, ok))
+            return ok
+
+        refined = []  # every refinement so far, of every round, that passes the gate
+        drawn = False  # whether any restart gave a transform to refine
         for k in range(_FALLBACK_ROUNDS):
             if k:
                 self.telemetry.count("fallback_retry")
@@ -273,19 +304,18 @@ class Recorder:
                 # RANSAC only seeds: the refinement pulls a seed several cm
                 # off into the basin, and its fitness is what decides
                 r1 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=g.T, cfg=wide)
-                refined.append(icp_point_to_plane(src, s_mask, prev_maps, self.intr,
-                                                  init=r1.T, cfg=reg))
+                r2 = icp_point_to_plane(src, s_mask, prev_maps, self.intr, init=r1.T, cfg=reg)
+                drawn = True
+                if passes(r2):
+                    refined.append(r2)
             if not refined:
                 continue
             best = max(refined, key=lambda r: float(r.fitness))
-            T = best.T.cpu().numpy().astype(np.float64)
-            if not (float(best.fitness) >= reg.min_fitness_icp and se3.is_valid_transform(T)):
-                continue
             n_same = sum(se3.same_pose(r.T, best.T, reg.icp_distance_threshold) for r in refined)
             if n_same >= 2 or k == _FALLBACK_ROUNDS - 1:
                 self.telemetry.count("fallback_icp_ok")
-                return T
-        self.telemetry.count("fallback_reject" if refined else "global_reject")
+                return best.T.cpu().numpy().astype(np.float64)
+        self.telemetry.count("fallback_reject" if drawn else "global_reject")
         return None
 
     # -- persistence ----------------------------------------------------------

@@ -34,10 +34,9 @@ worklist, odometry pyramid [20, 10, 5]):
 6. drives two-camera fusion, ``DualCameraFusion(..., device="cuda")``:
    auto-calibrates the rig of ``tests/test_pipelines.py`` (within 2 cm /
    0.03 rad of the truth) and times its stages; auto-calibrates the bench's
-   rig in the default and the cluttered scene from 4 RANSAC seeds each, at
-   640x576 and at quarter resolution (where only the colored fallback finds
-   it), and from 2 seeds at relative depth noise 0.005 and 0.01, and the
-   test rig at 0.01, every one accepted within 2 cm / 0.03 rad, with its
+   rig in the default and the cluttered scene from 2 RANSAC seeds each at
+   640x576, and from one seed at relative depth noise 0.01, and the test
+   rig there, every one accepted within 2 cm / 0.03 rad, with its
    free-space shares and stage times, and rejects a calibration whose
    refinements are scripted to a wrong pose, in full and on the R key;
    fuses the bench's rig (camera 1 35 cm left, toed in 0.26 rad) with its
@@ -55,7 +54,7 @@ worklist, odometry pyramid [20, 10, 5]):
    the keyframes' ATE <= 2 cm; saves and reads back, times one keyframe
    step, its colored ICP and one interval step; then the keyframe jump of
    ``tests/test_pipelines.py`` must be rebased through the fallback ladder,
-   and the ladder must land on it again from each of 8 fresh seeds;
+   and the ladder must land on it again from each of 4 fresh seeds;
 8. drives the offline bundle, ``OfflineBundle(..., device="cuda")``, over
    the first 12 sweep poses out and back (24 frames) and ``finalize``, the
    counters zeroed just before and read just after: B1 exactly once a
@@ -104,7 +103,8 @@ worklist, odometry pyramid [20, 10, 5]):
    ``MonoOdometryTSDF(..., streaming=StreamingTSDF.for_pipeline(cfg,
    check_interval=8, margin=...))`` over 120 frames at 640x576 every
    0.045 m (margin 0.4) and 240 at quarter resolution every 0.04 m (margin
-   0.3), each warm and then timed with the counters zeroed just before and
+   0.3), each timed (``--streaming`` warms each first; here the phases
+   before have warmed the card) with the counters zeroed just before and
    read just after, and the same frames into a plain 4,096-block pool:
    no overflow, evictions, B1 exactly once a frame and B2 once a tracked
    frame, the trajectory and the sorted ``extract_mesh`` soup equal to the
@@ -182,7 +182,7 @@ worklist, odometry pyramid [20, 10, 5]):
    their ``geometry.bin`` to their pack, the status line, the save (mesh,
    cloud, trajectory, a PNG preview) read back, the native PLY writers'
    bytes against the Python writers'; then ms/frame headless and served in
-   both display modes in turns (median of 3; the page thread polls and
+   both display modes in turns (median of 2; the page thread polls and
    fetches through every served turn and is stopped for the headless ones),
    the vis frames' stage ms and the synchronizing calls by frame;
 17. drives the checkerboard route for a rig (``rig_calib_phase``):
@@ -197,23 +197,43 @@ worklist, odometry pyramid [20, 10, 5]):
    at 1280x720 from the color camera's pose; the color intrinsics):
    ``transformed_depth`` on the card equal to the CPU's to the bit; the
    unique block keys a frame against allocate's 2,048 dedup budget and the
-   largest ``n_active`` at the true poses, from which the worklist size
-   (the first of the JAX package's ``WORKLIST_SIZES`` that holds it); B1
-   on one frame equal to its plain version to the bit and B2 on one pair
-   within its tolerances and equal to itself on a second launch, with the
-   instance B2 took, each kernel's device us, wrapper and plain ms and
-   bound; frame to frame over 64 poses and frame to model over 32
-   (``f2m_phase``), the counters zeroed just before and read just after
-   each: no gate rejection, no overflow, ATE <= 20 mm against the color
-   camera's truth (frame to model also <= frame to frame + 0.5 mm), B1
-   once a frame, B2 once a pair, ms/frame beside 33.3 ms; the mesh with no
-   overflow; then ``cli.live_mono --source replay:DIR --voxel 0.005`` on a
-   log of the 64 frames whose calibration gives depth and color the color
-   intrinsics: exit 0, every frame tracked, the mesh written, ATE <= 20
-   mm, and its sticky overflow set exactly when the largest ``n_active``
-   exceeds the default worklist it keeps (ROADMAP C18, printed as
-   ``C18 (open; ...)``);
-19. runs the port's ``bench.py`` (``bench_phase``): ``python -m
+   largest ``n_active`` at the true poses beside the worklist a caller of
+   the JAX class would pass (the first of the JAX package's
+   ``WORKLIST_SIZES`` that holds it) and the port's default, the whole
+   pool; B1 on one frame equal to its plain version to the bit and B2 on
+   one pair within its tolerances and equal to itself on a second launch,
+   with the instance B2 took, each kernel's device us, wrapper and plain
+   ms and bound; frame to frame over 64 poses and frame to model over 32
+   (``f2m_phase``) at the default worklist, the counters zeroed just
+   before and read just after each: no gate rejection, no overflow, ATE
+   <= 20 mm against the color camera's truth (frame to model also <= frame
+   to frame + 0.5 mm), B1 once a frame, B2 once a pair, ms/frame beside
+   33.3 ms; the mesh with no overflow; then ``cli.live_mono --source
+   replay:DIR --voxel 0.005`` on a log of the 64 frames whose calibration
+   gives depth and color the color intrinsics: exit 0, every frame
+   tracked, the mesh written, ATE <= 20 mm, and no overflow although the
+   largest ``n_active`` exceeds the JAX class's 2,048 (ROADMAP C18,
+   repaired: the default worklist is the whole pool; printed as ``C18
+   (repaired): ...``);
+19. drives the live camera's other paths on its color-aligned frames
+   (``aligned_paths``; ``AlignedCamera`` renders a unit's depth camera,
+   ``transformed_depth`` into its color camera): the two-camera rig at
+   1280x720 (``aligned_dual_phase``; camera 1's color intrinsics 6 px / -4
+   px off camera 0's in fx / cx): ``DualCameraFusion.calibrate`` on the
+   bench rig in both scenes and the test rig, from RANSAC seeds 0-3 at
+   relative depth noise 0 and 0.01, each within 2 cm / 0.03 rad with its
+   scores and stage ms; then ``dual_fusion_checks`` at the bench rig with
+   5 mm voxels: 24 static and 24 moving pairs, B1 twice a pair, ms/pair
+   beside 33.3 ms, the pair's phase ms, 2 pairs against a CPU pipeline by
+   block key, the save, and B1 on camera 1's frame against its plain
+   version; the recorder at 1280x720 (``recorder_phase`` over 32 aligned
+   frames, the keyframe jump and its ladder rendered aligned); relocalization
+   at 1280x720 (``reloc_phase`` on the aligned sweep at the default
+   worklist); and one frame-to-frame pass at 1920x1080 (``hd_phase``, the
+   1080p intrinsics, 16 frames: B1 and B2 against their plain versions, B2
+   on its global-memory instance, B1 16 / B2 15, ATE <= 20 mm, no
+   overflow, ms/frame beside 33.3 ms);
+20. runs the port's ``bench.py`` (``bench_phase``): ``python -m
    azurekinect3dreconstruction_tpu_torch.cli.bench`` in a subprocess, at
    ``bench.py``'s sizes and by its methods, logging its JSON line and its
    stderr marks: exit code 0, every key of ``bench.py``'s line plus an empty
@@ -254,9 +274,9 @@ one call: parent, change, change, parent.
 does the same for B1 (TSDF integrate): its device time per launch on the
 stated input (the third sweep frame into a 2-frame volume through
 ``integrate_worklist(..., worklist_size=2048)``), on the first frame's
-whole-pool worklist (``integrate_frame``), and over the 16-frame mono loop,
-with the bound and its bytes (null for a version without
-``updated_voxels``).
+whole-pool worklist (``integrate_frame``), and over the 16-frame mono loop
+at the pipeline's default worklist, with the loop's ms/frame, the bound
+and its bytes (null for a version without ``updated_voxels``).
 
     python3 chip_smoke.py --f2m
 
@@ -280,9 +300,11 @@ runs only host streaming's checks (``streaming_main``: step 13 without
 the CLI subprocess), on the card unless ``--device cpu``, at both runs or
 only the one at ``--scale``; the same in a parent checkout.
 
-    python3 chip_smoke.py --aligned
+    python3 chip_smoke.py --aligned [--jump-draws N]
 
-runs only step 18 (``aligned_main``) on the card; one JSON line.
+runs only steps 18 and 19 (``aligned_main``) on the card, the aligned
+recorder's ladder from ``N`` fresh seeds (default ``JUMP_DRAWS``); one
+JSON line.
 """
 
 from __future__ import annotations
@@ -333,15 +355,17 @@ CALIB_RIG_XI = (0.12, 0.03, -0.02, 0.05, -0.12, 0.04)
 CALIB_T_LIMIT_M = 0.02
 CALIB_R_LIMIT_RAD = 0.03
 # the bench rig's auto-calibration: RANSAC generator seeds in each scene at
-# 640x576 and at quarter resolution (at the first the point-to-plane
-# candidate already lands on the truth, at the second only the colored
-# fallback does); then, from seeds 0 and 1 at 640x576, relative depth noise
-# on the bench rig, and the test rig at the largest; the scripted reject at
-# quarter resolution, where the scripted pose clears the overlap gate
-BENCH_CALIB_SEEDS = (0, 1, 2, 3)
-BENCH_CALIB_SCALES = (1.0, 0.25)
-BENCH_CALIB_NOISES = (0.005, 0.01)
-BENCH_CALIB_NOISE_SEEDS = (0, 1)
+# 640x576 (the point-to-plane candidate lands on the truth); then, from seed
+# 0, relative depth noise on the bench rig, and the test rig at the largest;
+# the scripted reject at quarter resolution, where the scripted pose clears
+# the overlap gate. (The live camera's paths calibrate the same rigs on
+# 1280x720 aligned frames from 4 seeds at 2 noises, ALIGNED_CALIB_*, where
+# the colored fallback runs too; until then these ran 4 seeds at 640x576
+# and at quarter resolution and 2 seeds at 2 noises.)
+BENCH_CALIB_SEEDS = (0, 1)
+BENCH_CALIB_SCALES = (1.0,)
+BENCH_CALIB_NOISES = (0.01,)
+BENCH_CALIB_NOISE_SEEDS = (0,)
 BENCH_CALIB_REJECT_SCALE = 0.25
 N_REC_FRAMES = 32
 # tests/test_pipelines.py's keyframe jump and its bounds there (at its registration budgets)
@@ -350,6 +374,8 @@ JUMP_R_LIMIT_RAD = 0.08
 # the fallback ladder again on the jump's pair, from this many fresh generator seeds (on
 # the card every draw differs anyway: the downsample's and FPFH's sums are atomics)
 JUMP_DRAWS = 8
+# a ladder refinement this close to the jump's truth is in its basin (the draws land within 2 mm)
+LADDER_TRUE_M, LADDER_TRUE_RAD = 0.005, 0.005
 N_OFFLINE_OUT = 12  # the offline scan: 12 sweep poses out and back, 24 frames
 N_OFFLINE_CPU = 4
 # Azure Kinect WFOV unbinned depth: width, height, fx, fy, cx, cy
@@ -423,7 +449,7 @@ N_FED = 32
 # that are not vis frames, so the loop has not synchronized with the frame's work when
 # the key arrives), the turns of its ms/frame against headless
 SERVE_KEY_FRAMES = {"M": 11, "S": 21}
-SERVE_TURNS = 3
+SERVE_TURNS = 2
 # the checkerboard rig calibration: tests/test_io_calib.py's bounds on its
 # extrinsic; the pairs cli.dual_fusion --rig-calib then fuses
 RIG_T_LIMIT_M = 0.04
@@ -452,7 +478,19 @@ N_ALIGNED_F2F = 64
 N_ALIGNED_F2M = 32
 ALIGNED_BLOCKS = 16384
 WORKLIST_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+JAX_WORKLIST_DEFAULT = 2048  # the JAX package's MonoOdometryTSDF (and the port's before C18)
 FRAME_LIMIT_MS = 33.3
+# the live camera's other paths on its color-aligned frames: the two-camera rig, camera 1's
+# color intrinsics off camera 0's by a few pixels of 1280x720 (two factory units differ),
+# calibrated from these RANSAC seeds at these relative depth noises and fused over the
+# sweep; the 1080p pass (k4arecorder's default color resolution: 1.5 x the 720p intrinsics)
+ALIGNED_CAM1_DFX, ALIGNED_CAM1_DCX = 6.0, -4.0
+ALIGNED_CALIB_SEEDS = (0, 1, 2, 3)
+ALIGNED_CALIB_NOISES = (0.0, 0.01)
+N_ALIGNED_DUAL_PAIRS = 24
+N_ALIGNED_DUAL_CPU_PAIRS = 2
+HD_SCALE = 1.5
+N_HD_FRAMES = 16
 
 
 def _log(msg: str) -> None:
@@ -1040,29 +1078,18 @@ def bench_calibration(intr, cfg, dev, gpu: str, out_dir: str) -> list:
 
 def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
                cpu_pairs: int = N_DUAL_CPU_PAIRS):
-    """Two-camera fusion, ``DualCameraFusion(..., device=dev)``: (a) auto-
+    """Two-camera fusion, ``DualCameraFusion(..., device=dev)``: auto-
     calibration of the test rig with its stage times, then of the bench rig
-    (``bench_calibration``); (b) fusion at the
-    bench rig with its extrinsics set by hand, the static pair and the
-    moving rig over the sweep, synchronized per pair and with one sync at
-    the end; (c) the first ``cpu_pairs`` moving pairs on the card against
-    a CPU pipeline, by block key; (d) the save, read back. Returns
-    (failures, B1 launches of the moving-rig pass)."""
+    (``bench_calibration``); then ``dual_fusion_checks`` at the bench rig.
+    Returns (failures, B1 launches of the moving-rig pass)."""
     import numpy as np
     import torch
 
     from azurekinect3dreconstruction_tpu_torch.cli.bench import bench_rig
     from azurekinect3dreconstruction_tpu_torch.core import se3
-    from azurekinect3dreconstruction_tpu_torch.core.device import upload
-    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
-        SyntheticCamera,
-        orbit_trajectory,
-    )
-    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
     from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
-    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_obj, read_ply
 
     failures = []
     cam = SyntheticCamera(intrinsics=intr, device=dev)
@@ -1101,12 +1128,51 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
 
     failures += bench_calibration(intr, cfg, dev, gpu, tmp.name)
 
-    # -- b. fusion at the bench rig, extrinsics set by hand ------------------------
+    fuse_failures, counts, _ = dual_fusion_checks((cam, cam), (intr, intr), cfg, bench_rig(),
+                                                   dev, gpu, tmp.name, n_pairs, cpu_pairs)
+    failures += fuse_failures
+    tmp.cleanup()
+    return failures, counts[tk.KERNEL]
+
+
+def dual_fusion_checks(cams, intrs, cfg, rig, dev, gpu: str, out_dir: str, n_pairs: int,
+                       cpu_pairs: int, what: str = "640x576"):
+    """Two-camera fusion at ``rig`` (camera 1's pose in camera 0's frame)
+    with the extrinsics set by hand, each camera ``cams[i]`` (its
+    ``capture(T)`` the raw frames at pose ``T``) with its own intrinsics
+    ``intrs[i]``: (a) the static pair and the moving rig over the sweep,
+    synchronized per pair and with one sync at the end, beside the 33.3 ms
+    limit, B1 twice a pair and B2 never; the phases of one moving pair; (b) the first
+    ``cpu_pairs`` moving pairs on the card against a CPU pipeline, by block
+    key; (c) the save, read back; (d) on a card, B1 on camera 1's third
+    moving frame against its plain version (``b1_frame_check``, the whole
+    pool's worklist). Returns (failures, launch counts of the moving-rig
+    pass, B1's figures from (d) or None)."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.core.device import upload
+    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+    from azurekinect3dreconstruction_tpu_torch.viz.savers import read_obj, read_ply
+
+    failures = []
+    ms_since = lambda t0: (time.perf_counter() - t0) * 1e3
+
+    def pipeline(device=dev):
+        p = DualCameraFusion(tuple(intrs), cfg, device=device, output_dir=out_dir)
+        p.calibrated = True
+        return p
+
     poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n_pairs]
-    rig = bench_rig()
-    static = (cam.capture(poses[0]), cam.capture(poses[0] @ rig))
-    moving = [((cam.capture(T), cam.capture(T @ rig)), T, T @ rig) for T in poses]
-    ps = pipeline(calibrated=True)
+    static = (cams[0].capture(poses[0]), cams[1].capture(poses[0] @ rig))
+    moving = [((cams[0].capture(T), cams[1].capture(T @ rig)), T, T @ rig) for T in poses]
+    ps = pipeline()
     ps.extrinsics = [poses[0], poses[0] @ rig]
     for _ in range(2):
         ps.process_frames(static)
@@ -1125,7 +1191,7 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     overflow = bool(ps.volume.overflow)
     del ps
 
-    pm = pipeline(calibrated=True)
+    pm = pipeline()
     _sync(dev)
     build.launches.clear()
     mv, n_blocks = [], {}
@@ -1137,8 +1203,8 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
         mv.append(ms_since(t0))
         if j + 1 in (n_pairs // 2, n_pairs):
             n_blocks[j + 1] = int(pm.volume.n_blocks)
-    launches = build.launches[tk.KERNEL]
-    pm2 = pipeline(calibrated=True)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    pm2 = pipeline()
     _sync(dev)
     t0 = time.perf_counter()
     for pr, A, B in moving:
@@ -1149,14 +1215,15 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     overflow = overflow or bool(pm.volume.overflow) or bool(pm2.volume.overflow)
     del pm2
     med = lambda a: sorted(a)[len(a) // 2]
-    _log(f"dual launches on the moving-rig pass: {json.dumps({tk.KERNEL: launches})} over "
-         f"{n_pairs} pairs  [{gpu}]")
-    _log(f"dual ms/pair (host clock; raw pairs uploaded from host memory): static pair "
-         f"synchronized per pair median {med(per_pair):.3f} (min {min(per_pair):.3f}, max "
-         f"{max(per_pair):.3f}), one sync after {n_pairs} {static_one:.3f}; moving rig "
-         f"synchronized per pair median {med(mv):.3f} (min {min(mv):.3f}, max {max(mv):.3f}), "
-         f"one sync after {n_pairs} {moving_one:.3f}; n_blocks {json.dumps(n_blocks)}, "
-         f"overflow {overflow}  [{gpu}]")
+    _log(f"dual launches on the moving-rig pass at {what}: {json.dumps(counts)} over {n_pairs} "
+         f"pairs  [{gpu}]")
+    _log(f"dual ms/pair at {what} (host clock; raw pairs uploaded from host memory; limit "
+         f"{FRAME_LIMIT_MS} ms): static pair synchronized per pair median {med(per_pair):.3f} "
+         f"(min {min(per_pair):.3f}, max {max(per_pair):.3f}), one sync after {n_pairs} "
+         f"{static_one:.3f}; moving rig synchronized per pair median {med(mv):.3f} (min "
+         f"{min(mv):.3f}, max {max(mv):.3f}), one sync after {n_pairs} {moving_one:.3f}; "
+         f"n_blocks {json.dumps(n_blocks)} of {cfg.tsdf.block_capacity}, overflow {overflow}  "
+         f"[{gpu}]")
     # phases of one moving pair, on a copy of the moving rig's volume
     cc = cfg.camera
     scal = (1.0 / cc.depth_scale, cc.depth_min, cc.depth_trunc)
@@ -1165,47 +1232,49 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     dec = [decode_raw_frame(d, c, *scal) for d, c in raw]
     vol = pm.volume._replace(**{k: t.clone() for k, t in pm.volume._asdict().items()})
     TA, TB = (torch.as_tensor(T, dtype=torch.float32, device=dev) for T in (A, B))
-    rays = pm.rays[0]
     phases = {
         "upload (2 raw frames)": lambda: [(upload(d, dev), upload(c, dev)) for d, c in pr],
         "decode x2": lambda: [decode_raw_frame(d, c, *scal) for d, c in raw],
-        "fuse camera 0": lambda: tk.integrate_step(vol, *dec[0][:2], TA, rays, intr, cfg.tsdf,
-                                                   2048),
-        "fuse camera 1": lambda: tk.integrate_step(vol, *dec[1][:2], TB, rays, intr, cfg.tsdf,
-                                                   2048),
-        "step": lambda: pm._step(vol, *raw[0], *raw[1], rays, rays, TA, TB, *scal,
+        "fuse camera 0": lambda: tk.integrate_step(vol, *dec[0][:2], TA, pm.rays[0], intrs[0],
+                                                   cfg.tsdf),
+        "fuse camera 1": lambda: tk.integrate_step(vol, *dec[1][:2], TB, pm.rays[1], intrs[1],
+                                                   cfg.tsdf),
+        "step": lambda: pm._step(vol, *raw[0], *raw[1], *pm.rays, TA, TB, *scal,
                                  torch.ones((), device=dev)),
     }
     times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
     del vol
-    _log(f"dual pair phase ms (synchronized after each, median of 5; fuse = allocate + worklist "
-         f"+ B1, step = decode x2 + fuse x2 as process_frames enqueues it): "
+    _log(f"dual pair phase ms at {what} (synchronized after each, median of 5; fuse = allocate "
+         f"+ worklist + B1, step = decode x2 + fuse x2 as process_frames enqueues it): "
          f"{json.dumps(times)}  [{gpu}]")
     half, full = n_blocks.get(n_pairs // 2, 0), n_blocks.get(n_pairs, 0)
     if not 0 < half < full:
-        failures.append(f"the moving rig did not allocate throughout ({half} -> {full})")
+        failures.append(f"the moving rig at {what} did not allocate throughout ({half} -> "
+                        f"{full})")
     if overflow:
-        failures.append("volume overflow in dual fusion")
-    if launches != 2 * n_pairs:
-        failures.append(f"B1 launched {launches} times over {n_pairs} dual pairs, not 2 each")
+        failures.append(f"volume overflow in dual fusion at {what}")
+    if counts != {tk.KERNEL: 2 * n_pairs, odo.KERNEL: 0}:
+        failures.append(f"dual launches {counts} over {n_pairs} pairs at {what}, not B1 twice a "
+                        "pair and B2 never")
 
-    # -- c. the card against the CPU (plain B1) on the first moving pairs ----------
-    pg, pcpu = pipeline(calibrated=True), pipeline(torch.device("cpu"), calibrated=True)
+    # -- the card against the CPU (plain B1) on the first moving pairs ------------
+    pg, pcpu = pipeline(), pipeline(torch.device("cpu"))
     t0 = time.perf_counter()
     for pr, A, B in moving[:cpu_pairs]:
         for p in (pg, pcpu):
             p.extrinsics = [A, B]
             p.process_frames(pr)
     same_keys, frac, err_t, err_c = _volumes_by_key(pg.volume, pcpu.volume)
-    _log(f"dual card vs CPU over {cpu_pairs} moving pairs: same block keys {same_keys} "
-         f"({int(pg.volume.n_blocks)} blocks), weights equal on {frac:.6%}, max |dtsdf| "
-         f"{err_t:.3g}, max |dcolor| {err_c:.3g} where they agree ({ms_since(t0) / 1e3:.1f} s)")
+    _log(f"dual card vs CPU at {what} over {cpu_pairs} moving pairs: same block keys "
+         f"{same_keys} ({int(pg.volume.n_blocks)} blocks), weights equal on {frac:.6%}, max "
+         f"|dtsdf| {err_t:.3g}, max |dcolor| {err_c:.3g} where they agree "
+         f"({ms_since(t0) / 1e3:.1f} s)")
     if not (same_keys and frac >= B1_WEIGHT_EQUAL_MIN and err_t <= B1_VALUE_TOL
             and err_c <= B1_VALUE_TOL):
-        failures.append("dual fusion on the card differs from the CPU pipeline")
+        failures.append(f"dual fusion at {what} on the card differs from the CPU pipeline")
     del pg, pcpu
 
-    # -- d. the save (into the pipelines' temporary output directory) -----------------
+    # -- the save (into the pipelines' output directory) ---------------------------
     t0 = time.perf_counter()
     paths = pm.save_current_state()
     save_ms = ms_since(t0)
@@ -1213,13 +1282,23 @@ def dual_phase(intr, cfg, dev, gpu: str, n_pairs: int = N_DUAL_PAIRS,
     mv_, _, mf = read_obj(paths["mesh"])
     ok_cloud = cv is not None and len(cv) > 10000 and np.isfinite(cv).all() and cc is not None
     ok_mesh = mf is not None and len(mf) > 10000 and np.isfinite(mv_).all() and mf.max() < len(mv_)
-    _log(f"dual save: merged cloud {0 if cv is None else len(cv)} points, mesh "
+    _log(f"dual save at {what}: merged cloud {0 if cv is None else len(cv)} points, mesh "
          f"{len(mv_)} vertices / {0 if mf is None else len(mf)} triangles read back; "
          f"save_current_state {save_ms:.1f} ms (host)  [{gpu}]")
     if not (ok_cloud and ok_mesh):
-        failures.append("the dual save did not read back non-empty and finite")
-    tmp.cleanup()
-    return failures, launches
+        failures.append(f"the dual save at {what} did not read back non-empty and finite")
+    del pm
+
+    # -- B1 on camera 1's frame against its plain version ---------------------------
+    b1 = None
+    if dev.type == "cuda":
+        dec1 = [_decode(pr[1], cfg, dev) for pr, _, _ in moving[:3]]
+        gt1 = [torch.as_tensor(B, dtype=torch.float32, device=dev) for _, _, B in moving[:3]]
+        b1 = b1_frame_check(dec1, gt1, intrs[1], pixel_rays(intrs[1], dev), cfg.tsdf,
+                            cfg.tsdf.block_capacity, gpu, f"{what}, camera 1 of the rig")
+        if not b1["bitwise"]:
+            failures.append(f"B1 at {what} (camera 1 of the rig) differs from its plain version")
+    return failures, counts, b1
 
 
 def b1_frame_check(dec, gt, intr, rays, tcfg, rows: int, gpu: str, what: str) -> dict:
@@ -1506,7 +1585,7 @@ def wfov_check(cfg, dev, gpu: str):
                           launches_wfov_five_level=five_launches)
 
 
-def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
+def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str, jump_draws: int = JUMP_DRAWS):
     """The recorder, ``Recorder(..., device=dev)``, over ``raw`` at ``cfg``
     (a keyframe every ``cfg.keyframe_interval`` frames), the launch counters
     zeroed just before and read just after: B1 once a recorded frame, B2
@@ -1515,9 +1594,12 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
     keyframe step, its colored ICP and one interval step. Then the keyframe
     jump of tests/test_pipelines.py (a keyframe every frame) must be caught
     by the deferred check and rebased through the fallback ladder, and the
-    ladder run again on that pair from ``JUMP_DRAWS`` fresh generator seeds
-    must land within the same bounds on each. Returns (failures, launch
-    counts)."""
+    ladder run again on that pair from ``jump_draws`` fresh generator seeds
+    must land within the same bounds on each. Each draw's refinements are
+    logged with their fitness, share in front and gate verdict (the
+    recorder's ``ladder``), beside the share at the true pose: a refinement
+    within ``LADDER_TRUE_M`` / ``LADDER_TRUE_RAD`` of the truth must not be
+    turned down by free space. Returns (failures, launch counts)."""
     import dataclasses
 
     import numpy as np
@@ -1526,14 +1608,20 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
     from azurekinect3dreconstruction_tpu_torch.config import RegistrationConfig
     from azurekinect3dreconstruction_tpu_torch.core import se3
     from azurekinect3dreconstruction_tpu_torch.core.device import upload
-    from azurekinect3dreconstruction_tpu_torch.core.types import decode_raw_frame
+    from azurekinect3dreconstruction_tpu_torch.core.types import RGBDFrame, decode_raw_frame
     from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
     from azurekinect3dreconstruction_tpu_torch.ops.backproject import backproject_depth
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
     from azurekinect3dreconstruction_tpu_torch.pipelines.recorder import Recorder
-    from azurekinect3dreconstruction_tpu_torch.tracking.icp import TargetMaps, icp_projective
+    from azurekinect3dreconstruction_tpu_torch.tracking.icp import (
+        FREE_SPACE_MAX_SHARE,
+        TargetMaps,
+        free_space_band,
+        free_space_shares,
+        icp_projective,
+    )
     from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate
     from azurekinect3dreconstruction_tpu_torch.viz.savers import ResultSaver, read_geometry
 
@@ -1609,8 +1697,8 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
             src_intensity=inten[::4, ::4].reshape(-1)),
         "interval step": lambda: rec._int_step(rec.volume, rec._T, *rawd, rec.rays, *scal),
     }
-    times = {k: round(_median_ms(fn, dev), 4) for k, fn in phases.items()}
-    _log(f"recorder step ms (synchronized after each, median of 5; {reg.colored_icp_max_iters} "
+    times = {k: round(_median_ms(fn, dev, 3), 4) for k, fn in phases.items()}
+    _log(f"recorder step ms (synchronized after each, median of 3; {reg.colored_icp_max_iters} "
          f"colored ICP iterations): {json.dumps(times)}  [{gpu}]")
     del rec
 
@@ -1641,26 +1729,63 @@ def recorder_phase(intr, cfg, cam, raw, gt, dev, gpu: str):
                         f"{et:.4f} m / {er:.4f} rad")
     # every draw of the ladder must land on the jump: T (this camera -> previous keyframe)
     T_true = np.linalg.inv(jump[2]) @ jump[3]
-    draws = []
-    for seed in range(1, JUMP_DRAWS + 1 if pair else 1):
+
+    def off(T):
+        e = se3.se3_log(torch.as_tensor(np.linalg.inv(T_true) @ T)).numpy()
+        return float(np.linalg.norm(e[:3])), float(np.linalg.norm(e[3:]))
+
+    if pair:  # the gate's share at the true pose, as _register_fallback reads it
+        cc = cfg.camera
+        prev, curr = (RGBDFrame.from_raw(*r, cc.depth_scale, cc.depth_trunc, cc.depth_min)
+                      for r in pair)
+        band = free_space_band(prev.depth, curr.depth)
+        Tt = torch.as_tensor(T_true, dtype=torch.float32, device=dev)
+        truth_share = max(
+            float(free_space_shares(prev.depth, intr, curr.depth, rj.rays, Tt, band)[0]),
+            float(free_space_shares(curr.depth, intr, prev.depth, rj.rays,
+                                    torch.linalg.inv(Tt), band)[0]))
+        _log(f"recorder jump pair: share in front at the true pose {truth_share * 100:.3f} % "
+             f"(gate {FREE_SPACE_MAX_SHARE * 100:g} %, band's relative part "
+             f"{float(band):.4f})  [{gpu}]")
+    draws, refs = [], []
+    for seed in range(1, jump_draws + 1 if pair else 1):
         rj.generator.manual_seed(seed)
         retries = rj.telemetry.counters.get("fallback_retry", 0)
         t0 = time.perf_counter()
         T_cp = rj._register_fallback(*pair)
         ms = ms_since(t0)
         rounds = 1 + rj.telemetry.counters.get("fallback_retry", 0) - retries
-        e = (se3.se3_log(torch.as_tensor(np.linalg.inv(T_true) @ T_cp)).numpy()
-             if T_cp is not None else np.full(6, np.inf))
-        draws.append((float(np.linalg.norm(e[:3])), float(np.linalg.norm(e[3:])), rounds, ms))
+        et_d, er_d = off(T_cp) if T_cp is not None else (float("inf"), float("inf"))
+        draws.append((et_d, er_d, rounds, ms))
+        mine = [(seed,) + off(T) + (fit, front, ok) for T, fit, front, ok in rj.ladder]
+        refs += mine
+        shown = [(round(r[1] * 1e3, 1), round(r[2] * 1e3, 1), round(r[3], 4),
+                  round(r[4] * 100, 3), r[5]) for r in mine]
+        _log(f"recorder jump ladder, seed {seed}: accepted {et_d * 1e3:.3f} mm / "
+             f"{er_d * 1e3:.3f} mrad off in {rounds} round(s); refinements (mm off, mrad off, "
+             f"fitness, % in front, passed): {shown}  [{gpu}]")
     bad = [d for d in draws if not (d[0] < JUMP_T_LIMIT_M and d[1] < JUMP_R_LIMIT_RAD)]
+    true_basin = [r for r in refs if r[1] <= LADDER_TRUE_M and r[2] <= LADDER_TRUE_RAD]
+    wrong = [r for r in refs if not (r[1] < JUMP_T_LIMIT_M and r[2] < JUMP_R_LIMIT_RAD)]
+    fit_ok = [r for r in wrong if r[3] >= cfg.registration.min_fitness_icp]
+    turned = [r for r in true_basin if r[4] > FREE_SPACE_MAX_SHARE]
+    span = lambda rs: (f"{min((r[4] for r in rs), default=0) * 100:.3f}-"
+                       f"{max((r[4] for r in rs), default=0) * 100:.3f}")
     _log(f"recorder jump ladder over {len(draws)} fresh seeds: {len(draws) - len(bad)} within "
          f"the bounds; worst {max((d[0] for d in draws), default=0) * 1e3:.3f} mm / "
          f"{max((d[1] for d in draws), default=0) * 1e3:.3f} mrad; rounds "
-         f"{[d[2] for d in draws]}; ladder ms {[round(d[3], 1) for d in draws]} (host clock)  "
-         f"[{gpu}]")
-    if len(draws) != JUMP_DRAWS or bad:
+         f"{[d[2] for d in draws]}; ladder ms {[round(d[3], 1) for d in draws]} (host clock); "
+         f"{len(refs)} refinements: {len(true_basin)} in the true basin (within "
+         f"{LADDER_TRUE_M * 1e3:g} mm / {LADDER_TRUE_RAD * 1e3:g} mrad), % in front there "
+         f"{span(true_basin)}, {len(turned)} turned down by free space; {len(wrong)} outside "
+         f"the jump's bounds, {len(fit_ok)} of them over the fitness gate, % in front there "
+         f"{span(fit_ok)}, {sum(r[5] for r in wrong)} passed the gate  [{gpu}]")
+    if len(draws) != jump_draws or bad:
         failures.append(f"the recorder's fallback ladder missed the jump on {len(bad)} of "
                         f"{len(draws)} fresh seeds: {bad}")
+    if turned:
+        failures.append(f"the recorder's free-space gate turned down {len(turned)} refinement(s) "
+                        f"in the jump's true basin: {turned}")
     del rj
     tmp.cleanup()
     return failures, counts
@@ -1791,7 +1916,8 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
     hint (None or a correct pose), the hint rung against a CPU copy of the
     volume (``cpu_check``), the attempts' ms, the 8,192-hypothesis RANSAC's
     ms and memory, the warmup's s, and healthy ms/frame over
-    ``raw_healthy`` with and without ``relocalize``. Returns (failures,
+    ``raw_healthy`` with and without ``relocalize``; every pipeline at the
+    default worklist, as ``cli.live_mono`` builds it. Returns (failures,
     launch counts)."""
     import dataclasses
 
@@ -1825,7 +1951,7 @@ def reloc_phase(intr, cfg, cam, poses, raw_healthy, dev, gpu: str, cpu_check: bo
     resumed = list(range(RELOC_RESUME, RELOC_RESUME + N_RELOC_RESUMED))
     seq = ([_quantize(cam.render(poses[i])) for i in range(N_RELOC_TRACK)]
            + [dark] * N_RELOC_DARK + [_quantize(cam.render(poses[i])) for i in resumed])
-    kw = dict(device=dev, worklist_size=2048)
+    kw = dict(device=dev)
     pipe = MonoOdometryTSDF(intr, cfg, relocalize=True, reloc_window=2, reloc_interval=4, **kw)
     _sync(dev)
     build.launches.clear()
@@ -4244,7 +4370,7 @@ def serve_phase(intr, cfg, raw, dev, gpu: str, turns: int = SERVE_TURNS):
     vis = list(range(0, n, every))
     last_mesh = max(i for i in vis if i > SERVE_KEY_FRAMES["M"])
     last_cloud = max(i for i in vis if i <= SERVE_KEY_FRAMES["M"])
-    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev)  # cli.live_mono's default worklist
     get = lambda url: urllib.request.urlopen(url, timeout=10).read()
     td = tempfile.mkdtemp(prefix="chip_smoke_serve_")
 
@@ -4620,38 +4746,337 @@ def rig_calib_phase(dev, gpu: str, n_pairs: int = N_RIG_CALIB_PAIRS, scale: floa
     return failures, counts
 
 
-def _aligned_frames(dev, n: int):
+def _aligned_cfg():
+    """The live camera's paths' configuration: the bench's 5 mm voxels in
+    16^3 blocks, in a pool of ``ALIGNED_BLOCKS`` blocks."""
+    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
+
+    return PipelineConfig(tsdf=TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=16,
+                                          block_capacity=ALIGNED_BLOCKS,
+                                          hash_capacity=4 * ALIGNED_BLOCKS))
+
+
+def _aligned_cals(color_scale: float = 1.0):
+    """(camera 0's, camera 1's) nominal k4a calibration, the 640x576 depth
+    camera and the color camera, whose 1280x720 intrinsics ``color_scale``
+    scales (1.5: the 1080p mode, the same sensor area). Camera 1's color
+    intrinsics differ from camera 0's by ``ALIGNED_CAM1_DFX`` /
+    ``ALIGNED_CAM1_DCX`` pixels of 1280x720, as two factory units differ."""
+    from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration
+
+    cal = CameraCalibration.azure_kinect_nominal()
+    color = cal.color.scaled(color_scale)
+    cal0 = dataclasses.replace(cal, color=color)
+    cal1 = dataclasses.replace(cal0, color=dataclasses.replace(
+        color, fx=color.fx + ALIGNED_CAM1_DFX * color_scale,
+        cx=color.cx + ALIGNED_CAM1_DCX * color_scale))
+    return cal0, cal1
+
+
+class AlignedCamera:
+    """One k4a unit as ``--source k4a`` and ``mkv:`` see it, on the
+    synthetic scene: ``render(T)`` at the color camera's pose ``T`` is the
+    depth camera's render (at ``T @ cal.color_from_depth``, with relative
+    depth noise ``depth_noise`` drawn from ``generator``) put through
+    ``ops.depth_to_color.transformed_depth`` into the color camera, and the
+    color camera's own color render; ``capture(T)`` quantizes it to u16 mm
+    and u8 RGB on the host. ``intrinsics`` are the color camera's."""
+
+    def __init__(self, cal, dev, scene=None, depth_noise: float = 0.0, generator=None):
+        import numpy as np
+
+        from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+        from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera
+
+        self.cal, self.intrinsics = cal, cal.color
+        self.cam_d = SyntheticCamera(scene=scene, intrinsics=cal.depth, depth_noise=depth_noise,
+                                     generator=generator, device=dev)
+        self.cam_c = SyntheticCamera(scene=scene, intrinsics=cal.color, device=dev)
+        self.rays_d = pixel_rays(cal.depth, dev)
+        self.T_color_depth = np.asarray(cal.color_from_depth, np.float64)
+
+    def render(self, T_world_color=None):
+        import numpy as np
+
+        from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+
+        T = np.eye(4) if T_world_color is None else np.asarray(T_world_color, np.float64)
+        z, _ = self.cam_d.render(T @ self.T_color_depth)
+        _, color = self.cam_c.render(T)
+        return transformed_depth(z, self.rays_d, self.cal), color
+
+    def capture(self, T_world_color=None):
+        return _quantize(self.render(T_world_color))
+
+
+def _in_front(d0, d1, intrs, rays, T01) -> float:
+    """The larger of two cameras' shares of pixels in front of the other's
+    surface (``tracking.icp.free_space_shares``, the band from the pair's
+    own noise) at the extrinsic ``T01``: depths ``d0``, ``d1``, each
+    camera's intrinsics and ray table in ``intrs``, ``rays``."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.tracking import icp
+
+    band = icp.free_space_band(d0, d1)
+    T = torch.as_tensor(T01, dtype=torch.float32, device=d0.device)
+    return round(max(float(icp.free_space_shares(d0, intrs[0], d1, rays[1], T, band)[0]),
+                     float(icp.free_space_shares(d1, intrs[1], d0, rays[0], torch.linalg.inv(T),
+                                                 band)[0])), 6)
+
+
+def aligned_calibration(cals, cfg, dev, gpu: str, out_dir: str) -> list:
+    """``DualCameraFusion.calibrate`` on the color-aligned frames of two
+    units with the calibrations ``cals`` (each camera with its own color
+    intrinsics): the bench rig (``cli.bench.bench_rig``) in
+    ``Scene.default()`` and ``Scene.cluttered()`` and the test rig
+    (``CALIB_RIG_XI``) in the default scene, each rig the color camera 1's
+    pose in color camera 0's frame, from each RANSAC seed of
+    ``ALIGNED_CALIB_SEEDS`` at each relative depth noise of
+    ``ALIGNED_CALIB_NOISES`` (drawn in the depth cameras
+    from a generator seeded alike). Each must be accepted within 2 cm /
+    0.03 rad; each is logged with its scores, the free-space band, the
+    share in front at the truth (``_in_front``), whether the colored
+    fallback ran, the stage ms and the first pair's ms. Returns
+    failures."""
+    import numpy as np
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import bench_rig
+    from azurekinect3dreconstruction_tpu_torch.core import se3
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import Scene
+    from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import DualCameraFusion
+
+    failures = []
+    intrs = tuple(c.color for c in cals)
+    size = f"{intrs[0].width}x{intrs[0].height}"
+    test_rig = se3.se3_exp(torch.tensor(CALIB_RIG_XI, dtype=torch.float64)).numpy()
+    rigs = (("bench rig", bench_rig(), ("default", "cluttered")),
+            ("test rig", test_rig, ("default",)))
+    t_all, n = time.perf_counter(), 0
+    for name, rig, scenes in rigs:
+        for noise in ALIGNED_CALIB_NOISES:
+            for scene in scenes:
+                for seed in ALIGNED_CALIB_SEEDS:
+                    gen = torch.Generator(device=dev).manual_seed(seed) if noise else None
+                    cams = [AlignedCamera(c, dev, getattr(Scene, scene)(), noise, gen)
+                            for c in cals]
+                    pair = cams[0].capture(np.eye(4)), cams[1].capture(rig)
+                    p = DualCameraFusion(intrs, cfg, device=dev, output_dir=out_dir)
+                    p.generator = torch.Generator(device=dev).manual_seed(seed)
+                    t0 = time.perf_counter()
+                    p.process_frames(pair)
+                    _sync(dev)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    et = er = float("inf")
+                    if p.calibrated:
+                        d = se3.se3_log(torch.as_tensor(np.linalg.inv(rig) @ p.extrinsics[1]))
+                        et, er = float(d[:3].norm()), float(d[3:].norm())
+                    stages = {k: round(v, 3) for k, v in p.calib_stage_ms.items()}
+                    scores = {k: round(float(v), 6) for k, v in p.calib_scores.items()}
+                    d0, d1 = (f.depth for f in p._decoded_frames())
+                    scores["in_front_at_truth"] = _in_front(d0, d1, p.intr, p.rays, rig)
+                    _log(f"aligned dual calibration ({name}, {size}, camera 1's fx / cx "
+                         f"{intrs[1].fx - intrs[0].fx:+.2f} / {intrs[1].cx - intrs[0].cx:+.2f} px, "
+                         f"{scene} scene, depth noise {noise}, seed {seed}): calibrated "
+                         f"{p.calibrated}, extrinsic error {et * 1e3:.4f} mm / {er * 1e3:.4f} "
+                         f"mrad; scores {json.dumps(scores)}; colored fallback "
+                         f"{'colored_refine' in stages}; first pair {ms:.3f} ms (host clock, "
+                         f"calibration + fuse); stage ms (synchronized after each): "
+                         f"{json.dumps(stages)} (sum {sum(stages.values()):.3f})  [{gpu}]")
+                    if not (p.calibrated and et <= CALIB_T_LIMIT_M and er <= CALIB_R_LIMIT_RAD):
+                        failures.append(f"aligned {name} calibration ({size}, {scene}, noise "
+                                        f"{noise}, seed {seed}): calibrated {p.calibrated}, "
+                                        f"{et:.4f} m / {er:.4f} rad")
+                    n += 1
+                    del p
+    _log(f"aligned dual calibrations: {n} in {time.perf_counter() - t_all:.1f} s (host clock)  "
+         f"[{gpu}]")
+    return failures
+
+
+def aligned_dual_phase(dev, gpu: str):
+    """The two-camera rig on the color-aligned 1280x720 frames ``--source
+    k4a`` feeds (``_aligned_cals``: each unit's depth
+    through ``transformed_depth`` into its own color camera, camera 1's
+    color intrinsics a few pixels off camera 0's), with 5 mm voxels
+    (``_aligned_cfg``): ``aligned_calibration``, then ``dual_fusion_checks``
+    at the bench rig. Returns (failures, launch counts of the moving-rig
+    pass, B1's figures on camera 1's frame or None)."""
+    from azurekinect3dreconstruction_tpu_torch.cli.bench import bench_rig
+
+    t_phase = time.perf_counter()
+    cfg, cals = _aligned_cfg(), _aligned_cals()
+    size = f"{cals[0].color.width}x{cals[0].color.height}"
+    with tempfile.TemporaryDirectory() as tmp:
+        failures = aligned_calibration(cals, cfg, dev, gpu, tmp)
+        cams = [AlignedCamera(c, dev) for c in cals]
+        fuse_failures, counts, b1 = dual_fusion_checks(
+            cams, [c.color for c in cals], cfg, bench_rig(), dev, gpu, tmp, N_ALIGNED_DUAL_PAIRS,
+            N_ALIGNED_DUAL_CPU_PAIRS, f"{size} aligned")
+    _log(f"aligned dual phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  "
+         f"[{gpu}]")
+    return failures + fuse_failures, counts, b1
+
+
+def aligned_recorder_phase(dev, gpu: str, jump_draws: int = JUMP_DRAWS):
+    """The recorder (``recorder_phase``) on the color-aligned 1280x720
+    frames, with the color intrinsics, over the first ``N_REC_FRAMES``
+    aligned sweep frames, its keyframe jump rendered aligned too
+    (``AlignedCamera``) and its ladder run again from ``jump_draws`` fresh
+    seeds. Returns (failures, launch counts)."""
+    t_phase = time.perf_counter()
+    cal = _aligned_cals()[0]
+    _, raw, truth, _ = _aligned_frames(dev, N_REC_FRAMES, cal)
+    out = recorder_phase(cal.color, _aligned_cfg(), AlignedCamera(cal, dev), raw, truth, dev, gpu,
+                         jump_draws)
+    _log(f"aligned recorder phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  "
+         f"[{gpu}]")
+    return out
+
+
+def aligned_reloc_phase(dev, gpu: str):
+    """Relocalization (``reloc_phase``) on the color-aligned 1280x720
+    frames, with the color intrinsics and the sweep's color camera poses;
+    the healthy
+    ms/frame over its first ``N_FRAMES`` aligned frames. Returns (failures,
+    launch counts)."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
+
+    t_phase = time.perf_counter()
+    cal = _aligned_cals()[0]
+    _, raw, _, _ = _aligned_frames(dev, N_FRAMES, cal)
+    T_depth_color = np.linalg.inv(cal.color_from_depth)
+    poses = [T @ T_depth_color for T in orbit_trajectory(64, radius=0.35, angle_span=1.3)]
+    out = reloc_phase(cal.color, _aligned_cfg(), AlignedCamera(cal, dev), poses, raw, dev, gpu)
+    _log(f"aligned relocalization phase wall time {time.perf_counter() - t_phase:.1f} s (host "
+         f"clock)  [{gpu}]")
+    return out
+
+
+def hd_phase(dev, gpu: str):
+    """One mono frame-to-frame pass on the color-aligned 1920x1080 frames,
+    the size an ``mkv:`` from ``k4arecorder``'s defaults feeds (the 1080p
+    color intrinsics, 1.5 x the 720p ones), over the first
+    ``N_HD_FRAMES`` sweep poses into the 5 mm pool at the default worklist,
+    the counters zeroed just before and read just after: B1 once a frame,
+    B2 once a pair, no gate rejection, no overflow, ATE <= 20 mm against
+    the color camera's truth, ms/frame beside the 33.3 ms limit. Before
+    it, B1 on one frame and B2 on one pair against their plain versions (B2's
+    level 0 outgrows the shared-memory band: its global-memory instance).
+    Returns (failures, launch counts, the kernels' figures by name)."""
+    import numpy as np
+
+    from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+    from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
+        MonoOdometryTSDF,
+    )
+    from azurekinect3dreconstruction_tpu_torch.utils.evaluation import ate, rpe
+
+    t_phase = time.perf_counter()
+    failures, figures = [], {}
+    cfg = _aligned_cfg()
+    cal = _aligned_cals(HD_SCALE)[0]
+    intr = cal.color
+    size = f"{intr.width}x{intr.height}"
+    n = N_HD_FRAMES
+    _, raw, truth, _ = _aligned_frames(dev, n, cal)
+    dec = [_decode(r, cfg, dev) for r in raw[:3]]
+    figures[tk.KERNEL] = b1_frame_check(dec, truth, intr, pixel_rays(intr, dev), cfg.tsdf,
+                                        cfg.tsdf.block_capacity, gpu, size)
+    if not figures[tk.KERNEL]["bitwise"]:
+        failures.append(f"B1 at {size} differs from its plain version")
+    b2_failures, figures[odo.KERNEL] = b2_pair_check(dec, intr, cfg.odometry, gpu, size)
+    failures += b2_failures
+    if not figures[odo.KERNEL]["instance"].startswith("global"):
+        failures.append(f"B2 at {size} took its {figures[odo.KERNEL]['instance']} instance, "
+                        "not the global-memory one")
+    _run_frames(MonoOdometryTSDF(intr, cfg, device=dev), raw[:3], False)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev)
+    _sync(dev)
+    build.launches.clear()
+    frame_ms = _run_frames(pipe, raw, True)
+    counts = {tk.KERNEL: build.launches[tk.KERNEL], odo.KERNEL: build.launches[odo.KERNEL]}
+    gt_np = [g.cpu().numpy().astype(np.float64) for g in truth]
+    traj = pipe.trajectory[1:]
+    a, r = ate(traj, gt_np), rpe(traj, gt_np)
+    rejected, overflow = pipe.odometry_failures, bool(pipe.volume.overflow)
+    n_blocks = int(pipe.volume.n_blocks)
+    pipe.reset()
+    sync_ms = _run_frames(pipe, raw, False)
+    steady = sorted(frame_ms[1:])
+    _log(f"{size} frame_to_frame over {n} aligned frames (the default worklist, the whole pool "
+         f"of {cfg.tsdf.block_capacity}): launches {json.dumps(counts)}; ATE rmse "
+         f"{a['rmse'] * 1e3:.3f} mm (max {a['max'] * 1e3:.3f}), RPE {r['trans_rmse'] * 1e3:.3f} "
+         f"mm / {np.degrees(r['rot_rmse']):.4f} deg against the color camera's truth; gate "
+         f"rejections {rejected}, overflow {overflow}, n_blocks {n_blocks}; ms/frame "
+         f"synchronized per frame: frame 0 {frame_ms[0]:.3f}, tracked median "
+         f"{steady[len(steady) // 2]:.3f}, max {steady[-1]:.3f}; one sync at the end "
+         f"{sync_ms:.3f} (limit {FRAME_LIMIT_MS} ms)  [{gpu}]")
+    if rejected or len(pipe.fitness) != n - 1:
+        failures.append(f"{size} frame_to_frame: {rejected} gate rejection(s)")
+    if overflow or bool(pipe.volume.overflow):
+        failures.append(f"{size} frame_to_frame: overflow at the default worklist")
+    if not a["rmse"] <= ATE_LIMIT_M:
+        failures.append(f"{size} frame_to_frame ATE {a['rmse']:.5f} m over {ATE_LIMIT_M} m")
+    if counts != {tk.KERNEL: n, odo.KERNEL: n - 1}:
+        failures.append(f"{size} frame_to_frame launches {counts}, not B1 once a frame and B2 "
+                        "once a pair")
+    _log(f"{size} phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  [{gpu}]")
+    return failures, counts, figures
+
+
+def aligned_paths(dev, gpu: str, jump_draws: int = JUMP_DRAWS):
+    """The live camera's other paths at its color-aligned frame sizes:
+    ``aligned_dual_phase``, ``aligned_recorder_phase`` (its ladder from
+    ``jump_draws`` fresh seeds), ``aligned_reloc_phase`` and ``hd_phase``. Returns
+    (failures, {kernel name: the launch counts of each path and the
+    kernels' figures at the new sizes})."""
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
+
+    dual_failures, dual_counts, b1_dual = aligned_dual_phase(dev, gpu)
+    rec_failures, rec_counts = aligned_recorder_phase(dev, gpu, jump_draws)
+    reloc_failures, reloc_counts = aligned_reloc_phase(dev, gpu)
+    hd_failures, hd_counts, hd_figures = hd_phase(dev, gpu)
+    out = {}
+    for name in (tk.KERNEL, odo.KERNEL):
+        out[name] = {"launches_aligned_dual": dual_counts[name],
+                     "launches_aligned_recorder": rec_counts[name],
+                     "launches_aligned_relocalize": reloc_counts[name],
+                     "launches_1920x1080": hd_counts[name],
+                     "aligned_1920x1080": hd_figures.get(name, {})}
+    out[tk.KERNEL]["aligned_dual_camera1"] = b1_dual or {}
+    return dual_failures + rec_failures + reloc_failures + hd_failures, out
+
+
+def _aligned_frames(dev, n: int, cal=None):
     """The live camera's frames (``--source k4a`` and ``mkv:`` hand the
     pipeline ``capture.transformed_depth``): over the bench sweep's first
     ``n`` poses, each a depth-camera pose, depth rendered in the NFOV depth
     camera, put through ``ops.depth_to_color.transformed_depth`` with the
     nominal calibration (its 32 mm baseline) into the 720p color camera and
     quantized to u16 mm, and color rendered at 720p from the color camera's
-    pose. Returns (the calibration, the frames, the color camera's poses
-    relative to its first as the truth, the first depth-camera render)."""
+    pose (``cal``, default the nominal one, sets both cameras). Returns (the
+    calibration, the frames, the color camera's poses relative to its first
+    as the truth, the first depth-camera render)."""
     import numpy as np
     import torch
 
-    from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration, pixel_rays
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
-        SyntheticCamera,
-        orbit_trajectory,
-    )
-    from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+    from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import orbit_trajectory
 
-    cal = CameraCalibration.azure_kinect_nominal()
-    cam_d = SyntheticCamera(intrinsics=cal.depth, device=dev)
-    cam_c = SyntheticCamera(intrinsics=cal.color, device=dev)
-    rays_d = pixel_rays(cal.depth, dev)
+    cal = cal or CameraCalibration.azure_kinect_nominal()
+    cam = AlignedCamera(cal, dev)
     T_depth_color = np.linalg.inv(cal.color_from_depth)
-    poses = orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n]
-    raw, first = [], None
-    for T in poses:
-        z, _ = cam_d.render(T)
-        first = z if first is None else first
-        _, color = cam_c.render(T @ T_depth_color)
-        raw.append(_quantize((transformed_depth(z, rays_d, cal), color)))
-    colors = [T @ T_depth_color for T in poses]
+    colors = [T @ T_depth_color for T in orbit_trajectory(64, radius=0.35, angle_span=1.3)[:n]]
+    raw = [cam.capture(T) for T in colors]
+    first = cam.cam_d.render(colors[0] @ cam.T_color_depth)[0]
     truth = [torch.as_tensor(np.linalg.inv(colors[0]) @ T, dtype=torch.float32, device=dev)
              for T in colors]
     return cal, raw, truth, first
@@ -4673,23 +5098,23 @@ def aligned_phase(dev, gpu: str):
     / ``B2_FITNESS_TOL`` and a second launch to the bit), their device us,
     wrapper and plain ms, bounds, and which instance B2 took; frame to
     frame over ``N_ALIGNED_F2F`` poses and frame to model over
-    ``N_ALIGNED_F2M`` (``f2m_phase`` at this size and worklist: beside
-    frame to frame, its phase breakdown and the refinement's graph), the
-    counters zeroed just before and read just after each, against the
-    color camera's truth, ms/frame synchronized per frame and with one sync
-    beside the 33.3 ms limit; the mesh of the frame-to-frame pass; then
-    ``cli.live_mono --source replay:DIR --voxel 0.005`` in a subprocess over
-    the same frames, logged with a calibration whose depth and color are
-    both the color camera's intrinsics. The entry point keeps the default
-    worklist, so its sticky overflow must be set exactly when the largest
-    ``n_active`` exceeds it (ROADMAP C18). Returns (failures, the kernels'
-    figures by kernel name)."""
+    ``N_ALIGNED_F2M`` (``f2m_phase`` at this size: beside frame to frame,
+    its phase breakdown and the refinement's graph), both at the pipeline's
+    default worklist (the whole pool), the counters zeroed just before and
+    read just after each, against the color camera's truth, ms/frame
+    synchronized per frame and with one sync beside the 33.3 ms limit; the
+    mesh of the frame-to-frame pass; then ``cli.live_mono --source
+    replay:DIR --voxel 0.005`` in a subprocess over the same frames, logged
+    with a calibration whose depth and color are both the color camera's
+    intrinsics. The entry point keeps the default worklist, the whole pool,
+    so its sticky overflow must stay clear although the largest ``n_active``
+    exceeds the JAX class's default of 2,048 (ROADMAP C18, repaired).
+    Returns (failures, the kernels' figures by kernel name)."""
     import inspect
 
     import numpy as np
     import torch
 
-    from azurekinect3dreconstruction_tpu_torch.config import PipelineConfig, TSDFConfig
     from azurekinect3dreconstruction_tpu_torch.core.camera import CameraCalibration, pixel_rays
     from azurekinect3dreconstruction_tpu_torch.io.replay import FrameRecorder
     from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
@@ -4706,11 +5131,9 @@ def aligned_phase(dev, gpu: str):
 
     t_phase = time.perf_counter()
     failures = []
-    voxel = 0.005
-    cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=voxel, sdf_trunc=4 * voxel,
-                                         block_resolution=16, block_capacity=ALIGNED_BLOCKS,
-                                         hash_capacity=4 * ALIGNED_BLOCKS))
+    cfg = _aligned_cfg()
     tcfg, ocfg = cfg.tsdf, cfg.odometry
+    voxel = tcfg.voxel_size
     n = max(N_ALIGNED_F2F, N_ALIGNED_F2M)
     t0 = time.perf_counter()
     cal, raw, truth, z0 = _aligned_frames(dev, n)
@@ -4742,6 +5165,7 @@ def aligned_phase(dev, gpu: str):
     # -- allocation's dedup budget and the frustum's live blocks at the truth ---
     budget = inspect.signature(tsdf.allocate).parameters["dedup_budget"].default
     default_wl = inspect.signature(MonoOdometryTSDF).parameters["worklist_size"].default
+    pool = tcfg.block_capacity
     dec = [_decode(r, cfg, dev) for r in raw]
     vol = tsdf.create(tcfg, dev)
     n_keys = -(-intr.height // 2) * -(-intr.width // 2) * 3  # allocate's stride-2 rays x 3
@@ -4751,21 +5175,25 @@ def aligned_phase(dev, gpu: str):
         unique.append(int((keys != vhash.EMPTY_KEY).sum()))
         vol = tsdf.allocate(vol, d, rays, T, tcfg)
         live.append(int(tk.build_worklist(vol.block_coords, vol.n_blocks, T, intr, tcfg)[1]))
-    wl_size = next(m for m in WORKLIST_SIZES if m >= max(max(live), default_wl))
+    wl_size = next(m for m in WORKLIST_SIZES if m >= max(live))
     over = sum(u > budget for u in unique)
-    past = [i for i, m in enumerate(live) if m > default_wl]
+    past = [i for i, m in enumerate(live) if m > JAX_WORKLIST_DEFAULT]
     _log(f"aligned allocation at the true poses: unique block keys a frame {min(unique)}-"
          f"{max(unique)} (median {sorted(unique)[len(unique) // 2]}) against allocate's dedup "
          f"budget of {budget} ({over} frame(s) over it), {n_keys} candidates a frame; n_blocks "
          f"{int(vol.n_blocks)}; live blocks in the frustum (n_active) up to {max(live)} (frame "
-         f"{live.index(max(live))}), over the default worklist of {default_wl} on {len(past)} "
-         f"frame(s)" + (f" from frame {past[0]}" if past else "") + f"; worklist_size {wl_size}"
-         + (" (the first of WORKLIST_SIZES that holds it)" if wl_size != default_wl
-            else " (the default)") + f"  [{gpu}]")
+         f"{live.index(max(live))}), over the JAX class's default worklist of "
+         f"{JAX_WORKLIST_DEFAULT} on {len(past)} frame(s)"
+         + (f" from frame {past[0]}" if past else "") + f"; a caller of the JAX class would pass "
+         f"{wl_size} (the first of WORKLIST_SIZES that holds it); the port's default worklist "
+         f"{default_wl}: the whole pool of {pool} rows  [{gpu}]")
+    if default_wl is not None:
+        failures.append(f"MonoOdometryTSDF's default worklist_size is {default_wl}, not the "
+                        "whole pool (ROADMAP C18)")
     del vol
 
     # -- B1 on one frame, B2 on one pair: kernel against plain ------------------
-    figures = {tk.KERNEL: b1_frame_check(dec, truth, intr, rays, tcfg, wl_size, gpu, size)}
+    figures = {tk.KERNEL: b1_frame_check(dec, truth, intr, rays, tcfg, pool, gpu, size)}
     if not figures[tk.KERNEL]["bitwise"]:
         failures.append(f"B1 at {size} differs from its plain version")
     b2_failures, figures[odo.KERNEL] = b2_pair_check(dec, intr, ocfg, gpu, size)
@@ -4773,7 +5201,7 @@ def aligned_phase(dev, gpu: str):
 
     # -- the live loop: frame to frame, then frame to model ---------------------
     gt_np = [g.cpu().numpy().astype(np.float64) for g in truth]
-    kw = dict(device=dev, worklist_size=wl_size)
+    kw = dict(device=dev)
     frames = raw[:N_ALIGNED_F2F]
     _run_frames(MonoOdometryTSDF(intr, cfg, **kw), raw[:3], False)
     pipe = MonoOdometryTSDF(intr, cfg, **kw)
@@ -4788,7 +5216,8 @@ def aligned_phase(dev, gpu: str):
     sync_ms = _run_frames(pipe, frames, False)
     steady = sorted(frame_ms[1:])
     med = steady[len(steady) // 2]
-    _log(f"aligned frame_to_frame over {N_ALIGNED_F2F} frames at {size} (worklist {wl_size}): "
+    _log(f"aligned frame_to_frame over {N_ALIGNED_F2F} frames at {size} (the default "
+         f"worklist, the whole pool of {pool}): "
          f"launches {json.dumps(f2f_counts)}; ATE rmse {a_f['rmse'] * 1e3:.3f} mm (max "
          f"{a_f['max'] * 1e3:.3f}), RPE {r_f['trans_rmse'] * 1e3:.3f} mm / "
          f"{np.degrees(r_f['rot_rmse']):.4f} deg against the color camera's truth; gate "
@@ -4799,7 +5228,7 @@ def aligned_phase(dev, gpu: str):
     if rejected or len(pipe.fitness) != N_ALIGNED_F2F - 1:
         failures.append(f"aligned frame_to_frame: {rejected} gate rejection(s)")
     if overflow or bool(pipe.volume.overflow):
-        failures.append(f"aligned frame_to_frame: overflow at worklist {wl_size}")
+        failures.append("aligned frame_to_frame: overflow at the default worklist")
     if not a_f["rmse"] <= ATE_LIMIT_M:
         failures.append(f"aligned frame_to_frame ATE {a_f['rmse']:.5f} m over {ATE_LIMIT_M} m")
     if f2f_counts != {tk.KERNEL: N_ALIGNED_F2F, odo.KERNEL: N_ALIGNED_F2F - 1}:
@@ -4821,18 +5250,17 @@ def aligned_phase(dev, gpu: str):
                         f"{finite}")
     del pipe, mesh
 
-    _log(f"aligned frame_to_model: f2m_phase at {size}, worklist {wl_size}, over the first "
+    _log(f"aligned frame_to_model: f2m_phase at {size}, the default worklist, over the first "
          f"{N_ALIGNED_F2M} frames (limit {FRAME_LIMIT_MS} ms/frame)  [{gpu}]")
     m_failures, f2m_counts, _, _ = f2m_phase(intr, cfg, raw[:N_ALIGNED_F2M],
-                                             truth[:N_ALIGNED_F2M], dev, gpu,
-                                             worklist_size=wl_size)
+                                             truth[:N_ALIGNED_F2M], dev, gpu, worklist_size=None)
     failures += [f"aligned {f}" for f in m_failures]
     for name in (tk.KERNEL, odo.KERNEL):
         figures[name].update(launches_f2f=f2f_counts[name], launches_f2m=f2m_counts[name])
 
     # -- the entry point on a log of the aligned frames --------------------------
-    # cli.live_mono keeps the default worklist: at this voxel its sticky overflow is the
-    # open fault C18, shared with the JAX package's scripts/live_mono.py
+    # cli.live_mono keeps the default worklist, the whole pool: at this voxel the frustum
+    # holds more live blocks than the JAX package's scripts/live_mono.py keeps (ROADMAP C18)
     k = N_ALIGNED_F2F
     with tempfile.TemporaryDirectory() as tmp:
         log, out = os.path.join(tmp, "frames"), os.path.join(tmp, "out")
@@ -4857,21 +5285,18 @@ def aligned_phase(dev, gpu: str):
              f"{r.returncode}, {time.perf_counter() - t0:.1f} s (host clock, process start "
              f"included), wrote {names} (mesh {mesh_bytes} bytes), ATE rmse "
              f"{cli_ate * 1e3:.3f} mm; {' | '.join(tail)}  [{gpu}]")
-        cli_overflow = f"overflow {bool(past)}"
         if (r.returncode != 0 or mesh_bytes == 0 or not tail
                 or "0 gate rejections" not in tail[0] or not cli_ate <= ATE_LIMIT_M):
             failures.append(f"cli.live_mono --source replay: rc {r.returncode}, wrote "
                             f"{names}; {said[-1500:]}")
-        elif cli_overflow not in tail[0]:
-            failures.append(f"cli.live_mono --source replay: its worklist of {default_wl} "
-                            f"against n_active up to {max(live)}, but {tail[0]}")
-        if past:
-            _log(f"C18 (open; shared with the JAX package's scripts/live_mono.py): "
-                 f"cli.live_mono builds MonoOdometryTSDF with the default worklist_size "
-                 f"{default_wl}; at {size} and {voxel * 1e3:g} mm voxels the frustum holds up "
-                 f"to {max(live)} live blocks, over {default_wl} from frame {past[0]} on "
-                 f"{len(past)} of {k} frames, so the entry point's sticky overflow is set and "
-                 f"rows past {default_wl} go unfused  [{gpu}]")
+        elif "overflow False" not in tail[0]:
+            failures.append(f"cli.live_mono --source replay: its default worklist against "
+                            f"n_active up to {max(live)}, but {tail[0]}")
+        _log(f"C18 (repaired): cli.live_mono builds MonoOdometryTSDF with the default "
+             f"worklist, the whole pool of {pool} rows; at {size} and {voxel * 1e3:g} mm voxels "
+             f"the frustum holds up to {max(live)} live blocks, over the JAX package's 2,048 on "
+             f"{len(past)} of {k} frames" + (f" from frame {past[0]}" if past else "")
+             + f"; the entry point's summary above must say overflow False  [{gpu}]")
     _log(f"aligned phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)  [{gpu}]")
     return failures, figures
 
@@ -4909,6 +5334,14 @@ def main() -> int:
          f"-> {os.path.relpath(lib_path, REPO)}")
 
     failures = native_build()
+    phase_s = {}
+
+    def timed(name, phase, *args):
+        """``phase(*args)``, its wall time kept under ``name``."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
 
     cfg, intr, cam, poses, raw = _bench(dev, N_FRAMES)
     tcfg, ocfg = cfg.tsdf, cfg.odometry
@@ -5017,38 +5450,42 @@ def main() -> int:
         failures.append("surface extraction is empty or not finite")
 
     # -- the save path and frame-to-model tracking -----------------------------
-    failures += mesh_phase(pipe, tcfg, dev, gpu)
-    failures += compact_timing(pipe.volume, tcfg, dev, gpu)
+    failures += timed("mesh", mesh_phase, pipe, tcfg, dev, gpu)
+    failures += timed("compact", compact_timing, pipe.volume, tcfg, dev, gpu)
     del pipe
     poses32, raw32, gt32 = _f2m_frames(cam, raw, dev)
-    f2m_failures, f2m_counts, _, _ = f2m_phase(intr, cfg, raw32, gt32, dev, gpu)
+    f2m_failures, f2m_counts, _, _ = timed("f2m", f2m_phase, intr, cfg, raw32, gt32, dev, gpu)
     failures += f2m_failures
     for k in kernels:
         k["launches_frame_to_model"] = f2m_counts[k["name"]]
-    dual_failures, dual_launches = dual_phase(intr, cfg, dev, gpu)
+    dual_failures, dual_launches = timed("dual", dual_phase, intr, cfg, dev, gpu)
     failures += dual_failures
     kernels[0]["launches_dual"] = dual_launches
-    rec_failures, rec_counts = recorder_phase(intr, cfg, cam, raw32[:N_REC_FRAMES],
-                                              gt32[:N_REC_FRAMES], dev, gpu)
+    rec_failures, rec_counts = timed("recorder", recorder_phase, intr, cfg, cam,
+                                      raw32[:N_REC_FRAMES], gt32[:N_REC_FRAMES], dev, gpu)
     failures += rec_failures
-    off_failures, off_counts = offline_phase(intr, cfg, cam, poses32[:N_OFFLINE_OUT], dev, gpu)
+    off_failures, off_counts = timed("offline", offline_phase, intr, cfg, cam,
+                                      poses32[:N_OFFLINE_OUT], dev, gpu)
     failures += off_failures
     for k in kernels:
         k["launches_recorder"] = rec_counts[k["name"]]
         k["launches_offline"] = off_counts[k["name"]]
-    reloc_failures, reloc_counts = reloc_phase(intr, cfg, cam, poses32, raw, dev, gpu)
+    reloc_failures, reloc_counts = timed("relocalize", reloc_phase, intr, cfg, cam, poses32,
+                                          raw, dev, gpu)
     failures += reloc_failures
     for k in kernels:
         k["launches_relocalize"] = reloc_counts[k["name"]]
-    failures += incremental_phase(intr, cfg, raw, dev, gpu)
-    frag_failures, frag_counts = fragments_phase(intr, cfg, cam, dev, gpu)
+    failures += timed("incremental", incremental_phase, intr, cfg, raw, dev, gpu)
+    frag_failures, frag_counts = timed("fragments", fragments_phase, intr, cfg, cam, dev, gpu)
     failures += frag_failures
-    cloud_failures, cloud_counts = cloud_phase(intr, cfg, cam, raw, gt, dev, gpu)
+    cloud_failures, cloud_counts = timed("cloud", cloud_phase, intr, cfg, cam, raw, gt, dev, gpu)
     failures += cloud_failures
     for k in kernels:
         k["launches_fragments"] = frag_counts[k["name"]]
         k["launches_cloud"] = cloud_counts[k["name"]]
-    stream_failures, stream_counts = streaming_phase(cfg, dev, gpu)
+    # no warm passes: the card's kernels and caches are warm from the phases before
+    stream_failures, stream_counts = timed("streaming", streaming_phase, cfg, dev, gpu,
+                                           STREAM_RUNS, True, True, False)
     failures += stream_failures
     for k in kernels:
         k["launches_streaming"] = stream_counts["one_way"][0][k["name"]]
@@ -5057,34 +5494,40 @@ def main() -> int:
         k["launches_streaming_revisit_quarter"] = stream_counts["revisit"][1][k["name"]]
         for part in ("revisit_short", "loss", "thrash", "f2m"):
             k[f"launches_streaming_{part}"] = stream_counts[part][k["name"]]
-    sharded_failures, sharded_counts = sharded_phase(intr, cfg, cam, raw, traj[1:], mono_ms, dev,
-                                                     gpu)
+    sharded_failures, sharded_counts = timed("sharded", sharded_phase, intr, cfg, cam, raw,
+                                              traj[1:], mono_ms, dev, gpu)
     failures += sharded_failures
     for k in kernels:
         for part, key in (("sharded", "launches_sharded"), ("grid", "launches_sharded_grid"),
                           ("dual", "launches_sharded_dual")):
             k[key] = sharded_counts[part][k["name"]]
-    step_failures, step_counts = device_step_phase(cfg, cam, raw, traj[1:], dev, gpu)
+    step_failures, step_counts = timed("device_step", device_step_phase, cfg, cam, raw, traj[1:],
+                                        dev, gpu)
     failures += step_failures
     for k in kernels:
         for part, key in (("fused", "launches_fused_batch"), ("slam", "launches_slam_batch"),
                           ("fed", "launches_fed_pipeline")):
             k[key] = step_counts[part][k["name"]]
-    serve_failures, serve_counts = serve_phase(intr, cfg, raw32, dev, gpu)
+    serve_failures, serve_counts = timed("serve", serve_phase, intr, cfg, raw32, dev, gpu)
     failures += serve_failures
-    rig_failures, rig_counts = rig_calib_phase(dev, gpu)
+    rig_failures, rig_counts = timed("rig_calib", rig_calib_phase, dev, gpu)
     failures += rig_failures
     for k in kernels:
         k["launches_serve"] = serve_counts[k["name"]]
         k["launches_rig_calib_dual"] = rig_counts[k["name"]]
-    aligned_failures, aligned = aligned_phase(dev, gpu)
+    aligned_failures, aligned = timed("aligned", aligned_phase, dev, gpu)
     failures += aligned_failures
     for k in kernels:
         k["aligned_1280x720"] = aligned.get(k["name"], {})
-    bench_failures, bench_counts = bench_phase(dev, gpu)
+    paths_failures, paths = timed("aligned_paths", aligned_paths, dev, gpu)
+    failures += paths_failures
+    for k in kernels:
+        k.update(paths[k["name"]])
+    bench_failures, bench_counts = timed("bench", bench_phase, dev, gpu)
     failures += bench_failures
     for k in kernels:
         k["launches_bench"] = bench_counts.get(k["name"], 0)
+    _log(f"phase wall times (s, host clock): {json.dumps(phase_s)}")
     _log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (host clock)")
     if failures:
         return _fail("; ".join(failures))
@@ -5227,7 +5670,13 @@ def f2m_main(repeats: int = 3) -> int:
 def integrate_main() -> int:
     """``--integrate``: B1's numbers of the package beside this script,
     through calls every version of the port has (the bound needs
-    ``tsdf_kernels.updated_voxels``; a version without it prints null)."""
+    ``tsdf_kernels.updated_voxels``; a version without it prints null).
+    The 16-frame mono loop runs at the pipeline's own default worklist
+    (2,048 rows before ROADMAP C18's repair, the whole pool after), with
+    its ms/frame."""
+    import inspect
+    import statistics
+
     import numpy as np
     import torch
 
@@ -5286,11 +5735,17 @@ def integrate_main() -> int:
         lambda: tsdf.integrate_frame(fresh, d0, c0, rays, gt[0], intr, tcfg), 20, "tsdf_integrate")
     del fresh
 
-    # the 16-frame mono loop: B1's device time per launch
-    _run_frames(MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048), raw[:3], False)
-    pipe = MonoOdometryTSDF(intr, cfg, device=dev, worklist_size=2048)
+    # the 16-frame mono loop at the pipeline's default worklist: B1's device
+    # time per launch, then ms/frame synchronized per frame and with one sync
+    _run_frames(MonoOdometryTSDF(intr, cfg, device=dev), raw[:3], False)
+    pipe = MonoOdometryTSDF(intr, cfg, device=dev)
     torch.cuda.synchronize()
     total, launches = _profiled(lambda: _run_frames(pipe, raw, False), "tsdf_integrate")
+    pipe.reset()
+    frame_ms = _run_frames(pipe, raw, True)
+    pipe.reset()
+    loop_ms = _run_frames(pipe, raw, False)
+    default_wl = inspect.signature(MonoOdometryTSDF).parameters["worklist_size"].default
     grid = tk.launch_grid(tcfg.block_resolution) if hasattr(tk, "launch_grid") else None
     _log(json.dumps({
         "checkout": REPO, "gpu": gpu, "grid": grid,
@@ -5302,7 +5757,10 @@ def integrate_main() -> int:
         "first_frame_worklist_rows": tcfg.block_capacity, "first_frame_live_rows": first_live,
         "first_frame_updated_voxels": first_upd, "first_frame_bound_us": first_bound_us,
         "mono_b1_device_us_per_launch": total / launches if launches else None,
-        "mono_b1_launches": launches, "mono_frames": N_FRAMES}))
+        "mono_b1_launches": launches, "mono_frames": N_FRAMES,
+        "mono_default_worklist": default_wl,
+        "mono_ms_per_frame_synced_median": statistics.median(frame_ms[1:]),
+        "mono_ms_per_frame_one_sync": loop_ms, "mono_overflow": bool(pipe.volume.overflow)}))
     return 0
 
 
@@ -5361,15 +5819,7 @@ def calibration_main(device: str, scale: float, noises, seeds) -> int:
             d0, d1 = (RGBDFrame.from_raw(*(torch.from_numpy(a).to(dev) for a in cam.capture(T)),
                                          cc.depth_scale, cc.depth_trunc, cc.depth_min).depth
                       for T in (np.eye(4), rig))
-
-            band = icp.free_space_band(d0, d1)
-
-            def in_front(T):
-                T = torch.as_tensor(T, dtype=torch.float32, device=dev)
-                return round(max(float(icp.free_space_shares(d0, at, d1, rays, T, band)[0]),
-                                 float(icp.free_space_shares(d1, at, d0, rays,
-                                                             torch.linalg.inv(T), band)[0])), 6)
-
+            in_front = lambda T: _in_front(d0, d1, (at, at), (rays, rays), T)
             _log(json.dumps({
                 "rig": "bench rig", "scene": name, "noise": noise, "noise_seed": seeds[-1],
                 "in_front_at_truth": in_front(rig),
@@ -5420,10 +5870,11 @@ def streaming_main(device: str, scale) -> int:
     return _fail("; ".join(failures)) if failures else 0
 
 
-def aligned_main() -> int:
-    """``--aligned``: ``aligned_phase`` alone on the card, the live camera's
-    color-aligned 1280x720 frames through the package beside this script.
-    Prints one JSON line; exits 1 on a failed check."""
+def aligned_main(jump_draws: int) -> int:
+    """``--aligned``: ``aligned_phase`` and ``aligned_paths`` (the aligned
+    recorder's ladder from ``jump_draws`` fresh seeds) alone on the card,
+    the live camera's color-aligned frames through the package beside this
+    script. Prints one JSON line; exits 1 on a failed check."""
     import torch
 
     why = _port_beside()
@@ -5438,7 +5889,12 @@ def aligned_main() -> int:
     gpu = _gpu_line()
     _log(f"gpu: {gpu}")
     t0 = time.perf_counter()
-    failures, figures = aligned_phase(torch.device("cuda"), gpu)
+    dev = torch.device("cuda")
+    failures, figures = aligned_phase(dev, gpu)
+    paths_failures, paths = aligned_paths(dev, gpu, jump_draws)
+    for name, more in paths.items():
+        figures.setdefault(name, {}).update(more)
+    failures += paths_failures
     _log(json.dumps({"aligned": "failed" if failures else "ok", "kernels": figures,
                      "seconds": round(time.perf_counter() - t0, 1), "checkout": REPO,
                      "gpu": gpu}))
@@ -5463,8 +5919,9 @@ if __name__ == "__main__":
                            "the thrash, the loss, frame-to-model, the deferral) of the package "
                            "beside this script")
     mode.add_argument("--aligned", action="store_true",
-                      help="only the live camera's color-aligned 1280x720 path (aligned_phase) "
-                           "of the package beside this script")
+                      help="only the live camera's color-aligned paths (aligned_phase, then the "
+                           "two-camera rig, the recorder, relocalization and the 1080p pass) of "
+                           "the package beside this script")
     ap.add_argument("--device", default="cuda",
                     help="with --calibration or --streaming: cuda or cpu")
     ap.add_argument("--scale", type=float, default=None,
@@ -5474,13 +5931,15 @@ if __name__ == "__main__":
                     help="with --calibration: relative depth noise levels")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(BENCH_CALIB_SEEDS),
                     help="with --calibration: RANSAC (and noise) generator seeds")
+    ap.add_argument("--jump-draws", type=int, default=JUMP_DRAWS,
+                    help="with --aligned: fresh seeds of the aligned recorder's fallback ladder")
     args = ap.parse_args()
     if args.calibration:
         sys.exit(calibration_main(args.device, args.scale or 1.0, args.noise, args.seeds))
     if args.streaming:
         sys.exit(streaming_main(args.device, args.scale))
     if args.aligned:
-        sys.exit(aligned_main())
+        sys.exit(aligned_main(args.jump_draws))
     if args.f2m:
         sys.exit(f2m_main())
     sys.exit(odometry_main() if args.odometry else integrate_main() if args.integrate

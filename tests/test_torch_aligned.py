@@ -11,8 +11,10 @@ camera's pose; the truth is the color camera's trajectory. Both packages
 get the same numpy frames. Cases: ``transformed_depth`` on an orbit frame
 to the bit, the maker's holes, one ``make_raw_slam_step`` against JAX's
 Pallas step in interpret mode, the class frame to frame and frame to
-model against JAX's, allocation and the frustum cull against JAX's, and
-``cli.live_mono --source replay:DIR`` on the aligned frames."""
+model against JAX's, allocation and the frustum cull against JAX's,
+``cli.live_mono --source replay:DIR`` on the aligned frames, and the
+default worklist (the whole pool) of every step in a pool whose frustum
+holds more live blocks than the JAX class's default worklist of 2,048."""
 
 import dataclasses
 import os
@@ -33,6 +35,7 @@ from azurekinect3dreconstruction_tpu.io.synthetic import orbit_trajectory
 from azurekinect3dreconstruction_tpu.ops.depth_to_color import (
     transformed_depth as jtransformed_depth,
 )
+from azurekinect3dreconstruction_tpu.ops.pallas.tsdf_kernels import WORKLIST_SIZES
 from azurekinect3dreconstruction_tpu.ops.pallas.tsdf_kernels import (
     build_worklist as jbuild_worklist,
 )
@@ -47,9 +50,18 @@ from azurekinect3dreconstruction_tpu_torch import interop
 from azurekinect3dreconstruction_tpu_torch.core.camera import pixel_rays
 from azurekinect3dreconstruction_tpu_torch.io.replay import FrameRecorder
 from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
+from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
 from azurekinect3dreconstruction_tpu_torch.ops.kernels.tsdf_kernels import build_worklist
+from azurekinect3dreconstruction_tpu_torch.parallel import sharded_volume as sv
+from azurekinect3dreconstruction_tpu_torch.pipelines.dual_fusion import (
+    DualCameraFusion,
+    make_raw_dual_step,
+)
 from azurekinect3dreconstruction_tpu_torch.pipelines.mono_odometry_tsdf import (
     MonoOdometryTSDF,
+    make_device_slam_batch,
+    make_device_slam_step,
+    make_raw_f2m_step,
     make_raw_slam_step,
 )
 from azurekinect3dreconstruction_tpu_torch.tsdf import volume as tsdf
@@ -81,6 +93,14 @@ CFG = interop.pipeline_config_from(JCFG)
 CAMC = JCFG.camera
 SCAL = (1.0 / CAMC.depth_scale, CAMC.depth_min, CAMC.depth_trunc)
 N_F2F = 5
+# 5 mm voxels in 8^3 blocks: from the second aligned frame on, the frustum holds more live
+# blocks (2,258 at frame 1) than the JAX class's default worklist of 2,048 (ROADMAP C18)
+JCROWD = dataclasses.replace(
+    JCFG, tsdf=jcfg.TSDFConfig(voxel_size=0.005, sdf_trunc=0.02, block_resolution=8,
+                               block_capacity=4096, hash_capacity=16384),
+    odometry=jcfg.OdometryConfig(pyramid_iters=(2, 2, 2)))
+CROWD = interop.pipeline_config_from(JCROWD)
+JAX_DEFAULT_WORKLIST = 2048
 
 
 def aligned_frame(cam_d, cam_c, T_world_depth):
@@ -362,3 +382,158 @@ def test_live_mono_replays_aligned_frames(orbit, tmp_path):
     traj = np.loadtxt(out / "latest_trajectory.txt").reshape(-1, 4, 4)
     assert traj.shape == (5, 4, 4)  # the identity, then 4 frames
     assert np.abs(traj[1:] - np.stack(truth[:4])).max() < 0.02
+
+
+@pytest.fixture(scope="module")
+def crowded(orbit):
+    """JAX's XLA volume of aligned frame 0 in the ``CROWD`` pool (its
+    arrays) and JAX's decoded frame 0."""
+    _, frames, _, _ = orbit
+    f0 = JRGBDFrame.from_raw(*frames[0], CAMC.depth_scale, CAMC.depth_trunc, CAMC.depth_min)
+    vj0 = jtsdf.integrate_frame(jtsdf.create(JCROWD.tsdf), f0.depth, f0.color,
+                                jcamera.pixel_rays(JINTR), jnp.asarray(np.eye(4, dtype=np.float32)),
+                                JINTR, JCROWD.tsdf, backend="xla")
+    return {k: np.asarray(v) for k, v in vj0._asdict().items()}, f0
+
+
+def _crowded_step(name, state, f0, frames, truth, **wl):
+    """Aligned frame 1 (and frame 2 as camera 1 of the dual step) through
+    the port's step ``name``, from ``state`` in the ``CROWD`` pool, with the
+    worklist keyword ``wl`` (none: the default). Returns the volume."""
+    vol = interop.volume_from_jax_arrays(state, "cpu")
+    t = lambda a: torch.from_numpy(np.array(a))
+    eye = interop.pose_to_torch(np.eye(4, dtype=np.float32), "cpu")
+    rays = pixel_rays(INTR, "cpu")
+    (dr1, cr1), (dr2, cr2) = frames[1], frames[2]
+    i0, d0 = t(f0.intensity), t(f0.depth)
+    f1 = JRGBDFrame.from_raw(dr1, cr1, CAMC.depth_scale, CAMC.depth_trunc, CAMC.depth_min)
+    i1, d1, c1 = t(f1.intensity), t(f1.depth), t(f1.color)
+    T1, T2 = (interop.pose_to_torch(np.asarray(truth[k], np.float32), "cpu") for k in (1, 2))
+    if name == "MonoOdometryTSDF":
+        pipe = MonoOdometryTSDF(INTR, CROWD, device="cpu", **wl)
+        pipe.volume = vol
+        pipe._prev_int, pipe._prev_depth = i0, d0
+        pipe.process_frame(dr1, cr1)
+        return pipe.volume
+    if name == "make_raw_slam_step":
+        return make_raw_slam_step(INTR, CROWD, **wl)(vol, eye, i0, d0, t(dr1), t(cr1), rays,
+                                                     *SCAL)[0]
+    if name == "make_raw_f2m_step":
+        no_model = (torch.zeros((3, 3)), torch.zeros((3,), dtype=torch.bool))
+        return make_raw_f2m_step(INTR, CROWD, **wl)(vol, eye, i0, d0, t(dr1), t(cr1), rays,
+                                                    *no_model, *SCAL)[0]
+    if name == "make_device_slam_step":
+        return make_device_slam_step(INTR, CROWD, **wl)(vol, eye, i0, d0, i1, d1, c1, rays)[0]
+    if name == "make_device_slam_batch":
+        return make_device_slam_batch(INTR, CROWD, **wl)(
+            vol, eye, torch.stack([i0, i1]), torch.stack([d0, d1]),
+            torch.stack([torch.zeros_like(c1), c1]), rays)[0]
+    if name == "make_fused_batch_fn":
+        return tk.make_fused_batch_fn(INTR, CROWD.tsdf, **wl)(vol, d1[None], c1[None], T1[None],
+                                                              rays)
+    if name == "make_raw_dual_step":
+        return make_raw_dual_step(INTR, INTR, CROWD.tsdf, **wl)(
+            vol, t(dr1), t(cr1), t(dr2), t(cr2), rays, rays, T1, T2, *SCAL, torch.ones(()))
+    if name == "make_sharded_step":
+        mesh = sv.make_mesh(1, 1, ["cpu"])
+        return sv.make_sharded_step(mesh, INTR, CROWD.tsdf, stride=2, **wl)(
+            sv.ShardedTSDF((vol,)), d1[None], c1[None], T1[None], rays).shards[0]
+    raise ValueError(name)
+
+
+CROWDED_STEPS = ["MonoOdometryTSDF", "make_raw_slam_step", "make_raw_f2m_step",
+                 "make_device_slam_step", "make_device_slam_batch", "make_fused_batch_fn",
+                 "make_raw_dual_step", "make_sharded_step"]
+
+
+@pytest.mark.parametrize("name", CROWDED_STEPS)
+def test_default_worklist_is_the_whole_pool(orbit, crowded, name):
+    """ROADMAP C18: each step's default worklist is the whole pool. From
+    frame 0's volume in the ``CROWD`` pool, aligned frame 1 leaves more
+    live blocks in the frustum than 2,048: the default fuses every one of
+    them, equal to the bit to an explicit whole-pool worklist, with no
+    overflow, where the JAX class's 2,048 sets the sticky flag."""
+    _, frames, _, truth = orbit
+    state, f0 = crowded
+    default = _crowded_step(name, state, f0, frames, truth)
+    whole = _crowded_step(name, state, f0, frames, truth,
+                          worklist_size=CROWD.tsdf.block_capacity)
+    short = _crowded_step(name, state, f0, frames, truth, worklist_size=JAX_DEFAULT_WORKLIST)
+    assert not bool(default.overflow) and not bool(whole.overflow)
+    assert bool(short.overflow)
+    a, b = interop.volume_to_numpy(default), interop.volume_to_numpy(whole)
+    for k in ("block_coords", "n_blocks", "tsdf", "weight", "color"):
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_dual_fusion_fuses_the_whole_pool(orbit, crowded):
+    """``DualCameraFusion`` builds its step with no size: the pair of
+    aligned frames 1 and 2 into the crowded pool leaves no overflow, and its
+    volume equals ``make_raw_dual_step`` with an explicit whole-pool
+    worklist to the bit."""
+    _, frames, _, truth = orbit
+    state, f0 = crowded
+    pipe = DualCameraFusion((INTR, INTR), CROWD, device="cpu")
+    pipe.volume = interop.volume_from_jax_arrays(state, "cpu")
+    pipe.calibrated, pipe.extrinsics = True, [truth[1], truth[2]]
+    pipe.process_frames((frames[1], frames[2]))
+    whole = _crowded_step("make_raw_dual_step", state, f0, frames, truth,
+                          worklist_size=CROWD.tsdf.block_capacity)
+    assert not bool(pipe.volume.overflow)
+    a, b = interop.volume_to_numpy(pipe.volume), interop.volume_to_numpy(whole)
+    for k in ("block_coords", "n_blocks", "tsdf", "weight", "color"):
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_default_step_fuses_every_live_block_like_jax(orbit, crowded):
+    """The default step's volume against JAX by block key, on every voxel
+    (B1's tolerances): JAX's fusion at the port's pose with the worklist a
+    caller of the JAX class would pass, the first of ``WORKLIST_SIZES`` that
+    holds the live blocks, through its XLA fusion (the Pallas kernel's
+    mip-level color differs at this focal length). Both frustums hold the
+    same live blocks, more than 2,048, and neither package overflows."""
+    _, frames, _, _ = orbit
+    state, f0 = crowded
+    vol = interop.volume_from_jax_arrays(state, "cpu")
+    out = make_raw_slam_step(INTR, CROWD)(
+        vol, interop.pose_to_torch(np.eye(4, dtype=np.float32), "cpu"),
+        torch.from_numpy(np.array(f0.intensity)), torch.from_numpy(np.array(f0.depth)),
+        torch.from_numpy(frames[1][0]), torch.from_numpy(frames[1][1]), pixel_rays(INTR, "cpu"),
+        *SCAL)
+    vt, Tt = out[0], interop.pose_to_numpy(out[1])
+    f1 = JRGBDFrame.from_raw(*frames[1], CAMC.depth_scale, CAMC.depth_trunc, CAMC.depth_min)
+    Tj = jnp.asarray(Tt, jnp.float32)
+    vj = jtsdf.allocate(_jax_volume(state), f1.depth, jcamera.pixel_rays(JINTR), Tj, JCROWD.tsdf)
+    _, na_j = jbuild_worklist(vj.block_coords, vj.n_blocks, Tj, JINTR, JCROWD.tsdf)
+    _, na_t = build_worklist(vt.block_coords, vt.n_blocks, out[1], INTR, CROWD.tsdf)
+    ladder = next(m for m in WORKLIST_SIZES if m >= int(na_j))
+    assert int(na_t) == int(na_j) > JAX_DEFAULT_WORKLIST and ladder == 4096
+    vj = jtsdf.integrate(vj, f1.depth, f1.color, Tj, JINTR, JCROWD.tsdf)
+    jover = bool(vj.overflow) or int(na_j) > ladder
+    a, b = interop.volume_to_numpy(vt), {k: np.asarray(v) for k, v in vj._asdict().items()}
+    ka, kb = _by_key(a), _by_key(b)
+    assert ka.keys() == kb.keys() and not bool(a["overflow"]) and not jover
+    np.testing.assert_array_equal(_rows(a, ka, ka, "weight"), _rows(b, kb, ka, "weight"))
+    np.testing.assert_allclose(_rows(a, ka, ka, "tsdf"), _rows(b, kb, ka, "tsdf"), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(_rows(a, ka, ka, "color"), _rows(b, kb, ka, "color"),
+                               atol=0.51 / 255, rtol=0)
+
+
+def test_explicit_worklist_sets_the_sticky_flag_in_both_packages(orbit, crowded):
+    """An explicit worklist of 256 keeps the JAX semantics, a static budget:
+    the port's step and JAX's Pallas step (interpret mode) from the same
+    crowded state both set the sticky overflow flag."""
+    _, frames, _, _ = orbit
+    state, f0 = crowded
+    eye = np.eye(4, dtype=np.float32)
+    vt = make_raw_slam_step(INTR, CROWD, worklist_size=256)(
+        interop.volume_from_jax_arrays(state, "cpu"), interop.pose_to_torch(eye, "cpu"),
+        torch.from_numpy(np.array(f0.intensity)), torch.from_numpy(np.array(f0.depth)),
+        torch.from_numpy(frames[1][0]), torch.from_numpy(frames[1][1]), pixel_rays(INTR, "cpu"),
+        *SCAL)[0]
+    jstep = jmake_raw_slam_step(JINTR, JCROWD, worklist_size=256, backend="pallas",
+                                interpret=True)
+    vj = jstep(_jax_volume(state), jnp.asarray(eye), f0.intensity, f0.depth, *frames[1],
+               jcamera.pixel_rays(JINTR), *SCAL)[0]
+    assert bool(vt.overflow) and bool(vj.overflow)

@@ -362,26 +362,33 @@ def test_fallback_recovery_does_not_depend_on_the_draw(cam, tmp_path):
 
 
 @pytest.mark.parametrize("rounds, expect_retries", [
-    # a plane-slid refinement passes the gate at fitness 0.54 beside the true pose's 0.77
+    # a plane-slid refinement clears the fitness gate at 0.54 beside the true pose's 0.77
     ((("slid", "true", "true", "garbage"),), 0),
-    # alone it is unconfirmed: another round draws, and the true pose wins there
+    # alone it would be unconfirmed; it fails the free-space gate anyway: another round
+    # draws, and the true pose wins there
     ((("slid", "garbage", "garbage", "garbage"), ("true", "garbage", "true", "slid")), 1),
+    # the true pose alone is unconfirmed: the next round's draw of it confirms it
+    ((("true", "garbage", "garbage", "garbage"), ("true", "garbage", "garbage", "garbage")), 1),
 ])
 def test_fallback_ladder_takes_the_confirmed_refinement_of_highest_fitness(
         cam, tmp_path, monkeypatch, rounds, expect_retries):
     """The ladder refines every RANSAC restart and returns the refinement of
     highest fitness once a second refinement lands on its pose; a wrong pose
     over the fitness gate is never returned while the true pose is drawn.
-    RANSAC and ICP are scripted: each seed refines to itself at its fitness."""
+    RANSAC and ICP are scripted: each seed refines to itself at its fitness.
+    The true pose is the pair's own (the free-space gate reads the frames),
+    the slid one 0.46 m along x from it."""
     import types
 
     from azurekinect3dreconstruction_tpu_torch.core.device import upload
     from azurekinect3dreconstruction_tpu_torch.pipelines import recorder as rec_mod
     from azurekinect3dreconstruction_tpu_torch.tracking.icp import ICPResult
 
-    poses = {"true": np.eye(4), "slid": np.eye(4), "garbage": np.eye(4)}
-    poses["true"][:3, 3] = (0.1, 0.0, 0.05)
-    poses["slid"][:3, 3] = (0.56, 0.0, 0.05)  # 0.46 m along the plane
+    orbit = orbit_trajectory(2, radius=0.2, angle_span=0.1)
+    poses = {"true": np.linalg.inv(orbit[0]) @ orbit[1]}
+    poses["slid"] = poses["true"].copy()
+    poses["slid"][0, 3] += 0.46  # along the plane
+    poses["garbage"] = np.eye(4)
     poses["garbage"][:3, 3] = (2.0, 1.0, 0.0)
     fitness = {"true": 0.77, "slid": 0.54, "garbage": 0.1}
     draws = iter([name for r in rounds for name in r])
@@ -397,7 +404,6 @@ def test_fallback_ladder_takes_the_confirmed_refinement_of_highest_fitness(
     monkeypatch.setattr(rec_mod, "global_registration", fake_global)
     monkeypatch.setattr(rec_mod, "icp_point_to_plane", fake_icp)
     pipe = Recorder(INTR, CFG, device="cpu", output_dir=str(tmp_path))
-    orbit = orbit_trajectory(2, radius=0.2, angle_span=0.1)
     raw = [tuple(upload(a, pipe.device) for a in cam.capture(T)) for T in orbit]
     T = pipe._register_fallback(*raw)
     np.testing.assert_allclose(T, poses["true"], atol=1e-6)
