@@ -12,8 +12,9 @@
 //       operation order of ops/image.py sobel_gradients, zeroes the depth
 //       gradients where a 4-neighbour (wrapping at the image edges, as
 //       level_inputs' rolls do) has no depth, and back-projects the pixel.
-//       i_s, z, xs, ys, gx, gy, gdx, gdy stay in shared memory for all of the
-//       level's iterations; valid_s is z's depth-range test.
+//       On the shared route (below) i_s, z, xs, ys, gx, gy, gdx, gdy stay in
+//       shared memory for all of the level's iterations; valid_s is z's
+//       depth-range test.
 //   GN iteration: every thread warps its pixels by the pose, samples target
 //       intensity and depth bilinearly through the read-only path (in bounds
 //       means 0 <= u < W-1, 0 <= v < H-1), gates, Huber-weights, builds both
@@ -51,23 +52,45 @@
 // the identity start a whole border column sits on the u < W-1 edge. The
 // gradients and the back-projection are those of level_inputs to the bit.
 //
-// Two places for the band: a CTA keeps its band of a level in shared memory
-// (32 B a pixel), which holds at most grid x band pixels of a level
-// (akr_odometry_pyramid_grid): on an H100 (132 SMs, 227 KB of shared memory
-// a CTA) 934,296, enough for 640x576 NFOV and 512x512 WFOV binned depth. A
-// pyramid with a larger level that iterates (1024x1024 WFOV unbinned) runs
-// the kGlobal instance instead: every level keeps the same 8 planes in the
-// CTA's slice of a global scratch buffer (32 MB at 1024x1024), written once
-// per level by the prologue and read back by the GN iterations with plain
-// loads (the non-coherent read-only path is not allowed for data the same
-// launch writes). The per-pixel arithmetic and every sum order are the
-// same, so both instances give the same pose to the bit where both apply.
-// The scratch misses the 50 MB L2 beside the target planes, so that path is
-// slower per pixel; it is the correct path for such input, not a fast one.
+// Two routes, chosen per level (the wrapper's plan, odometry_kernels.level_routes):
+//
+//   shared: a CTA keeps its band's 8 planes in shared memory (32 B a pixel).
+//       The grid holds at most grid x band pixels of a level this way
+//       (akr_odometry_pyramid_grid): on an H100 (132 SMs, 227 KB a CTA)
+//       about 930,000, enough for 640x576 NFOV, 512x512 WFOV binned depth and
+//       the 1280x720 color-aligned frames, and for every level but the
+//       finest of the larger frames.
+//   large: a level with more pixels (1024x1024 WFOV unbinned; the color
+//       modes above 720p: 1920x1080, k4arecorder's default, up to 4096x3072)
+//       keeps in shared memory only the 4 gradient planes (gx, gy, gdx, gdy),
+//       and only of the first `res` pixels of each band, as many as fit (16 B
+//       a pixel: all of a 1024x1024 band of 7,944 pixels, ~90 % of a 1080p
+//       band of 15,710, ~22 % at 2160p).
+//       Every GN iteration reloads i_s and z through the read-only path,
+//       recomputes xs and ys from (u, v, z), and recomputes the other pixels'
+//       gradients and their mask from the source planes with the prologue's
+//       rounded operations. So the level's working set is its four input
+//       planes, read through __ldg: 33.2 MB at 1080p, which the 50 MB L2
+//       holds, where a global scratch of the derived planes (66.4 MB at
+//       1080p) beside them missed it on every iteration. From 2160p on the
+//       four inputs alone exceed the L2 (133 MB at 2160p, 201 MB at 3072p),
+//       so there the route is bounded by HBM by design.
+//
+// Measured on an H100 80GB HBM3 at 700 W (device time a frame pair at [20,
+// 10, 5]): 640x576 ~256 us and 1280x720 ~425 us on the shared route, against
+// bounds of 31 and 42 us; 1920x1080 ~945 us against 95 us, level 0 on the
+// large route at 35 ps a valid pixel-iteration beside the shared route's 32
+// (the global scratch it replaces: ~1,490 us, 60 ps); 1024x1024 ~540 us
+// against 88 us; 3840x2160 ~4,220 us against 160 us.
+//
+// Both routes do the same per-pixel arithmetic in the same order, with the
+// same grid and the same partial rows, so they give the same pose, fitness
+// and rmse to the bit on every pyramid where both apply.
 //
 // The launch is capture-safe: it allocates nothing and never waits on the
 // host. The wrapper gives it the partial rows (2 x grid x 30 tagged 64-bit
-// words), which the entry point zeroes on the stream, and the scratch.
+// words), which the entry point zeroes on the stream; nothing else is
+// allocated for it, whatever the frame size.
 //
 // State layout (float[16], device): [0..11] pose 3x4 row-major (target from
 // source), [12] convergence flag of the finest level, [13] fitness, [14]
@@ -87,7 +110,11 @@ constexpr int kSums = 30;  // 21 JtJ (upper triangle, row-major) + 6 Jtr + 3 cou
 // from level 11 on, so every count build_pyramid can make from a frame fits.
 // Each CTA copies the table to shared memory once and reads its level there.
 constexpr int kMaxLevels = 16;
-constexpr int kPlanes = 8;  // i_s, z, xs, ys, gx, gy, gdx, gdy in shared memory
+constexpr int kPlanes = 8;  // the shared route: i_s, z, xs, ys, gx, gy, gdx, gdy a pixel
+constexpr int kResidentPlanes = 4;  // the large route: gx, gy, gdx, gdy a resident pixel
+constexpr int kShared = -1;         // Level::res of a level on the shared route
+// the most pixels a level may have: its pixel coordinates are exact in float
+constexpr int kMaxPixels = 1 << 24;
 constexpr int kMaxDevices = 64;
 constexpr int kRowLoads = 16;  // partial rows a warp loads at once (one round up to 256 CTAs)
 
@@ -97,17 +124,16 @@ struct Level {
   const float* it;  // target intensity
   const float* dt;  // target depth
   int H, W, iters;
+  int res;  // kShared, or the large route's resident pixels of each band
   float fx, fy, cx, cy;
 };
 
 struct PyramidParams {
   Level lv[kMaxLevels];
   int n_levels;
-  int cap;  // pixels of the largest band, the stride of the shared planes
   float min_d, max_d, max_dd, s_i, s_d, delta, term_i, term_d, damping, tol2;
   float* state;
   unsigned long long* partials;  // [2][grid][kSums] tagged words, zeroed before the launch
-  float* scratch;                // kGlobal: [grid][kPlanes][cap] floats; else unused
 };
 
 __device__ __forceinline__ float huber(float r, float s, float delta) {
@@ -150,6 +176,30 @@ __device__ __forceinline__ void sobel(const float* img, int W, int u, int um, in
                                __ldg(rm + up));
   *gx = __fmul_rn(__fsub_rn(sv_p, sv_m), 0.125f);
   *gy = __fmul_rn(__fsub_rn(su_p, su_m), 0.125f);
+}
+
+// The back-projection's coordinate along one axis: ((u - c) / f) z.
+__device__ __forceinline__ float back_project(int u, float c, float f, float z) {
+  return __fmul_rn(__fdiv_rn(__fsub_rn((float)u, c), f), z);
+}
+
+// The source gradients of pixel (u, v) at depth z: Sobel/8 of intensity and
+// depth, the depth's zeroed where a 4-neighbour (wrapping at the image
+// edges, as level_inputs' rolls do) has no depth.
+__device__ __forceinline__ void gradients(const Level& L, int u, int v, float z, float& gx,
+                                          float& gy, float& gdx, float& gdy) {
+  const int W = L.W, H = L.H;
+  const int um = max(u - 1, 0), up = min(u + 1, W - 1);
+  const int vm = max(v - 1, 0), vp = min(v + 1, H - 1);
+  float dx, dy;
+  sobel(L.is, W, u, um, up, vm, v, vp, &gx, &gy);
+  sobel(L.ds, W, u, um, up, vm, v, vp, &dx, &dy);
+  const int uwm = u == 0 ? W - 1 : u - 1, uwp = u == W - 1 ? 0 : u + 1;
+  const int vwm = v == 0 ? H - 1 : v - 1, vwp = v == H - 1 ? 0 : v + 1;
+  const bool okg = z > 0.f && __ldg(L.ds + vwm * W + u) > 0.f && __ldg(L.ds + vwp * W + u) > 0.f &&
+                   __ldg(L.ds + v * W + uwm) > 0.f && __ldg(L.ds + v * W + uwp) > 0.f;
+  gdx = okg ? dx : 0.f;
+  gdy = okg ? dy : 0.f;
 }
 
 // Cholesky solve of a 6x6 SPD system (sqrt guarded at 1e-30), column by
@@ -303,10 +353,161 @@ __device__ __forceinline__ float warp_transpose_sum(float (&v)[32], int lane) {
   return v[0];
 }
 
-template <bool kGlobal>
+// The source side of one pixel as a GN iteration reads it.
+struct Source {
+  float is, z, xs, ys, gx, gy, gdx, gdy;
+};
+
+// The shared route's prologue: every plane of the band's n pixels (from
+// pixel beg of the level) into shared memory, `stride` floats a plane.
+__device__ __forceinline__ void prologue_shared(const Level& L, float* smem, int beg, int n,
+                                                int stride) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int p = beg + i;
+    const int v = p / L.W, u = p - v * L.W;
+    const float z = __ldg(L.ds + p);
+    smem[i] = __ldg(L.is + p);
+    smem[stride + i] = z;
+    smem[2 * stride + i] = back_project(u, L.cx, L.fx, z);
+    smem[3 * stride + i] = back_project(v, L.cy, L.fy, z);
+    gradients(L, u, v, z, smem[4 * stride + i], smem[5 * stride + i], smem[6 * stride + i],
+              smem[7 * stride + i]);
+  }
+}
+
+// The large route's prologue: the gradient planes of the band's first
+// L.res pixels into shared memory, L.res floats a plane.
+__device__ __forceinline__ void prologue_large(const Level& L, float* smem, int beg, int n) {
+  const int m = min(n, L.res);
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    const int p = beg + i;
+    const int v = p / L.W, u = p - v * L.W;
+    gradients(L, u, v, __ldg(L.ds + p), smem[i], smem[L.res + i], smem[2 * L.res + i],
+              smem[3 * L.res + i]);
+  }
+}
+
+template <bool kLarge>
+__device__ __forceinline__ float source_z(const Level& L, const float* smem, int stride, int beg,
+                                          int i) {
+  return kLarge ? __ldg(L.ds + beg + i) : smem[stride + i];
+}
+
+// Band pixel i's source side: from shared memory on the shared route; on the
+// large route reloaded, back-projected and, past the resident pixels,
+// recomputed, with the prologue's operations.
+template <bool kLarge>
+__device__ __forceinline__ Source source(const Level& L, const float* smem, int stride, int beg,
+                                         int i) {
+  Source s;
+  if (!kLarge) {
+    s.is = smem[i];
+    s.z = smem[stride + i];
+    s.xs = smem[2 * stride + i];
+    s.ys = smem[3 * stride + i];
+    s.gx = smem[4 * stride + i];
+    s.gy = smem[5 * stride + i];
+    s.gdx = smem[6 * stride + i];
+    s.gdy = smem[7 * stride + i];
+    return s;
+  }
+  const int p = beg + i;
+  const int v = p / L.W, u = p - v * L.W;
+  s.is = __ldg(L.is + p);
+  s.z = __ldg(L.ds + p);
+  s.xs = back_project(u, L.cx, L.fx, s.z);
+  s.ys = back_project(v, L.cy, L.fy, s.z);
+  if (i < L.res) {
+    s.gx = smem[i];
+    s.gy = smem[L.res + i];
+    s.gdx = smem[2 * L.res + i];
+    s.gdy = smem[3 * L.res + i];
+  } else {
+    gradients(L, u, v, s.z, s.gx, s.gy, s.gdx, s.gdy);
+  }
+  return s;
+}
+
+// One GN iteration's 30 sums over this thread's pixels of the band, added
+// into acc: two pixels a thread at a time, without branches, so their
+// chains interleave; an invalid pixel contributes zeros (its Jacobians may
+// be huge); a warp skips a pair where none of its pixels has depth.
+template <bool kLarge>
+__device__ __forceinline__ void accumulate(const PyramidParams& P, const Level& L,
+                                           const float* smem, int stride, int beg, int n,
+                                           const float (&T)[12], float (&acc)[32]) {
+  const int W = L.W, H = L.H;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 2 * kThreads) {
+    const bool any =
+        depth_ok(source_z<kLarge>(L, smem, stride, beg, i0), P) ||
+        (i0 + kThreads < n && depth_ok(source_z<kLarge>(L, smem, stride, beg, i0 + kThreads), P));
+    if (!__any_sync(__activemask(), any)) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = i0 + h * kThreads < n;
+      const Source s = source<kLarge>(L, smem, stride, beg, live ? i0 + h * kThreads : i0);
+      const float z = s.z;
+      const bool valid_s = live && depth_ok(z, P);
+      const float xs = s.xs, ys = s.ys;
+      const float px = __fadd_rn(fmaf(T[2], z, fmaf(T[0], xs, __fmul_rn(T[1], ys))), T[3]);
+      const float py = __fadd_rn(fmaf(T[6], z, fmaf(T[4], xs, __fmul_rn(T[5], ys))), T[7]);
+      const float pz = __fadd_rn(fmaf(T[10], z, fmaf(T[8], xs, __fmul_rn(T[9], ys))), T[11]);
+      const float zs = fmaxf(pz, 1e-6f);
+      const float ut = fmaf(__fdiv_rn(px, zs), L.fx, L.cx);
+      const float vt = fmaf(__fdiv_rn(py, zs), L.fy, L.cy);
+      const bool inb = valid_s && pz > P.min_d && ut >= 0.f && ut < (float)(W - 1) && vt >= 0.f &&
+                       vt < (float)(H - 1);
+      // out of bounds: sample the corner pixel with zero weights
+      const float u0 = floorf(inb ? ut : 0.f), v0 = floorf(inb ? vt : 0.f);
+      const int o = (int)v0 * W + (int)u0;
+      const float fu = inb ? ut - u0 : 0.f, fv = inb ? vt - v0 : 0.f;
+      const float it_w = bilinear(L.it, W, o, fu, fv);
+      const float dt_w = bilinear(L.dt, W, o, fu, fv);
+      const float r_i = it_w - s.is;
+      const float r_d = dt_w - pz;
+      const bool valid = inb && dt_w > P.min_d && fabsf(r_d) < P.max_dd;
+      const float gx = s.gx, gy = s.gy, gdx = s.gdx, gdy = s.gdy;
+      const float inv_z = 1.f / zs;
+      const float ju0 = L.fx * inv_z, ju2 = -L.fx * px * inv_z * inv_z;
+      const float jv1 = L.fy * inv_z, jv2 = -L.fy * py * inv_z * inv_z;
+      float Ji[6], Jd[6];
+      dp_dxi(gx * ju0, gy * jv1, gx * ju2 + gy * jv2, px, py, pz, Ji);
+      dp_dxi(gdx * ju0, gdy * jv1, gdx * ju2 + gdy * jv2 - 1.f, px, py, pz, Jd);
+      const float w_i = huber(r_i, P.s_i, P.delta) * P.term_i;
+      const float w_d = huber(r_d, P.s_d, P.delta) * P.term_d;
+      const float wi2 = valid ? w_i * w_i * P.s_i * P.s_i : 0.f;
+      const float wd2 = valid ? w_d * w_d * P.s_d * P.s_d : 0.f;
+      float Jiw[6], Jdw[6];  // the weighted rows: two fmas per product pair
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        Ji[a] = valid ? Ji[a] : 0.f;
+        Jd[a] = valid ? Jd[a] : 0.f;
+        Jiw[a] = Ji[a] * wi2;
+        Jdw[a] = Jd[a] * wd2;
+      }
+      int k = 0;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+#pragma unroll
+        for (int b = a; b < 6; ++b, ++k) acc[k] = fmaf(Jiw[a], Ji[b], fmaf(Jdw[a], Jd[b], acc[k]));
+      }
+      const float rim = valid ? r_i : 0.f, rdm = valid ? r_d : 0.f;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[21 + a] = fmaf(Jiw[a], rim, fmaf(Jdw[a], rdm, acc[21 + a]));
+      acc[27] += valid ? 1.f : 0.f;
+      const float ri = rim * P.s_i, rd = rdm * P.s_d;
+      acc[28] += ri * ri + rd * rd;
+      acc[29] += valid_s ? 1.f : 0.f;
+    }
+  }
+}
+
+// kMixed: the instance for a pyramid with a level on the large route; the
+// other one (every level shared) compiles without that route, as before it.
+template <bool kMixed>
 __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const PyramidParams P) {
-  extern __shared__ float smem[];  // kPlanes x P.cap (the shared instance)
-  float* const planes = kGlobal ? P.scratch + (size_t)blockIdx.x * kPlanes * P.cap : smem;
+  // the level's planes: kPlanes x its band (shared route) or kResidentPlanes x res (large route)
+  extern __shared__ float smem[];
   __shared__ float warp_sums[kWarps][kSums];
   __shared__ double group_sums[kWarps][kSums];
   __shared__ float sums[kSums];
@@ -316,14 +517,6 @@ __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const Pyr
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned int G = gridDim.x;
-  float* const s_is = planes;
-  float* const s_z = planes + P.cap;
-  float* const s_xs = planes + 2 * P.cap;
-  float* const s_ys = planes + 3 * P.cap;
-  float* const s_gx = planes + 4 * P.cap;
-  float* const s_gy = planes + 5 * P.cap;
-  float* const s_gdx = planes + 6 * P.cap;
-  float* const s_gdy = planes + 7 * P.cap;
 
   if (tid < 16) st[tid] = P.state[tid];
 #pragma unroll
@@ -339,33 +532,15 @@ __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const Pyr
     if (L.iters <= 0) continue;  // the pose passes through unchanged
 
     // -- prologue: the source side of this CTA's band, once per level ---------
-    const int H = L.H, W = L.W, HW = H * W;
+    const int HW = L.H * L.W;
     const int chunk = (HW + (int)G - 1) / (int)G;
     const int beg = min((int)blockIdx.x * chunk, HW);
     const int n = min(chunk, HW - beg);
-    for (int i = tid; i < n; i += kThreads) {
-      const int p = beg + i;
-      const int v = p / W, u = p - v * W;
-      const float z = __ldg(L.ds + p);
-      s_is[i] = __ldg(L.is + p);
-      s_z[i] = z;
-      s_xs[i] = __fmul_rn(__fdiv_rn(__fsub_rn((float)u, L.cx), L.fx), z);
-      s_ys[i] = __fmul_rn(__fdiv_rn(__fsub_rn((float)v, L.cy), L.fy), z);
-      const int um = max(u - 1, 0), up = min(u + 1, W - 1);
-      const int vm = max(v - 1, 0), vp = min(v + 1, H - 1);
-      float gx, gy, gdx, gdy;
-      sobel(L.is, W, u, um, up, vm, v, vp, &gx, &gy);
-      sobel(L.ds, W, u, um, up, vm, v, vp, &gdx, &gdy);
-      const int uwm = u == 0 ? W - 1 : u - 1, uwp = u == W - 1 ? 0 : u + 1;
-      const int vwm = v == 0 ? H - 1 : v - 1, vwp = v == H - 1 ? 0 : v + 1;
-      const bool okg = z > 0.f && __ldg(L.ds + vwm * W + u) > 0.f &&
-                       __ldg(L.ds + vwp * W + u) > 0.f && __ldg(L.ds + v * W + uwm) > 0.f &&
-                       __ldg(L.ds + v * W + uwp) > 0.f;
-      s_gx[i] = gx;
-      s_gy[i] = gy;
-      s_gdx[i] = okg ? gdx : 0.f;
-      s_gdy[i] = okg ? gdy : 0.f;
-    }
+    const bool large = kMixed && L.res != kShared;
+    if (large)
+      prologue_large(L, smem, beg, n);
+    else
+      prologue_shared(L, smem, beg, n, chunk);
     __syncthreads();
 
     for (int it = 0; it < L.iters; ++it) {
@@ -376,74 +551,10 @@ __global__ void __launch_bounds__(kThreads, 1) odometry_pyramid_kernel(const Pyr
       float acc[32];  // the 30 sums and two zeros for warp_transpose_sum
 #pragma unroll
       for (int k = 0; k < 32; ++k) acc[k] = 0.f;
-
-      // two pixels a thread at a time, without branches, so their chains
-      // interleave; an invalid pixel contributes zeros (its Jacobians may be
-      // huge); a warp skips a pair where none of its pixels has depth
-      for (int i0 = tid; i0 < n; i0 += 2 * kThreads) {
-        const bool any = depth_ok(s_z[i0], P) || (i0 + kThreads < n &&
-                                                  depth_ok(s_z[i0 + kThreads], P));
-        if (!__any_sync(__activemask(), any)) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const bool live = i0 + h * kThreads < n;
-          const int i = live ? i0 + h * kThreads : i0;
-          const float z = s_z[i];
-          const bool valid_s = live && depth_ok(z, P);
-          const float xs = s_xs[i], ys = s_ys[i];
-          const float px = __fadd_rn(fmaf(T[2], z, fmaf(T[0], xs, __fmul_rn(T[1], ys))), T[3]);
-          const float py = __fadd_rn(fmaf(T[6], z, fmaf(T[4], xs, __fmul_rn(T[5], ys))), T[7]);
-          const float pz = __fadd_rn(fmaf(T[10], z, fmaf(T[8], xs, __fmul_rn(T[9], ys))), T[11]);
-          const float zs = fmaxf(pz, 1e-6f);
-          const float ut = fmaf(__fdiv_rn(px, zs), L.fx, L.cx);
-          const float vt = fmaf(__fdiv_rn(py, zs), L.fy, L.cy);
-          const bool inb = valid_s && pz > P.min_d && ut >= 0.f && ut < (float)(W - 1) &&
-                           vt >= 0.f && vt < (float)(H - 1);
-          // out of bounds: sample the corner pixel with zero weights
-          const float u0 = floorf(inb ? ut : 0.f), v0 = floorf(inb ? vt : 0.f);
-          const int o = (int)v0 * W + (int)u0;
-          const float fu = inb ? ut - u0 : 0.f, fv = inb ? vt - v0 : 0.f;
-          const float it_w = bilinear(L.it, W, o, fu, fv);
-          const float dt_w = bilinear(L.dt, W, o, fu, fv);
-          const float r_i = it_w - s_is[i];
-          const float r_d = dt_w - pz;
-          const bool valid = inb && dt_w > P.min_d && fabsf(r_d) < P.max_dd;
-          const float gx = s_gx[i], gy = s_gy[i], gdx = s_gdx[i], gdy = s_gdy[i];
-          const float inv_z = 1.f / zs;
-          const float ju0 = L.fx * inv_z, ju2 = -L.fx * px * inv_z * inv_z;
-          const float jv1 = L.fy * inv_z, jv2 = -L.fy * py * inv_z * inv_z;
-          float Ji[6], Jd[6];
-          dp_dxi(gx * ju0, gy * jv1, gx * ju2 + gy * jv2, px, py, pz, Ji);
-          dp_dxi(gdx * ju0, gdy * jv1, gdx * ju2 + gdy * jv2 - 1.f, px, py, pz, Jd);
-          const float w_i = huber(r_i, P.s_i, P.delta) * P.term_i;
-          const float w_d = huber(r_d, P.s_d, P.delta) * P.term_d;
-          const float wi2 = valid ? w_i * w_i * P.s_i * P.s_i : 0.f;
-          const float wd2 = valid ? w_d * w_d * P.s_d * P.s_d : 0.f;
-          float Jiw[6], Jdw[6];  // the weighted rows: two fmas per product pair
-#pragma unroll
-          for (int a = 0; a < 6; ++a) {
-            Ji[a] = valid ? Ji[a] : 0.f;
-            Jd[a] = valid ? Jd[a] : 0.f;
-            Jiw[a] = Ji[a] * wi2;
-            Jdw[a] = Jd[a] * wd2;
-          }
-          int k = 0;
-#pragma unroll
-          for (int a = 0; a < 6; ++a) {
-#pragma unroll
-            for (int b = a; b < 6; ++b, ++k)
-              acc[k] = fmaf(Jiw[a], Ji[b], fmaf(Jdw[a], Jd[b], acc[k]));
-          }
-          const float rim = valid ? r_i : 0.f, rdm = valid ? r_d : 0.f;
-#pragma unroll
-          for (int a = 0; a < 6; ++a)
-            acc[21 + a] = fmaf(Jiw[a], rim, fmaf(Jdw[a], rdm, acc[21 + a]));
-          acc[27] += valid ? 1.f : 0.f;
-          const float ri = rim * P.s_i, rd = rdm * P.s_d;
-          acc[28] += ri * ri + rd * rd;
-          acc[29] += valid_s ? 1.f : 0.f;
-        }
-      }
+      if (large)
+        accumulate<true>(P, L, smem, chunk, beg, n, T, acc);
+      else
+        accumulate<false>(P, L, smem, chunk, beg, n, T, acc);
 
       // this CTA's partial row, in a fixed order: lane k of each warp ends
       // with the warp's sum k, then the warps in order
@@ -523,37 +634,42 @@ int g_band[kMaxDevices] = {0};
 
 // The grid of akr_odometry_pyramid on the current device: the CTAs that are
 // co-resident at zero dynamic shared memory in both instances (occupancy x
-// SM count), and the band: the most pixels one CTA's shared memory holds
-// (kPlanes floats each). Computed once per process and device, so every
-// launch sums in the same order. A pyramid whose levels that iterate have
-// at most grid x band pixels each runs from shared memory, any other from
-// the global scratch.
+// SM count), and the
+// band: the most pixels whose kPlanes planes one CTA's shared memory holds
+// (the large route's resident pixels: kPlanes / kResidentPlanes x band).
+// Computed once per process and device, so every launch sums in the same
+// order.
 extern "C" int akr_odometry_pyramid_grid(int* grid, int* band) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (g_grid[dev] == 0) {
-    int sms = 0, optin = 0, occ = 0, occ_global = 0;
-    cudaFuncAttributes attr;
+    int sms = 0, optin = 0, occ = 0, occ_mixed = 0;
+    cudaFuncAttributes attr, attr_mixed;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
         (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
             cudaSuccess ||
         (e = cudaFuncGetAttributes(&attr, odometry_pyramid_kernel<false>)) != cudaSuccess ||
-        (e = cudaFuncSetAttribute(odometry_pyramid_kernel<false>,
+        (e = cudaFuncGetAttributes(&attr_mixed, odometry_pyramid_kernel<true>)) != cudaSuccess)
+      return static_cast<int>(e);
+    const int smem_static =
+        static_cast<int>(std::max(attr.sharedSizeBytes, attr_mixed.sharedSizeBytes));
+    if ((e = cudaFuncSetAttribute(odometry_pyramid_kernel<false>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  optin - static_cast<int>(attr.sharedSizeBytes))) !=
-            cudaSuccess ||
+                                  optin - smem_static)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(odometry_pyramid_kernel<true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  optin - smem_static)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, odometry_pyramid_kernel<false>,
                                                             kThreads, 0)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &occ_global, odometry_pyramid_kernel<true>, kThreads, 0)) != cudaSuccess)
+             &occ_mixed, odometry_pyramid_kernel<true>, kThreads, 0)) != cudaSuccess)
       return static_cast<int>(e);
-    occ = std::min(occ, occ_global);
+    occ = std::min(occ, occ_mixed);
     if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     g_grid[dev] = occ * sms;
-    g_band[dev] = (optin - static_cast<int>(attr.sharedSizeBytes)) /
-                  static_cast<int>(kPlanes * sizeof(float));
+    g_band[dev] = (optin - smem_static) / static_cast<int>(kPlanes * sizeof(float));
   }
   *grid = g_grid[dev];
   *band = g_band[dev];
@@ -562,24 +678,31 @@ extern "C" int akr_odometry_pyramid_grid(int* grid, int* band) {
 
 // planes: 4 pointers per level [I_s, D_s, I_t, D_t], each (H, W) float32;
 // dims: 3 ints per level [H, W, iterations]; intr: 4 floats per level [fx,
-// fy, cx, cy]; n_levels: 1 to kMaxLevels; params (host): min_depth,
+// fy, cx, cy]; n_levels: 1 to kMaxLevels; routes: 1 int per level, kShared
+// (-1: the band's kPlanes planes in shared memory) or the large route's
+// resident pixels of each band (0 or more); params (host): min_depth,
 // max_depth, max_depth_diff, 1/sigma_i, 1/sigma_d, huber_delta, term_i,
 // term_d, damping, tol^2; state: float[16]; partials: 64-bit words[2 * grid
-// * 30]; scratch: null to keep the bands in shared memory, else grid * 8 *
-// cap floats (cap: the pixels of the largest band, ceil(H * W / grid) over
-// the levels that iterate) to keep them there. Level 0 is the finest;
-// levels run from n_levels-1 down to 0. A refused launch
-// (cudaErrorCooperativeLaunchTooLarge: the bands do not fit in shared memory
-// at this grid; the wrapper passes a scratch for such a pyramid) is
-// returned, never worked around.
+// * 30]. Level 0 is the finest; levels run from n_levels-1 down to 0. The
+// dynamic shared memory is what the levels that iterate need: kPlanes floats
+// a band pixel on the shared route, kResidentPlanes a resident pixel on the
+// large one. A level that no route takes (more than kMaxPixels pixels,
+// iterated or not; a band over the shared memory on the shared route,
+// resident pixels over it on the large one, any other route) is refused
+// with cudaErrorInvalidValue, as is a launch the card refuses; neither is
+// worked around.
 extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
-                                    const float* intr, int n_levels, const float* params,
-                                    float* state, unsigned long long* partials, float* scratch,
-                                    int grid, void* stream) {
+                                    const float* intr, int n_levels, const int* routes,
+                                    const float* params, float* state,
+                                    unsigned long long* partials, int grid, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  int grid_dev = 0, band = 0;
+  cudaError_t e = static_cast<cudaError_t>(akr_odometry_pyramid_grid(&grid_dev, &band));
+  if (e != cudaSuccess) return static_cast<int>(e);
   PyramidParams P{};
-  int cap = 0;
+  long long floats = 0;  // dynamic shared memory, in floats
+  bool mixed = false;     // a level on the large route
   for (int l = 0; l < n_levels; ++l) {
     Level& L = P.lv[l];
     L.is = static_cast<const float*>(planes[4 * l]);
@@ -589,15 +712,24 @@ extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
     L.H = dims[3 * l];
     L.W = dims[3 * l + 1];
     L.iters = dims[3 * l + 2];
+    L.res = routes[l];
     L.fx = intr[4 * l];
     L.fy = intr[4 * l + 1];
     L.cx = intr[4 * l + 2];
     L.cy = intr[4 * l + 3];
-    if (L.H < 2 || L.W < 2) return static_cast<int>(cudaErrorInvalidValue);
-    if (L.iters > 0) cap = std::max(cap, (L.H * L.W + grid - 1) / grid);
+    if (L.H < 2 || L.W < 2 || static_cast<long long>(L.H) * L.W > kMaxPixels)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (L.iters <= 0) continue;
+    const long long need = L.res == kShared ? static_cast<long long>(
+                                                  (L.H * L.W + grid - 1) / grid) * kPlanes
+                           : L.res >= 0     ? static_cast<long long>(L.res) * kResidentPlanes
+                                            : -1;
+    if (need < 0 || need > static_cast<long long>(band) * kPlanes)
+      return static_cast<int>(cudaErrorInvalidValue);
+    floats = std::max(floats, need);
+    mixed = mixed || L.res != kShared;
   }
   P.n_levels = n_levels;
-  P.cap = cap;
   P.min_d = params[0];
   P.max_d = params[1];
   P.max_dd = params[2];
@@ -610,17 +742,15 @@ extern "C" int akr_odometry_pyramid(const void* const* planes, const int* dims,
   P.tol2 = params[9];
   P.state = state;
   P.partials = partials;
-  P.scratch = scratch;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(partials, 0, sizeof(unsigned long long) * 2 * kSums * grid, s);
+  e = cudaMemsetAsync(partials, 0, sizeof(unsigned long long) * 2 * kSums * grid, s);
   if (e == cudaSuccess) {
     void* args[] = {&P};
-    e = scratch != nullptr
-            ? cudaLaunchCooperativeKernel(odometry_pyramid_kernel<true>, dim3(grid),
-                                          dim3(kThreads), args, 0, s)
-            : cudaLaunchCooperativeKernel(odometry_pyramid_kernel<false>, dim3(grid),
-                                          dim3(kThreads), args,
-                                          static_cast<size_t>(cap) * kPlanes * sizeof(float), s);
+    const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
+    e = mixed ? cudaLaunchCooperativeKernel(odometry_pyramid_kernel<true>, dim3(grid),
+                                            dim3(kThreads), args, bytes, s)
+              : cudaLaunchCooperativeKernel(odometry_pyramid_kernel<false>, dim3(grid),
+                                            dim3(kThreads), args, bytes, s);
   }
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);

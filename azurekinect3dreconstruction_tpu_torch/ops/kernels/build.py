@@ -41,7 +41,7 @@ _SIGNATURES = {
     "akr_tsdf_integrate_grid": [_I, ctypes.POINTER(_I)],
     # grid (out), band (out)
     "akr_odometry_pyramid_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    # planes, dims, intr, n_levels, params, state, partials, scratch, grid, stream
+    # planes, dims, intr, n_levels, routes, params, state, partials, grid, stream
     "akr_odometry_pyramid": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
 }
 

@@ -38,6 +38,9 @@ N_SUMS = 30  # 21 JtJ upper triangle + 6 Jtr + n_valid, squared cost, n_source
 STATE = 16  # pose 3x4, convergence flag, fitness, rmse, n_valid
 MAX_LEVELS = 16  # kMaxLevels in the .cu
 PLANES = 8  # kPlanes in the .cu: i_s, z, xs, ys, gx, gy, gdx, gdy per source pixel
+RESIDENT_PLANES = 4  # kResidentPlanes: the large route's gx, gy, gdx, gdy per resident pixel
+SHARED = -1  # kShared: a level's route with all PLANES planes of its band in shared memory
+MAX_PIXELS = 1 << 24  # kMaxPixels: the most pixels a level may have (exact float coordinates)
 
 # (6, 6) -> index of the upper-triangle JtJ entry in the sums vector
 _JTJ = [[0] * 6 for _ in range(6)]
@@ -233,23 +236,35 @@ def pack_levels(pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig, device):
     return ptrs, dims, intr_f
 
 
-def oversized_levels(dims, grid: int, band: int) -> list:
-    """The levels that iterate and have more pixels than the kernel's grid
-    holds in shared memory: ``grid`` CTAs of ``band`` pixels each (930,072
-    on an H100). A pyramid with any such level keeps the source planes of
-    all its levels in a global scratch buffer instead (the same arithmetic,
-    slower). ``dims`` is :func:`pack_levels`' [H, W, iterations] per level."""
-    return [lvl for lvl in range(len(dims) // 3)
-            if dims[3 * lvl + 2] > 0 and dims[3 * lvl] * dims[3 * lvl + 1] > grid * band]
+def resident_pixels(H: int, W: int, grid: int, band: int) -> int:
+    """The pixels of each of a level's ``grid`` bands (``ceil(H * W /
+    grid)`` pixels) whose ``RESIDENT_PLANES`` gradient planes the
+    large-frame route keeps in shared memory: as many as fit where the
+    shared route keeps ``band`` pixels' ``PLANES`` planes."""
+    return min(-(-H * W // grid), band * PLANES // RESIDENT_PLANES)
 
 
-def scratch_floats(dims, grid: int) -> int:
-    """Floats of the global scratch the kernel needs: ``PLANES`` planes of
-    the largest band (``ceil(H * W / grid)`` pixels over the levels that
-    iterate) for each of the ``grid`` CTAs."""
-    cap = max((dims[3 * lvl] * dims[3 * lvl + 1] + grid - 1) // grid
-              for lvl in range(len(dims) // 3) if dims[3 * lvl + 2] > 0)
-    return grid * PLANES * cap
+def level_routes(dims, grid: int, band: int) -> list:
+    """Where each level's source planes live in the launch, one int a level
+    for the kernel: :data:`SHARED` when its band, ``ceil(H * W / grid)``
+    pixels, fits the ``band`` pixels whose ``PLANES`` planes one CTA's
+    shared memory holds (930,072 pixels over 132 CTAs on an H100: 640x576,
+    1280x720 and every coarser level); else the large-frame route, with
+    :func:`resident_pixels` of each band resident; the kernel recomputes
+    the rest from the source planes in every iteration. A level that does
+    not iterate is :data:`SHARED` (it is skipped). ``dims`` is
+    :func:`pack_levels`' [H, W, iterations] per level. Raises
+    ``ValueError`` on a level of more than :data:`MAX_PIXELS` pixels, which
+    the kernel refuses, iterated or not."""
+    routes = []
+    for lvl in range(len(dims) // 3):
+        H, W, iters = dims[3 * lvl:3 * lvl + 3]
+        if H * W > MAX_PIXELS:
+            raise ValueError(f"odometry_pyramid: level {lvl} has {H}x{W} pixels, over the "
+                             f"{MAX_PIXELS} any route takes")
+        fits = -(-H * W // grid) <= band
+        routes.append(SHARED if iters <= 0 or fits else resident_pixels(H, W, grid, band))
+    return routes
 
 
 def launch_grid() -> tuple[int, int]:
@@ -266,10 +281,11 @@ def pyramid_cuda(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
                  term_i: float, term_d: float) -> None:
     """Every level, coarse to fine, on the card in ONE cooperative launch on
     PyTorch's current stream; updates ``state`` in place with no host
-    synchronization. Every level's planes are checked before the launch; a
-    pyramid with a level larger than the grid's shared memory
-    (:func:`oversized_levels`) gets a global scratch for its planes,
-    allocated here so that the launch stays capture-safe."""
+    synchronization. Every level's planes are checked before the launch,
+    and each level takes the route :func:`level_routes` plans for it: a
+    level larger than the grid's shared memory keeps what fits there and
+    recomputes the rest, so nothing is allocated per pixel, at any frame
+    size; the launch stays capture-safe."""
     dev = state.device
     build.check_tensor(state, torch.float32, (STATE,), dev, "state")
     ptrs, dims, intr_f = pack_levels(pyr_s, pyr_t, intr, cfg, dev)
@@ -278,16 +294,14 @@ def pyramid_cuda(state, pyr_s, pyr_t, intr: Intrinsics, cfg: OdometryConfig,
     lib = build.library()
     with torch.cuda.device(dev):
         grid, band = launch_grid()
-        scratch = (torch.empty(scratch_floats(dims, grid), dtype=torch.float32, device=dev)
-                   if oversized_levels(dims, grid, band) else None)
+        routes = level_routes(dims, grid, band)
         # the partial rows: one tagged 64-bit word per sum (zeroed by the launch)
         partials = torch.empty((2, grid, N_SUMS), dtype=torch.int64, device=dev)
         build.check(lib.akr_odometry_pyramid(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-            build.float_params(*intr_f), len(dims) // 3,
+            build.float_params(*intr_f), len(routes), (ctypes.c_int * len(routes))(*routes),
             build.float_params(*_shared_params(cfg, term_i, term_d)), state.data_ptr(),
-            partials.data_ptr(), None if scratch is None else scratch.data_ptr(), grid,
-            build.stream_handle(dev)), KERNEL)
+            partials.data_ptr(), grid, build.stream_handle(dev)), KERNEL)
     build.launches[KERNEL] += 1
 
 

@@ -230,9 +230,12 @@ worklist, odometry pyramid [20, 10, 5]):
    frames, the keyframe jump and its ladder rendered aligned); relocalization
    at 1280x720 (``reloc_phase`` on the aligned sweep at the default
    worklist); and one frame-to-frame pass at 1920x1080 (``hd_phase``, the
-   1080p intrinsics, 16 frames: B1 and B2 against their plain versions, B2
-   on its global-memory instance, B1 16 / B2 15, ATE <= 20 mm, no
-   overflow, ms/frame beside 33.3 ms);
+   1080p intrinsics, 16 frames: B1 and B2 against their plain versions, B2's
+   level 0 on the large-frame route, B1 16 / B2 15, ATE <= 20 mm, no
+   overflow, ms/frame beside 33.3 ms), and B2 on one color-aligned
+   3840x2160 pair (``uhd_check``, the k4a's RES_2160P: levels 0 and 1 on the
+   large-frame route) against its plain version with its device time and
+   bound;
 20. runs the port's ``bench.py`` (``bench_phase``): ``python -m
    azurekinect3dreconstruction_tpu_torch.cli.bench`` in a subprocess, at
    ``bench.py``'s sizes and by its methods, logging its JSON line and its
@@ -247,10 +250,13 @@ volume (the identity permutation) beside its bound. Between steps 1 and 2
 it holds B1 at R = 24 (a block resolution without an instance of its own)
 against its plain version, B2 over a 5-level pyramid ([20, 10, 5, 5, 5],
 and [0, 0, 0, 0, 5], where only the coarsest level moves the pose) against
-its plain version at 640x576, and runs one 1024x1024 (WFOV unbinned) frame
-pair through ``compute_odometry_fast``: B2 on its global-memory path
-against the plain version on the card, with its device time and bound,
-and the same 5-level schedules there.
+its plain version at 640x576, B2's large-frame route forced on every level
+against its shared route to the bit at 640x576 (and at 1280x720 in step
+18), on 3 and 5 levels (``b2_route_check``), and runs one 1024x1024 (WFOV
+unbinned) frame pair through ``compute_odometry_fast``: B2 (level 0 on the
+large-frame route) against the plain version on the card, with its device
+time and bound, and the same 5-level schedules there. Every B2 check
+prints the route each level took.
 
 Prints the card's name and power limit, the build time, the launch counts,
 per-frame fitness, ATE/RPE, ms/frame, mesh, frame-to-model and two-camera
@@ -261,13 +267,22 @@ any failure or when no CUDA device is available. Needs no jax.
 
     python3 chip_smoke.py --odometry
 
-times only the odometry of the package beside the script, with calls that
-every version of the port has: B2's device time and launches per frame pair
-and the odometry phase (``compute_odometry_fast`` on the first frame pair),
-and the mono loop's ms/frame over the 16 frames. It prints the card's name
-and power limit, then one JSON line. To compare a change with its parent on
-one card, copy this script into an unpacked parent commit and run both in
-one call: parent, change, change, parent.
+times only the odometry of the package beside the script: B2's device time
+and launches per frame pair and the odometry phase (``compute_odometry_fast``
+on the first frame pair), and the mono loop's ms/frame over the 16 frames;
+then B2 on one frame pair at 640x576, at the color-aligned 1280x720,
+1920x1080, 3840x2160 and 4096x3072, and at 1024x1024 WFOV: the route of
+each level, B2's device us per launch (the median of ``ODO_ROUNDS``
+profiler rounds), ``compute_odometry_fast``'s ms a call (synchronized,
+median of ``ODO_REPS``), the pose's 12 floats, fitness and rmse as float32
+hex, and level 0 alone on the route its plan gives it, forced onto the
+large-frame route and forced there with nothing resident, each with ps
+per valid pixel-iteration. The per-pair part needs the per-level plan
+(``odometry_kernels.level_routes``). It prints the card's name and power
+limit, a line a pair, then one JSON line. To compare a change with its
+parent on one card, copy this script into an unpacked parent commit and
+run both in one call: parent, change, change, parent; equal hex
+means the same pose to the bit.
 
     python3 chip_smoke.py --integrate
 
@@ -491,6 +506,12 @@ N_ALIGNED_DUAL_PAIRS = 24
 N_ALIGNED_DUAL_CPU_PAIRS = 2
 HD_SCALE = 1.5
 N_HD_FRAMES = 16
+# the k4a's RES_2160P color mode (3840x2160: 3 x the 720p intrinsics), whose level 0 exceeds
+# what the L2 holds beside its target planes; --odometry's device us per launch, the median of
+# ODO_ROUNDS torch.profiler rounds of ODO_ROUND_CALLS calls each
+UHD_SCALE = 3.0
+ODO_ROUNDS = 5
+ODO_ROUND_CALLS = 10
 
 
 def _log(msg: str) -> None:
@@ -1359,9 +1380,9 @@ def b1_frame_check(dec, gt, intr, rays, tcfg, rows: int, gpu: str, what: str) ->
 def b2_pair_check(dec, intr, ocfg, gpu: str, what: str):
     """B2 on the first two of ``dec``'s frames: the kernel against
     ``pyramid_plain`` within ``B2_POSE_TOL`` / ``B2_FITNESS_TOL`` and a
-    second launch equal to the bit; the instance the launch takes (shared
-    memory unless a level that iterates outgrows ``launch_grid``'s grid x
-    band); wrapper and plain ms on one prebuilt pyramid, the whole call's
+    second launch equal to the bit; the route each level takes
+    (``b2_routes``: shared memory unless the level outgrows ``launch_grid``'s
+    grid x band); wrapper and plain ms on one prebuilt pyramid, the whole call's
     device us and ms, and the bound from this pair's own iterations.
     Returns (failures, figures for the kernels line)."""
     import torch
@@ -1383,14 +1404,13 @@ def b2_pair_check(dec, intr, ocfg, gpu: str, what: str):
     pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
     grid, band = odo.launch_grid()
     dims = odo.pack_levels(pyr_s, pyr_t, intr, ocfg, dev)[1]
-    oversized = odo.oversized_levels(dims, grid, band)
-    instance = "global scratch (kGlobal)" if oversized else "shared memory"
+    routes = b2_routes(odo, dims, grid, band)
     level_px = [dims[3 * lvl] * dims[3 * lvl + 1] for lvl in range(levels)]
     _log(f"B2 odometry_pyramid at {what}: max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} "
          f"(fitness kernel {float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); a second "
          f"launch equal to the bit: {same}; levels {level_px} pixels; grid {grid} CTAs x band "
          f"{band} pixels = {grid * band}, headroom {grid * band - level_px[0]} pixels over the "
-         f"finest level; oversized levels {oversized}: the {instance} instance  [{gpu}]")
+         f"finest level; routes by level {routes}  [{gpu}]")
     failures = []
     if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same):
         failures.append(f"B2 at {what} disagrees with its plain version or with itself")
@@ -1416,7 +1436,7 @@ def b2_pair_check(dec, intr, ocfg, gpu: str, what: str):
                           bound_ms=bound, bound_by=by, library_ms=None, device_us=us_k,
                           second_launch_equal=same, odometry_call_ms=ms_call,
                           max_level_pixels=grid * band, headroom_pixels=grid * band - level_px[0],
-                          instance=instance)
+                          routes=routes)
 
 
 def b1_odd_r_check(dec, gt, intr, rays, dev, gpu: str, R: int = B1_ODD_R):
@@ -1518,32 +1538,69 @@ def b2_five_level_check(args, ocfg, gpu: str, what: str):
     return failures, launches, worst
 
 
-def wfov_check(cfg, dev, gpu: str):
-    """One 1024x1024 (WFOV unbinned) frame pair of the sweep through
-    ``compute_odometry_fast`` (B2 on its global-memory path) against the
-    plain version on the card: pose and fitness to B2's tolerances, a
-    second launch equal to the bit; B2's device time beside its bound.
-    Returns (failures, keys for B2's entry of the kernels line)."""
+def b2_route_check(args, ocfg, gpu: str) -> list:
+    """The large-frame route forced through the plan (``b2_forced_large``)
+    on every level of one frame pair's pyramid that fits shared memory
+    (``args`` as ``compute_odometry_fast`` takes them, the configuration
+    last), at the main path's 3 levels and the first of
+    ``B2_FIVE_LEVEL_SCHEDULES``' 5, with every band pixel's gradients
+    resident, with half of level 0's and with none (the rest recomputed in
+    every iteration): the same pose, fitness and rmse to the bit as the
+    shared route. Returns failures."""
     import torch
 
-    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
-    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
-        SyntheticCamera,
-        orbit_trajectory,
-    )
     from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
 
-    intr, ocfg = Intrinsics(*WFOV), cfg.odometry
-    cam = SyntheticCamera(intrinsics=intr, device=dev)
-    (d0, _, i0), (d1, _, i1) = [_decode(_quantize(cam.render(T)), cfg, dev)
-                                for T in orbit_trajectory(64, radius=0.35, angle_span=1.3)[:2]]
+    i0, d0, i1, d1, intr = args[:5]
+    size = f"{intr.width}x{intr.height}"
+    grid, band = odo.launch_grid()
+    half = -(-intr.width * intr.height // grid) // 2
+    failures = []
+    for iters in (ocfg.pyramid_iters, B2_FIVE_LEVEL_SCHEDULES[0]):
+        cfg = dataclasses.replace(ocfg, pyramid_iters=iters)
+        levels = len(iters)
+        dims = odo.pack_levels(build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels),
+                               intr, cfg, d0.device)[1]
+        plan = b2_routes(odo, dims, grid, band)
+        shared = odo.odometry_pyramid(odo.pyramid_cuda, *args[:5], cfg)
+        equal = {}
+        for resident in (None, half, 0):
+            with b2_forced_large(odo, resident):
+                large = odo.odometry_pyramid(odo.pyramid_cuda, *args[:5], cfg)
+                forced = b2_routes(odo, dims, grid, band)[0]
+            equal[forced] = bool(torch.equal(large.T_target_source, shared.T_target_source)
+                                 and torch.equal(large.fitness, shared.fitness)
+                                 and torch.equal(large.rmse, shared.rmse))
+        torch.cuda.synchronize()
+        _log(f"B2 at {size}, {levels} levels {list(iters)}: the plan's routes {plan}; every "
+             f"level forced onto the large route, pose, fitness and rmse equal to the shared "
+             f"route's to the bit, by level 0's route: {json.dumps(equal)}  [{gpu}]")
+        if plan != ["shared"] * levels or not all(equal.values()):
+            failures.append(f"B2's large route at {size} over {levels} levels differs from the "
+                            "shared route, or the plan did not take the shared route")
+    return failures
+
+
+def wfov_check(cfg, dev, gpu: str):
+    """One 1024x1024 (WFOV unbinned) frame pair of the sweep through
+    ``compute_odometry_fast`` against the plain version on the card: pose
+    and fitness to B2's tolerances, a second launch equal to the bit, level
+    0 on the large-frame route and the coarser levels on the shared one;
+    B2's device time beside its bound. Returns (failures, keys for B2's entry of the kernels line)."""
+    import torch
+
+    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
+    from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
+
+    ocfg = cfg.odometry
+    i0, d0, i1, d1, intr = _wfov_pair(cfg, dev)
     args = (i0, d0, i1, d1, intr, ocfg)
     levels = len(ocfg.pyramid_iters)
     pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
     grid, band = odo.launch_grid()
     _, dims, _ = odo.pack_levels(pyr_s, pyr_t, intr, ocfg, dev)
-    oversized = odo.oversized_levels(dims, grid, band)
+    routes = b2_routes(odo, dims, grid, band)
     rk = odo.compute_odometry_fast(*args)
     rp = odo.odometry_pyramid(odo.pyramid_plain, *args)
     rk2 = odo.compute_odometry_fast(*args)
@@ -1562,9 +1619,9 @@ def wfov_check(cfg, dev, gpu: str):
     flops = pixels * B2_FLOPS_PROLOGUE + n_src * B2_FLOPS_WARP + n_valid * B2_FLOPS_VALID
     n_bytes = 4 * 4 * pixels + 64
     bound, by = _bound(n_bytes, flops)
-    _log(f"B2 at 1024x1024 (WFOV unbinned): levels {oversized} over the grid's {grid * band} "
-         f"shared-memory pixels, so the global-memory path ({odo.scratch_floats(dims, grid) * 4 / 1e6:.2f} "
-         f"MB scratch); max |dpose| {err_T:.3g}, |dfitness| {err_f:.3g} (fitness kernel "
+    _log(f"B2 at 1024x1024 (WFOV unbinned): routes by level {routes} (the grid's shared "
+         f"memory holds {grid * band} pixels of a level); max |dpose| {err_T:.3g}, |dfitness| "
+         f"{err_f:.3g} (fitness kernel "
          f"{float(rk.fitness):.6f}, plain {float(rp.fitness):.6f}); a second launch equal to the "
          f"bit: {same}")
     _log(f"B2 at 1024x1024 per frame pair: wrapper {ms_k:.4f} ms (CUDA events), device "
@@ -1574,14 +1631,15 @@ def wfov_check(cfg, dev, gpu: str):
          f"{n_src:.0f} / {n_valid:.0f} source-valid / valid pixel-iterations, "
          f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)  [{gpu}]")
     failures, five_launches, five_err = b2_five_level_check(args, ocfg, gpu,
-                                                             "WFOV, global-memory path")
-    if oversized != [0]:
-        failures.append(f"the 1024x1024 pyramid's oversized levels are {oversized}, not [0]")
+                                                             "WFOV, level 0 on the large route")
+    if not (routes[0].startswith("large") and routes[1:] == ["shared"] * (levels - 1)):
+        failures.append(f"the 1024x1024 pyramid's routes are {routes}, not level 0 on the "
+                        "large route and the others shared")
     if not (err_T <= B2_POSE_TOL and err_f <= B2_FITNESS_TOL and same and float(rk.fitness) > 0.5):
         failures.append("B2 at 1024x1024 disagrees with its plain version or with itself")
     return failures, dict(wfov_max_abs_err=max(err_T, err_f), wfov_ms=ms_k, wfov_plain_ms=ms_p,
                           wfov_device_us=us_k, wfov_bound_ms=bound, wfov_bound_by=by,
-                          wfov_five_level_max_abs_err=five_err,
+                          wfov_five_level_max_abs_err=five_err, wfov_routes=routes,
                           launches_wfov_five_level=five_launches)
 
 
@@ -4965,7 +5023,8 @@ def hd_phase(dev, gpu: str):
     B2 once a pair, no gate rejection, no overflow, ATE <= 20 mm against
     the color camera's truth, ms/frame beside the 33.3 ms limit. Before
     it, B1 on one frame and B2 on one pair against their plain versions (B2's
-    level 0 outgrows the shared-memory band: its global-memory instance).
+    level 0 outgrows the shared-memory band: the large-frame route, levels 1
+    and 2 the shared one).
     Returns (failures, launch counts, the kernels' figures by name)."""
     import numpy as np
 
@@ -4993,9 +5052,10 @@ def hd_phase(dev, gpu: str):
         failures.append(f"B1 at {size} differs from its plain version")
     b2_failures, figures[odo.KERNEL] = b2_pair_check(dec, intr, cfg.odometry, gpu, size)
     failures += b2_failures
-    if not figures[odo.KERNEL]["instance"].startswith("global"):
-        failures.append(f"B2 at {size} took its {figures[odo.KERNEL]['instance']} instance, "
-                        "not the global-memory one")
+    routes = figures[odo.KERNEL]["routes"]
+    if not (routes[0].startswith("large") and routes[1:] == ["shared"] * (len(routes) - 1)):
+        failures.append(f"B2 at {size} took the routes {routes}, not level 0 on the large route "
+                        "and the others shared")
     _run_frames(MonoOdometryTSDF(intr, cfg, device=dev), raw[:3], False)
     pipe = MonoOdometryTSDF(intr, cfg, device=dev)
     _sync(dev)
@@ -5031,12 +5091,32 @@ def hd_phase(dev, gpu: str):
     return failures, counts, figures
 
 
+def uhd_check(dev, gpu: str):
+    """B2 on the first two color-aligned 3840x2160 frames (the k4a's
+    RES_2160P color mode, 3 x the 720p intrinsics), made as ``hd_phase``
+    makes its frames (``b2_pair_check``): against its plain version within
+    B2's tolerances, a second launch equal to the bit, its device us beside
+    its bound; levels 0 and 1 on the large-frame route, level 2 on the
+    shared one. Returns (failures, B2's figures)."""
+    cfg = _aligned_cfg()
+    cal = _aligned_cals(UHD_SCALE)[0]
+    _, raw, _, _ = _aligned_frames(dev, 2, cal)
+    dec = [_decode(r, cfg, dev) for r in raw]
+    size = f"{cal.color.width}x{cal.color.height}"
+    failures, figures = b2_pair_check(dec, cal.color, cfg.odometry, gpu, size)
+    routes = figures["routes"]
+    if not (all(r.startswith("large") for r in routes[:2]) and routes[2:] == ["shared"]):
+        failures.append(f"B2 at {size} took the routes {routes}, not levels 0 and 1 on the large "
+                        "route and level 2 shared")
+    return failures, figures
+
+
 def aligned_paths(dev, gpu: str, jump_draws: int = JUMP_DRAWS):
     """The live camera's other paths at its color-aligned frame sizes:
     ``aligned_dual_phase``, ``aligned_recorder_phase`` (its ladder from
-    ``jump_draws`` fresh seeds), ``aligned_reloc_phase`` and ``hd_phase``. Returns
-    (failures, {kernel name: the launch counts of each path and the
-    kernels' figures at the new sizes})."""
+    ``jump_draws`` fresh seeds), ``aligned_reloc_phase``, ``hd_phase`` and
+    ``uhd_check``. Returns (failures, {kernel name: the launch counts of
+    each path and the kernels' figures at the new sizes})."""
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
     from azurekinect3dreconstruction_tpu_torch.ops.kernels import tsdf_kernels as tk
 
@@ -5044,6 +5124,7 @@ def aligned_paths(dev, gpu: str, jump_draws: int = JUMP_DRAWS):
     rec_failures, rec_counts = aligned_recorder_phase(dev, gpu, jump_draws)
     reloc_failures, reloc_counts = aligned_reloc_phase(dev, gpu)
     hd_failures, hd_counts, hd_figures = hd_phase(dev, gpu)
+    uhd_failures, uhd_figures = uhd_check(dev, gpu)
     out = {}
     for name in (tk.KERNEL, odo.KERNEL):
         out[name] = {"launches_aligned_dual": dual_counts[name],
@@ -5052,7 +5133,8 @@ def aligned_paths(dev, gpu: str, jump_draws: int = JUMP_DRAWS):
                      "launches_1920x1080": hd_counts[name],
                      "aligned_1920x1080": hd_figures.get(name, {})}
     out[tk.KERNEL]["aligned_dual_camera1"] = b1_dual or {}
-    return dual_failures + rec_failures + reloc_failures + hd_failures, out
+    out[odo.KERNEL]["aligned_3840x2160"] = uhd_figures
+    return dual_failures + rec_failures + reloc_failures + hd_failures + uhd_failures, out
 
 
 def _aligned_frames(dev, n: int, cal=None):
@@ -5198,6 +5280,8 @@ def aligned_phase(dev, gpu: str):
         failures.append(f"B1 at {size} differs from its plain version")
     b2_failures, figures[odo.KERNEL] = b2_pair_check(dec, intr, ocfg, gpu, size)
     failures += b2_failures
+    (d0, _, i0), (d1, _, i1) = dec[0], dec[1]
+    failures += b2_route_check((i0, d0, i1, d1, intr, ocfg), ocfg, gpu)
 
     # -- the live loop: frame to frame, then frame to model ---------------------
     gt_np = [g.cpu().numpy().astype(np.float64) for g in truth]
@@ -5398,7 +5482,7 @@ def main() -> int:
                         replaces="azurekinect3dreconstruction_tpu/ops/pallas/odometry_kernels.py:487",
                         graph_replay_ms=ms_graph, **b2))
     five_failures, five_launches, five_err = b2_five_level_check(args, ocfg, gpu, "NFOV")
-    failures += five_failures
+    failures += five_failures + b2_route_check(args, ocfg, gpu)
     kernels[1].update(five_level_max_abs_err=five_err, launches_five_level=five_launches)
     wfov_failures, wfov = wfov_check(cfg, dev, gpu)
     failures += wfov_failures
@@ -5559,9 +5643,148 @@ def _port_beside(device: str = "cuda"):
     return None
 
 
+def _f32_hex(t) -> list:
+    """The float32 values of ``t`` as 8-digit hex words, to compare runs to
+    the bit."""
+    import torch
+
+    bits = t.detach().to(torch.float32).reshape(-1).cpu().contiguous().view(torch.int32)
+    return [format(b & 0xFFFFFFFF, "08x") for b in bits.tolist()]
+
+
+def b2_routes(odo, dims, grid: int, band: int) -> list:
+    """Where each level's source planes live in B2's launch, in words: the
+    shared route, the large-frame route with the pixels of each CTA's band
+    whose gradients stay in shared memory, or not iterated."""
+    levels = range(len(dims) // 3)
+    out = []
+    for lvl, r in zip(levels, odo.level_routes(dims, grid, band)):
+        chunk = -(-dims[3 * lvl] * dims[3 * lvl + 1] // grid)
+        out.append("not iterated" if dims[3 * lvl + 2] <= 0 else "shared" if r == odo.SHARED
+                   else f"large ({r} of {chunk} band pixels resident)")
+    return out
+
+
+@contextlib.contextmanager
+def b2_forced_large(odo, resident=None):
+    """``pyramid_cuda`` with every level on the large-frame route, the
+    gradients of ``resident`` pixels of each CTA's band in shared memory
+    (None: as many as fit, ``resident_pixels``): ``level_routes`` replaced
+    by that plan for the block."""
+    cap = 1 << 30 if resident is None else resident
+    saved = odo.level_routes
+    odo.level_routes = lambda dims, grid, band: [
+        min(odo.resident_pixels(H, W, grid, band), cap) for H, W in zip(dims[::3], dims[1::3])]
+    try:
+        yield
+    finally:
+        odo.level_routes = saved
+
+
+def _b2_launch_us(call):
+    """B2's device us per launch of ``call``: the median of ``ODO_ROUNDS``
+    ``torch.profiler`` rounds of ``ODO_ROUND_CALLS`` calls each (``_device_us``),
+    and the rounds."""
+    import statistics
+
+    rounds = [_device_us(call, ODO_ROUND_CALLS, "odometry")[0] for _ in range(ODO_ROUNDS)]
+    seen = [r for r in rounds if r is not None]
+    return (statistics.median(seen) if seen else None), rounds
+
+
+def _wfov_pair(cfg, dev):
+    """The first two bench sweep frames at 1024x1024 (WFOV unbinned),
+    decoded on ``dev``: (i0, d0, i1, d1, intrinsics)."""
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+    from azurekinect3dreconstruction_tpu_torch.io.synthetic import (
+        SyntheticCamera,
+        orbit_trajectory,
+    )
+
+    intr = Intrinsics(*WFOV)
+    cam = SyntheticCamera(intrinsics=intr, device=dev)
+    (d0, _, i0), (d1, _, i1) = [_decode(_quantize(cam.render(T)), cfg, dev)
+                                for T in orbit_trajectory(64, radius=0.35, angle_span=1.3)[:2]]
+    return i0, d0, i1, d1, intr
+
+
+def _aligned_pair(dev, scale: float):
+    """The first two color-aligned sweep frames at ``scale`` x the 720p
+    color intrinsics (1.5: 1920x1080, 3: 3840x2160), made as ``hd_phase``
+    makes its frames, decoded on ``dev``: (i0, d0, i1, d1, intrinsics)."""
+    cfg = _aligned_cfg()
+    cal = _aligned_cals(scale)[0]
+    _, raw, _, _ = _aligned_frames(dev, 2, cal)
+    (d0, _, i0), (d1, _, i1) = [_decode(r, cfg, dev) for r in raw]
+    return i0, d0, i1, d1, cal.color
+
+
+def _res3072_pair(dev):
+    """A color-aligned 4096x3072 frame pair (the k4a's RES_3072P: the whole
+    4:3 sensor at the 2160p mode's focal length, its principal point moved
+    by the margins), made as ``_aligned_pair`` makes the 3840x2160 one:
+    (i0, d0, i1, d1, intrinsics)."""
+    from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics
+
+    cfg = _aligned_cfg()
+    cal = _aligned_cals(UHD_SCALE)[0]
+    c = cal.color
+    cal = dataclasses.replace(cal, color=Intrinsics(4096, 3072, c.fx, c.fy, c.cx + 128.0,
+                                                    c.cy + 456.0))
+    _, raw, _, _ = _aligned_frames(dev, 2, cal)
+    (d0, _, i0), (d1, _, i1) = [_decode(r, cfg, dev) for r in raw]
+    return i0, d0, i1, d1, cal.color
+
+
+def b2_pair_timing(odo, args, dev) -> dict:
+    """B2 on one frame pair (``args`` as ``compute_odometry_fast`` takes
+    them): the routes of its levels, its device us per launch (median of
+    rounds), ``compute_odometry_fast``'s ms a call (the pyramids and the
+    launch, synchronized, median of ``ODO_REPS``), the pose, fitness and
+    rmse as float32 hex; then level 0 alone
+    (its own iterations, one launch a call) on the route the plan gives it,
+    forced onto the large-frame route and forced onto it with nothing
+    resident, each with its device us and ps per valid pixel-iteration."""
+    from azurekinect3dreconstruction_tpu_torch.ops.image import build_pyramid
+
+    i0, d0, i1, d1, intr, ocfg = args
+    dev = d0.device
+    grid, band = odo.launch_grid()
+    levels = len(ocfg.pyramid_iters)
+    pyr_s, pyr_t = build_pyramid(i0, d0, levels), build_pyramid(i1, d1, levels)
+    dims = odo.pack_levels(pyr_s, pyr_t, intr, ocfg, dev)[1]
+    res = odo.compute_odometry_fast(*args)
+    us, rounds = _b2_launch_us(lambda: odo.compute_odometry_fast(*args))
+    out = {"size": f"{intr.width}x{intr.height}", "routes": b2_routes(odo, dims, grid, band),
+           "device_us_median": us, "device_us_rounds": rounds,
+           "odometry_call_ms": _median_ms(lambda: odo.compute_odometry_fast(*args), dev,
+                                          ODO_REPS),
+           "pose_hex": _f32_hex(res.T_target_source[:3]), "fitness_hex": _f32_hex(res.fitness),
+           "rmse_hex": _f32_hex(res.rmse), "fitness": float(res.fitness)}
+    cfg1 = dataclasses.replace(ocfg, pyramid_iters=ocfg.pyramid_iters[:1])
+    terms = (0.0 if ocfg.term == "depth" else 1.0, 0.0 if ocfg.term == "color" else 1.0)
+    valid = b2_work(pyr_s[:1], pyr_t[:1], intr, cfg1, terms)[2]
+    one = lambda: odo.odometry_pyramid(odo.pyramid_cuda, i0, d0, i1, d1, intr, cfg1)
+    level0 = {"valid_pixel_iterations": valid,
+              "routes": {"plan": b2_routes(odo, dims[:3], grid, band)[0]}}
+    runs = [("plan", contextlib.nullcontext()), ("large", b2_forced_large(odo)),
+            ("large_nothing_resident", b2_forced_large(odo, 0))]
+    for name, ctx in runs:
+        with ctx:
+            t_us = _b2_launch_us(one)[0]
+            if name != "plan":
+                level0["routes"][name] = b2_routes(odo, dims[:3], grid, band)[0]
+        level0[f"{name}_us"] = t_us
+        level0[f"{name}_ps_per_valid_pixel_iteration"] = (None if t_us is None
+                                                          else t_us * 1e6 / valid)
+    out["level0"] = level0
+    return out
+
+
 def odometry_main() -> int:
     """``--odometry``: the odometry numbers of the package beside this
-    script, through calls every version of the port has."""
+    script; its per-pair part (``b2_pair_timing``) needs the per-level
+    plan."""
     import statistics
 
     import torch
@@ -5593,6 +5816,17 @@ def odometry_main() -> int:
     rejected = pipe.odometry_failures
     pipe.reset()
     loop_ms = _run_frames(pipe, raw, False)
+    del pipe
+    pairs = {"640x576": args}
+    for scale in (1.0, HD_SCALE, UHD_SCALE):
+        pair = _aligned_pair(dev, scale)
+        pairs[f"{pair[4].width}x{pair[4].height}"] = (*pair, cfg.odometry)
+    pairs["4096x3072"] = (*_res3072_pair(dev), cfg.odometry)
+    pairs["1024x1024"] = (*_wfov_pair(cfg, dev), cfg.odometry)
+    b2 = {}
+    for name, pair_args in pairs.items():
+        b2[name] = b2_pair_timing(odo, pair_args, dev)
+        _log(f"B2 at {name}: {json.dumps(b2[name])}  [{gpu}]")
     _log(json.dumps({
         "checkout": REPO, "gpu": gpu,
         "odometry_device_us_per_call": us, "odometry_kernels_per_call": per_call,
@@ -5601,7 +5835,10 @@ def odometry_main() -> int:
         "mono_ms_per_frame_synced_median": statistics.median(frame_ms[1:]),
         "mono_ms_per_frame_one_sync": loop_ms, "mono_gate_rejections": rejected,
         "pose": res.T_target_source.cpu().numpy().round(7).tolist(),
-        "fitness": float(res.fitness)}))
+        "fitness": float(res.fitness),
+        "b2_pairs": {k: {key: v[key] for key in ("routes", "device_us_median", "odometry_call_ms",
+                                                  "pose_hex", "fitness_hex", "rmse_hex")}
+                     for k, v in b2.items()}}))
     return 0
 
 

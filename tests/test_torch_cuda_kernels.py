@@ -5,6 +5,8 @@ jax nor the JAX package, so on a machine without jax run it as
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,8 +17,13 @@ from azurekinect3dreconstruction_tpu_torch.config import (
     RegistrationConfig,
     TSDFConfig,
 )
-from azurekinect3dreconstruction_tpu_torch.core.camera import Intrinsics, pixel_rays
+from azurekinect3dreconstruction_tpu_torch.core.camera import (
+    CameraCalibration,
+    Intrinsics,
+    pixel_rays,
+)
 from azurekinect3dreconstruction_tpu_torch.io.synthetic import SyntheticCamera, orbit_trajectory
+from azurekinect3dreconstruction_tpu_torch.ops.depth_to_color import transformed_depth
 from azurekinect3dreconstruction_tpu_torch.ops.image import rgb_to_intensity
 from azurekinect3dreconstruction_tpu_torch.ops.kernels import build
 from azurekinect3dreconstruction_tpu_torch.ops.kernels import odometry_kernels as odo
@@ -314,18 +321,22 @@ def test_odometry_kernel_matches_plain_at_five_levels(dev, frames, iters):
 
 @pytest.mark.parametrize("iters", [(8, 8, 8), (8, 8, 8, 4, 4)], ids=["3-level", "5-level"])
 def test_odometry_kernel_global_path_equals_shared_path(dev, frames, monkeypatch, iters):
-    """The global-memory instance, forced on a pyramid that fits shared
-    memory, does the same arithmetic in the same order: the same pose,
-    fitness and rmse to the bit (for pyramids of up to 4 levels and the
-    deeper ones, which run instances of their own)."""
+    """The large-frame route, forced through the plan on every level of a
+    pyramid that fits shared memory, does the same arithmetic in the same
+    order: the same pose, fitness and rmse to the bit as the shared route,
+    with every band pixel's gradients resident, with 100 of level 0's 175
+    (the rest recomputed in every iteration) and with none."""
     _, fr = frames
     args = _odometry_args(fr)
     cfg = OdometryConfig(pyramid_iters=iters)
     shared = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
-    monkeypatch.setattr(odo, "oversized_levels", lambda dims, grid, band: [0])
-    glob = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
-    assert torch.equal(glob.T_target_source, shared.T_target_source)
-    assert torch.equal(glob.fitness, shared.fitness) and torch.equal(glob.rmse, shared.rmse)
+    for resident in (1 << 30, 100, 0):
+        monkeypatch.setattr(odo, "level_routes", lambda dims, grid, band, n=resident: [
+            min(odo.resident_pixels(H, W, grid, band), n) for H, W in zip(dims[::3], dims[1::3])])
+        large = odo.odometry_pyramid(odo.pyramid_cuda, *args, cfg)
+        assert torch.equal(large.T_target_source, shared.T_target_source), resident
+        assert torch.equal(large.fitness, shared.fitness), resident
+        assert torch.equal(large.rmse, shared.rmse), resident
 
 
 def test_odometry_kernel_zero_iteration_levels(dev, frames):
@@ -419,12 +430,14 @@ def wfov_pair(dev):
 
 def test_odometry_kernel_refuses_an_oversized_level(dev, wfov_pair):
     """A 1024x1024 level (WFOV unbinned) is larger than the grid's shared
-    memory, so the launch keeps its planes in global memory: one launch,
-    pose <= 1e-4 and fitness <= 1e-3 against the plain version, the same
-    pose to the bit on a second launch."""
+    memory, so it takes the large-frame route and the coarser levels the
+    shared one: one launch, pose <= 1e-4 and fitness <= 1e-3 against the
+    plain version, the same pose to the bit on a second launch."""
     grid, band = odo.launch_grid()
     assert 1024 * 1024 > grid * band
     cfg = OdometryConfig(pyramid_iters=(6, 4, 2))
+    routes = odo.level_routes([1024, 1024, 6, 512, 512, 4, 256, 256, 2], grid, band)
+    assert routes[0] != odo.SHARED and routes[1:] == [odo.SHARED] * 2
     before = build.launches[odo.KERNEL]
     rk = odo.odometry_pyramid(odo.pyramid_cuda, *wfov_pair, cfg)
     assert build.launches[odo.KERNEL] == before + 1
@@ -451,6 +464,46 @@ def test_odometry_kernel_global_path_exits_as_the_shared_path(dev, wfov_pair):
                                  OdometryConfig(pyramid_iters=(1, 1, 1)))
     assert torch.equal(r_early.T_target_source, r_one.T_target_source)
     assert torch.equal(r_early.fitness, r_one.fitness)
+
+
+@pytest.fixture(scope="module")
+def hd_pair(dev):
+    """A color-aligned 1920x1080 frame pair (k4arecorder's default color
+    mode: 1.5 x the nominal 720p intrinsics), 2 cm apart: depth rendered in
+    the 640x576 depth camera and put through ``transformed_depth`` into the
+    color camera, as ``--source k4a`` and ``mkv:`` feed it."""
+    cal = CameraCalibration.azure_kinect_nominal()
+    cal = dataclasses.replace(cal, color=cal.color.scaled(1.5))
+    cam_d = SyntheticCamera(intrinsics=cal.depth, device=dev)
+    cam_c = SyntheticCamera(intrinsics=cal.color, device=dev)
+    rays = pixel_rays(cal.depth, dev)
+    out = []
+    for t in ((0.0, 0.0, 0.0), (0.02, -0.01, 0.01)):
+        T = np.eye(4)
+        T[:3, 3] = t
+        z = transformed_depth(cam_d.render(T @ cal.color_from_depth)[0], rays, cal)
+        out += [rgb_to_intensity(cam_c.render(T)[1]), z]
+    return (*out, cal.color)
+
+
+def test_odometry_kernel_matches_plain_at_1080p(dev, hd_pair):
+    """B2 on a 1920x1080 aligned pair at the default [20, 10, 5]: level 0
+    on the large-frame route, levels 1 and 2 on the shared one; one launch,
+    pose <= 1e-4 and fitness <= 1e-3 against the plain version, the same
+    pose, fitness and rmse to the bit on a second launch."""
+    cfg = OdometryConfig()
+    grid, band = odo.launch_grid()
+    routes = odo.level_routes([1080, 1920, 20, 540, 960, 10, 270, 480, 5], grid, band)
+    assert routes[0] != odo.SHARED and routes[1:] == [odo.SHARED] * 2
+    before = build.launches[odo.KERNEL]
+    rk = odo.odometry_pyramid(odo.pyramid_cuda, *hd_pair, cfg)
+    assert build.launches[odo.KERNEL] == before + 1
+    rp = odo.odometry_pyramid(odo.pyramid_plain, *hd_pair, cfg)
+    torch.testing.assert_close(rk.T_target_source, rp.T_target_source, atol=1e-4, rtol=0)
+    assert abs(float(rk.fitness) - float(rp.fitness)) <= 1e-3 and float(rk.fitness) > 0.5
+    rk2 = odo.odometry_pyramid(odo.pyramid_cuda, *hd_pair, cfg)
+    assert torch.equal(rk.T_target_source, rk2.T_target_source)
+    assert torch.equal(rk.fitness, rk2.fitness) and torch.equal(rk.rmse, rk2.rmse)
 
 
 def test_mono_pipeline_on_cuda_matches_cpu(dev, frames):

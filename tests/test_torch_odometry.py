@@ -243,21 +243,55 @@ def test_pyramid_cuda_refuses_before_building(pair, monkeypatch, case):
     assert build.launches[odo.KERNEL] == before
 
 
-@pytest.mark.parametrize("dims, fits", [
-    ([576, 640, 20, 288, 320, 10, 144, 160, 5], True),  # NFOV unbinned
-    ([1024, 1024, 20, 512, 512, 10, 256, 256, 5], False),  # WFOV unbinned
-    ([1024, 1024, 0, 512, 512, 10, 256, 256, 5], True),  # level 0 not iterated
-])
-def test_check_band_refuses_a_level_over_the_shared_memory(dims, fits):
-    """The level plan at an H100's grid and band (132 CTAs of 7,078 pixels,
-    32 B of shared memory a pixel): a pyramid whose levels that iterate fit
-    takes the shared path everywhere; 1024x1024 WFOV takes the global path
-    because of level 0, with a 33.5 MB scratch (8 planes of 7,944-pixel
-    bands)."""
-    assert odo.oversized_levels(dims, 132, 7078) == ([] if fits else [0])
-    if not fits:
-        assert odo.scratch_floats(dims, 132) == 132 * 8 * 7944
-        assert odo.scratch_floats(dims, 132) * 4 / 1e6 == pytest.approx(33.55, abs=0.01)
+# an H100's grid and band (132 CTAs; 930,072 / 132 = 7,046 pixels of 8 planes a CTA), the
+# large route's resident pixels (2 x band: 4 planes of each) and shorthands for the plan
+H100_GRID, H100_BAND = 132, 7046
+RESIDENT = 2 * H100_BAND
+S = odo.SHARED
+
+
+@pytest.mark.parametrize("dims, routes", [
+    ([576, 640, 20, 288, 320, 10, 144, 160, 5], [S, S, S]),  # NFOV unbinned
+    ([1024, 1024, 20, 512, 512, 10, 256, 256, 5], [7944, S, S]),  # WFOV unbinned
+    ([1024, 1024, 0, 512, 512, 10, 256, 256, 5], [S, S, S]),  # level 0 not iterated
+    ([1080, 1920, 20, 540, 960, 10, 270, 480, 5], [RESIDENT, S, S]),  # k4arecorder's 1080p
+    ([2160, 3840, 20, 1080, 1920, 10, 540, 960, 5], [RESIDENT, RESIDENT, S]),  # RES_2160P
+], ids=["nfov", "wfov", "wfov-level0-idle", "1080p", "2160p"])
+def test_check_band_refuses_a_level_over_the_shared_memory(dims, routes):
+    """The per-level plan at an H100's grid and band: a level whose band
+    fits the shared memory takes the shared route, each larger one the
+    large-frame route with as many band pixels resident as 4 gradient
+    planes fit (all 7,944 at 1024x1024, 14,092 of 15,710 at 1080p and of
+    2160p's 62,837), so levels 1 and 2 of 1080p and WFOV go back to shared
+    memory. No route
+    sizes a scratch: every iterated level's planes fit one CTA's shared
+    memory."""
+    assert odo.level_routes(dims, H100_GRID, H100_BAND) == routes
+    assert not hasattr(odo, "scratch_floats")
+    for lvl, r in enumerate(routes):
+        if dims[3 * lvl + 2] <= 0:
+            continue  # skipped: no planes
+        band_px = -(-dims[3 * lvl] * dims[3 * lvl + 1] // H100_GRID)
+        floats = band_px * odo.PLANES if r == S else r * odo.RESIDENT_PLANES
+        assert floats <= H100_BAND * odo.PLANES
+
+
+def test_level_routes_resident_pixels_and_refused():
+    """``resident_pixels``, the large route's resident count the plan
+    gives an oversized level and the checks clip to force the route: a
+    whole band where its gradients fit (640x576's levels, 1024x1024), else
+    what 4 planes of the shared route's band fit (1080p). A level past
+    ``MAX_PIXELS`` has no route and raises, iterated or not, as the kernel
+    refuses it either way."""
+    levels = [(576, 640), (288, 320), (144, 160), (1024, 1024), (1080, 1920)]
+    assert [odo.resident_pixels(H, W, H100_GRID, H100_BAND) for H, W in levels] == [
+        2793, 699, 175, 7944, RESIDENT]
+    huge = [4097, 4096, 20, 2048, 2048, 10]
+    for iters in (20, 0):
+        with pytest.raises(ValueError, match="over the"):
+            odo.level_routes([4097, 4096, iters] + huge[3:], H100_GRID, H100_BAND)
+    assert odo.level_routes([4096, 4096, 20] + huge[3:], H100_GRID, H100_BAND) == [RESIDENT,
+                                                                                   RESIDENT]
 
 
 def test_color_term_matches_pallas_kernel(pair):
